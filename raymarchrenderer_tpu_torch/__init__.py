@@ -6,13 +6,16 @@ CUDA kernels for the NVIDIA H100 (`csrc/`).  It imports torch and numpy
 only, never jax and never the reference package.
 
   * `core`    — vector math, counter-based RNG, SDFs, sampling, camera
-  * `scene`   — `.scene` parsing, the object node library, builtin scenes
+  * `scene`   — `.scene` parsing, the object and material node
+                libraries, `Scene.shade`, builtin scenes
   * `render`  — config, ray generation, normals, the spectral band table
-                and the eager megakernel schedule (the kernel's plain
-                version)
-  * `kernels` — the CUDA spectral megakernel's build, bind and wrapper
+                and the eager megakernel schedules (the kernels' plain
+                versions)
+  * `kernels` — the CUDA megakernels' (RGB and spectral) scene compiler,
+                build, bind and wrappers
   * `io`      — BMP/PNG/NPY writers
-  * `app`     — the `render --spectral` CLI
+  * `app`     — the `render` CLI (RGB, and `--spectral`)
+  * `utils`   — measurement tools for the card
 """
 
 from raymarchrenderer_tpu_torch.core.camera import Camera  # noqa: F401

@@ -1,13 +1,17 @@
-"""CLI frontend of the PyTorch port: `render --spectral`.
+"""CLI frontend of the PyTorch port: `render`, RGB or `--spectral`.
 
+    python -m raymarchrenderer_tpu_torch render --scene csg --direct-light \\
+        --width 1024 --height 1024 --spp 128 --chunk 128 --relax 2.0 \\
+        --normal-taps 4 --out out.png
     python -m raymarchrenderer_tpu_torch render --spectral \\
         --scene data/scenes/spectral.scene --width 1024 --height 1024 \\
         --spp 128 --chunk 8 --relax 2.0 --normal-taps 4 --out out.png
 
-The same flags as the JAX package's `render` subcommand that the spectral
-path reads, plus `--device` (default `cuda`; `--device cpu` runs the plain
-PyTorch version of the kernel).  On `cuda` with no card it fails.  The RGB
-transport, checkpoints and the other subcommands are not ported yet.
+The same flags as the JAX package's `render` subcommand that these paths
+read, plus `--device` (default `cuda`; `--device cpu` runs the plain
+PyTorch versions of the kernels).  On `cuda` with no card it fails.
+Env maps (`--env-map`), checkpoints and the other subcommands are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -78,9 +82,11 @@ def _add_render_flags(p):
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--look-at", type=float, nargs=3, default=None)
     p.add_argument("--fov", type=float, default=None)
+    p.add_argument("--direct-light", action="store_true",
+                   help="next-event estimation / soft shadows")
     p.add_argument("--spectral", action="store_true",
-                   help="gen-3 wavelength transport (RayMarch3.glsl); the "
-                        "only transport ported so far")
+                   help="gen-3 wavelength transport (RayMarch3.glsl); "
+                        "without it the gen-1 RGB path tracer")
     p.add_argument("--relax", type=float, default=0.0,
                    help="over-relaxed sphere tracing omega (e.g. 2.0); "
                         "0 = reference-parity stepMultiply=0.5 march")
@@ -104,32 +110,37 @@ def cmd_render(args):
 
     from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
     from raymarchrenderer_tpu_torch.kernels.march import (
-        prepare, render_progressive_fused_spectral)
+        prepare, render_progressive_fused, render_progressive_fused_spectral)
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         band_table)
 
-    if not args.spectral:
-        raise SystemExit("only the spectral transport is ported: pass "
-                         "--spectral")
     device = _device(args.device)
     scene = _build_scene(args)
     params = scene.init_params(device)
-    mats = band_table(scene, device)
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
     build_s = prepare(device)       # nvcc stays out of the render time
     if build_s is not None:
-        print(f"kernel built and loaded in {build_s:.3f}s")
+        print(f"kernels built and loaded in {build_s:.3f}s")
+    kind = "spectral" if args.spectral else "rgb"
     print(f"rendering {cfg.width}x{cfg.height} @ {cfg.spp} spp "
-          f"(spectral, {device})")
+          f"({kind}, {device})")
+    t0 = time.perf_counter()
 
     def progress(s, state):
-        print(f"  {s}/{cfg.spp} spp", flush=True)
+        el = time.perf_counter() - t0
+        print(f"  {s}/{cfg.spp} spp  ({s / max(el, 1e-9):.2f} spp/s)",
+              flush=True)
 
-    t0 = time.perf_counter()
-    img, n = render_progressive_fused_spectral(
-        scene, params, mats, cfg, corners, spp=cfg.spp,
-        samples_per_launch=args.chunk, callback=progress)
+    if args.spectral:
+        img, n = render_progressive_fused_spectral(
+            scene, params, band_table(scene, device), cfg, corners,
+            spp=cfg.spp, samples_per_launch=args.chunk, callback=progress)
+    else:
+        img, n = render_progressive_fused(
+            scene, params, cfg, corners, spp=cfg.spp,
+            samples_per_launch=args.chunk, direct_light=args.direct_light,
+            callback=progress)
     img_np = img.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     mpix_spp = cfg.width * cfg.height * n / 1e6

@@ -2,8 +2,8 @@
 
 Bit-identical to the JAX package's `core/rng.py` by construction: every
 random number is a pure function of (seed, px, py, folds..., counter), so
-no `torch.Generator` is involved and the CUDA kernel reproduces the same
-stream with native `uint32_t` arithmetic (`csrc/mega_spectral.cu`).
+no `torch.Generator` is involved and the CUDA kernels reproduce the same
+streams with native `uint32_t` arithmetic (`csrc/scene_map.cuh`).
 
 torch has no usable uint32 arithmetic on the CPU (`>>` on `torch.uint32`
 raises), so the plain version carries the 32-bit words in int64 tensors
@@ -96,3 +96,13 @@ class RNGStream:
     def next(self) -> torch.Tensor:
         """Fresh uniform [0, 1) tensor broadcast over the pixel coords."""
         return bits_to_uniform(self.next_bits())
+
+    def fork(self, tag: int) -> "RNGStream":
+        """Independent substream (Russian roulette, each light of NEE):
+        base' = avalanche(base + tag * W1), counter from 0."""
+        child = RNGStream.__new__(RNGStream)
+        child.px, child.py = self.px, self.py
+        child.base = _avalanche((self.base + (int(tag) * _W1 & _M32)) & _M32)
+        child._s2 = None
+        child._counter = 0
+        return child

@@ -71,6 +71,9 @@ class Vec3(NamedTuple):
     def max_component(self):
         return torch.maximum(self.x, torch.maximum(self.y, self.z))
 
+    def sum(self):
+        return self.x + self.y + self.z
+
     def abs(self) -> "Vec3":
         return Vec3(torch.abs(self.x), torch.abs(self.y), torch.abs(self.z))
 
@@ -91,6 +94,24 @@ def vselect(mask, a: Vec3, b: Vec3) -> Vec3:
 def vlerp(a: Vec3, b: Vec3, t) -> Vec3:
     """GLSL mix(a, b, t) = a*(1-t) + b*t."""
     return a * (1.0 - t) + b * t
+
+
+def reflect(d: Vec3, n: Vec3) -> Vec3:
+    """GLSL reflect: d - 2*dot(d,n)*n (d points *into* the surface)."""
+    return d - n * (2.0 * d.dot(n))
+
+
+def refract(d: Vec3, n: Vec3, eta) -> Vec3:
+    """GLSL refract(I, N, eta); the zero vector on total internal
+    reflection.  The sqrt argument is floored at 1e-12, as in the JAX
+    package (which keeps its adjoint finite there)."""
+    cosi = -d.dot(n)
+    k = 1.0 - eta * eta * (1.0 - cosi * cosi)
+    tir = k < 0.0
+    k = torch.clamp(k, min=1e-12)
+    out = d * eta + n * (eta * cosi - torch.sqrt(k))
+    zero = torch.zeros_like(k)
+    return vselect(tir, Vec3(zero, zero, zero), out)
 
 
 # constant axes for make_onb: Python floats keep the cross products'

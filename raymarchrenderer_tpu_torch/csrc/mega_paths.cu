@@ -1,0 +1,621 @@
+// RGB path-tracing megakernel for Hopper (sm_90a).
+//
+// Replaces the TPU kernel `render_fused_patch` in mega mode
+// (raymarchrenderer_tpu/kernels/march.py:395, the pl.pallas_call whose
+// `_tile_kernel` body is render/mega.py `trace_mega_paths`).  Its plain
+// PyTorch version is raymarchrenderer_tpu_torch/render/mega.py
+// `trace_mega_paths`, and the wrapper is
+// raymarchrenderer_tpu_torch/kernels/march.py `render_fused_patch`.
+//
+// Design.  One thread per pixel of the patch, each running its own copy of
+// the lane-state machine until its state reaches EXH, as mega_spectral.cu
+// does: the peeled first march step, then bodies of `march_unroll` steps
+// with a cheap pass (lazy miss test, shadow resolve, regeneration) every
+// `regen_cadence` steps, and one shade + resolve + regen pass per body.  An
+// exhausted lane is inert in every pass of the Pallas tile loop, and every
+// random draw is keyed on the lane's own (px, py, sample, bounce) stream,
+// so the thread reproduces its lane exactly; with `lazy_miss` the pass
+// boundaries are semantics, so the schedule is kept, not approximated.
+//
+//  * Materials are data, like the objects: kernels/scene_program.py
+//    compiles each material graph into register-machine instructions, and
+//    a thread evaluates only its hit's material, starting its draw counter
+//    at that material's `rng_base` (the plain version evaluates every
+//    material with one stream, so material i draws after materials 0..i-1).
+//  * Next-event estimation: a non-terminated hit stages a shadow ray toward
+//    light 0 and marches it as another segment of the same loop (SHADOW ->
+//    SH_LIT / SH_OCC, banked by `resolve`).  The plain version stashes
+//    every light's (dir, t_max, contrib) at shade time; a thread instead
+//    keeps the hit point, normal, pre-roulette throughput and the NEE
+//    stream, and recomputes light li's segment when the chain reaches it:
+//    the same ops on the same inputs, so the same values, at a state size
+//    that does not grow with the light count.  The light table sits in
+//    shared memory, kMaxLights entries.
+//  * Russian roulette (`rr_start_bounce >= 0`) and dispersion (the path
+//    counter over (sample, channel) pairs) as in the plain version.
+//
+// Bound on the H100: FP32 issue and warp divergence, not bytes: a launch
+// reads a few hundred bytes of scene and writes 12 bytes per pixel, and
+// every pixel runs about 65 interpreted map evaluations per sample.  At
+// 1024^2 x 128 samples of sphere_on_floor the FP32 operation bound is
+// 7.7 ms against 0.004 ms for the bytes, and the kernel takes about 370 ms
+// (PERF.md; NVIDIA H100 80GB HBM3, 700 W): it is latency-bound, and more
+// resident warps help (the launch bounds in scene_map.cuh).
+// This first version is kept simple and exact: no FMA contraction (built
+// with --fmad=false, no fast math), 1/sqrtf for normalisation, and the
+// scene and materials interpreted.  Per-scene code generation, FMA
+// contraction and persistent threads are left for later work.
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "scene_map.cuh"
+
+using namespace rmr;
+
+namespace {
+
+// lane states, as in render/mega.py
+constexpr int kMarch = 0;
+constexpr int kWait = 1;
+constexpr int kRegen = 2;
+constexpr int kShadow = 4;
+constexpr int kShLit = 5;
+constexpr int kShOcc = 6;
+constexpr int kExh = 7;
+
+// material program layout (kernels/scene_program.py must agree)
+constexpr int kMaxMatRegs = 32;
+constexpr int kMaxLights = 8;
+constexpr int kMatWords = 7;    // first word, n_instr, rng_base, color, dir, inside, hit
+constexpr int kInstrWords = 12;  // opcode, 4 outputs, 7 inputs
+
+enum MatOp {
+  M_DIFFUSE = 0, M_GLOSSY, M_REFRACTION, M_VOLUME, M_EMISSION, M_MIX, M_FACING, M_INSIDE,
+  M_FRESNEL, M_ADD, M_SUB, M_MUL, M_DIV, M_SIN, M_COS, M_DIFFUSE2, M_GLOSSY2, M_MIX2
+};
+
+}  // namespace
+
+// Scalars of one launch; the ctypes structure in kernels/march.py mirrors
+// this field for field.
+struct PathArgs {
+  int width, height;            // full frame (the raygen divisor)
+  int ox, oy, pw, ph;           // patch origin and shape
+  uint32_t sample0, seed;
+  int n_samples, max_steps, max_bounces;
+  int march_unroll, regen_cadence, lazy_miss, relax, normal_taps;
+  int dispersion, nee, n_lights, rr_start_bounce;
+  float max_dist, hit_eps, step_multiply, relax_omega, one_minus_omega;
+  float omega0, normal_eps, surface_offset, exit_offset, inside_offset;
+  float rr_min_prob, inv_n;
+};
+
+// ---- materials (scene/nodes.py, scene/graph.py _eval_material) -----------
+
+struct ShadeIn {
+  V3 origin, dir, hit, normal, channels;
+  float t, inside;
+};
+
+struct ShadeOut {
+  V3 color, dir, inside, hit;
+};
+
+// ShadeCtx.grayscale(c * channels)
+__device__ __forceinline__ float grayscale(V3 c, V3 ch) {
+  return dot(c, ch) / (ch.x + ch.y + ch.z);
+}
+
+__device__ __forceinline__ V3 lerp3(V3 a, V3 b, float t) {
+  return add(scale(a, 1.0f - t), scale(b, t));
+}
+
+__device__ __forceinline__ V3 reflect(V3 d, V3 n) { return sub(d, scale(n, 2.0f * dot(d, n))); }
+
+__device__ V3 refract(V3 d, V3 n, float eta) {
+  const float cosi = -dot(d, n);
+  float k = 1.0f - eta * eta * (1.0f - cosi * cosi);
+  const bool tir = k < 0.0f;
+  k = fmaxf(k, 1e-12f);
+  const V3 out = add(scale(d, eta), scale(n, eta * cosi - sqrtf(k)));
+  return tir ? splat(0.0f) : out;
+}
+
+// normalized(v) * (dot(v, v) > 0)
+__device__ __forceinline__ V3 unit_or_zero(V3 v) {
+  return scale(normalized(v), dot(v, v) > 0.0f ? 1.0f : 0.0f);
+}
+
+// makeTBN applied to a y-up local sample
+__device__ V3 tbn_apply(V3 n, V3 local) {
+  // (0,1,0) x n written out as in the plain version
+  const V3 crossed = mk(1.0f * n.z - 0.0f * n.y, 0.0f * n.x - 0.0f * n.z, 0.0f * n.y - 1.0f * n.x);
+  const V3 tangent = n.x == 0.0f ? mk(1.0f, 0.0f, 0.0f) : normalized(crossed);
+  const V3 bitangent = normalized(cross(tangent, n));
+  return add(add(scale(bitangent, local.x), scale(n, local.y)), scale(tangent, local.z));
+}
+
+__device__ V3 cosine_hemisphere(float u1, float u2) {
+  const float cos_t = sqrtf(fmaxf(1.0f - u1, 0.0f));
+  const float sin_t = sqrtf(u1);
+  const float o = u2 * 2.0f * kPi;
+  return normalized(mk(sin_t * cosf(o), cos_t, sin_t * sinf(o)));
+}
+
+__device__ V3 ggx_lobe(float u1, float u2, float roughness) {
+  const float a = roughness * roughness;
+  const float o = u1 * 2.0f * kPi;
+  const float denom = (a * a - 1.0f) * u2 + 1.0f;
+  const float cos_t = sqrtf(fminf(fmaxf((1.0f - u2) / fmaxf(denom, 1e-12f), 1e-12f), 1.0f));
+  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 1e-12f));
+  return normalized(mk(sin_t * cosf(o), cos_t, sin_t * sinf(o)));
+}
+
+// The hit's material graph; all zeros for a miss of every object (mid -1).
+__device__ ShadeOut eval_material(const SceneRef& s, int mid, const ShadeIn& in, Rng& rng) {
+  const V3 zero = splat(0.0f);
+  ShadeOut out;
+  out.color = out.dir = out.inside = out.hit = zero;
+  const int* tail = s.prog + s.prog[1];
+  if (mid < 0 || mid >= tail[0]) return out;
+  const int* md = tail + 2 + kMatWords * mid;
+  rng.ctr = (uint32_t)md[2];
+  V3 regs[kMaxMatRegs];
+  for (int r = 0; r < kMaxMatRegs; ++r) regs[r] = zero;
+  for (int k = 0; k < md[1]; ++k) {
+    const int* w = s.prog + md[0] + kInstrWords * k;
+    const int* ins = w + 5;
+    auto arg = [&](int j) -> V3 {
+      const int code = ins[j];
+      if (code >= 0) return regs[code];
+      if (code == -1) return zero;
+      const float* q = s.f + (-code - 2);
+      return mk(q[0], q[1], q[2]);
+    };
+    V3 o[4] = {zero, zero, zero, zero};
+    switch (w[0]) {
+      case M_DIFFUSE: {
+        const float u1 = rng_next(rng);
+        const float u2 = rng_next(rng);
+        o[0] = arg(0);
+        o[1] = uniform_sphere_or_hemisphere(u1, u2, in.normal);
+        break;
+      }
+      case M_GLOSSY: {
+        const float u1 = rng_next(rng);
+        const float u2 = rng_next(rng);
+        const V3 hemi = uniform_sphere_or_hemisphere(u1, u2, in.normal);
+        const V3 n_f = scale(in.normal, -(in.inside * 2.0f - 1.0f));
+        const V3 mirror = reflect(in.dir, n_f);
+        const float wgt = 1.0f - grayscale(arg(1), in.channels);
+        o[0] = arg(0);
+        o[1] = lerp3(hemi, mirror, wgt);
+        break;
+      }
+      case M_REFRACTION: {
+        const float gs_ior = grayscale(arg(1), in.channels);
+        const V3 enter_dir = unit_or_zero(refract(in.dir, in.normal, 1.0f / gs_ior));
+        const V3 r_dir = unit_or_zero(refract(in.dir, neg(in.normal), gs_ior));
+        const float u1 = rng_next(rng);
+        const float u2 = rng_next(rng);
+        const V3 d_dir = uniform_sphere_or_hemisphere(u1, u2, in.normal);
+        const V3 exit_dir = lerp3(d_dir, r_dir, 1.0f - grayscale(arg(2), in.channels));
+        const bool is_in = in.inside > 0.5f;
+        o[0] = is_in ? arg(0) : splat(1.0f);
+        o[1] = is_in ? exit_dir : enter_dir;
+        o[2] = splat(1.0f - in.inside);
+        break;
+      }
+      case M_VOLUME: {
+        const bool is_in = in.inside > 0.5f;
+        const float den = grayscale(arg(1), in.channels) / 20.0f;
+        const float num_points = floorf(in.t * 100.0f);
+        const float p_scatter = 1.0f - powf(fmaxf(1.0f - den, 0.0f), num_points);
+        const float u_evt = rng_next(rng);
+        const float u_pos = rng_next(rng);
+        const bool scatters = is_in && u_evt < p_scatter;
+        const V3 hit_pos = add(in.origin, scale(in.dir, u_pos * in.t));
+        const float u3 = rng_next(rng);
+        const float u4 = rng_next(rng);
+        const V3 scat_dir = uniform_sphere_or_hemisphere(u3, u4, zero);
+        const float inside_f = scatters ? 1.0f : (is_in ? 0.0f : 1.0f);
+        o[0] = scatters ? arg(0) : splat(1.0f);
+        o[1] = scatters ? scat_dir : in.dir;
+        o[2] = splat(inside_f);
+        o[3] = scatters ? hit_pos : zero;
+        break;
+      }
+      case M_EMISSION:
+        o[0] = scale(arg(0), grayscale(arg(1), in.channels));
+        break;
+      case M_MIX: {
+        const float f = clamp01(grayscale(arg(6), in.channels));
+        const bool take2 = rng_next(rng) < f;
+        o[0] = take2 ? arg(3) : arg(0);
+        o[1] = take2 ? arg(4) : arg(1);
+        o[2] = take2 ? arg(5) : arg(2);
+        break;
+      }
+      case M_FACING: {
+        const float sgn = in.inside * 2.0f - 1.0f;
+        o[0] = splat(clamp01(dot(scale(in.dir, sgn), in.normal)));
+        break;
+      }
+      case M_INSIDE:
+        o[0] = splat(in.inside);
+        break;
+      case M_FRESNEL: {
+        const float c = clamp01(dot(in.normal, neg(in.dir)));
+        o[0] = splat(powf(1.0f - c, 5.0f) * 0.96f + 0.04f);
+        break;
+      }
+      case M_ADD:
+        o[0] = add(arg(0), arg(1));
+        break;
+      case M_SUB:
+        o[0] = sub(arg(0), arg(1));
+        break;
+      case M_MUL:
+        o[0] = mul(arg(0), arg(1));
+        break;
+      case M_DIV: {
+        const V3 a = arg(0), b = arg(1);
+        o[0] = mk(a.x / b.x, a.y / b.y, a.z / b.z);
+        break;
+      }
+      case M_SIN: {
+        const V3 a = arg(0);
+        o[0] = mk(sinf(a.x), sinf(a.y), sinf(a.z));
+        break;
+      }
+      case M_COS: {
+        const V3 a = arg(0);
+        o[0] = mk(cosf(a.x), cosf(a.y), cosf(a.z));
+        break;
+      }
+      case M_DIFFUSE2: {
+        const float u1 = rng_next(rng);
+        const float u2 = rng_next(rng);
+        o[0] = arg(0);
+        o[1] = tbn_apply(in.normal, cosine_hemisphere(u1, u2));
+        break;
+      }
+      case M_GLOSSY2: {
+        const float r = grayscale(arg(1), in.channels);
+        const float u1 = rng_next(rng);
+        const float u2 = rng_next(rng);
+        const V3 rough_dir = tbn_apply(in.normal, ggx_lobe(u1, u2, r));
+        o[0] = arg(0);
+        o[1] = r == 0.0f ? reflect(in.dir, in.normal) : rough_dir;
+        break;
+      }
+      default: {  // M_MIX2: bundles at registers ins[0] and ins[1], r <= f takes b
+        const float f = clamp01(grayscale(arg(2), in.channels));
+        const bool take_b = rng_next(rng) <= f;
+        const int src = take_b ? ins[1] : ins[0];
+        for (int j = 0; j < 4; ++j) o[j] = regs[src + j];
+        break;
+      }
+    }
+    for (int j = 0; j < 4; ++j)
+      if (w[1 + j] >= 0) regs[w[1 + j]] = o[j];
+  }
+  // the color, dir, inside and hit bindings; an unbound one reads zero
+  out.color = md[3] >= 0 ? regs[md[3]] : zero;
+  out.dir = md[4] >= 0 ? regs[md[4]] : zero;
+  out.inside = md[5] >= 0 ? regs[md[5]] : zero;
+  out.hit = md[6] >= 0 ? regs[md[6]] : zero;
+  return out;
+}
+
+// ---- the lane-state machine (render/mega.py trace_mega_paths) -------------
+
+struct Lane {
+  V3 o, d, thr, acc;
+  float t, inside, omega, prev_r, step_len;
+  int bounce, s_idx, state, steps, gstep;
+  // NEE: the shadow segment, its pending contribution, the path's banked
+  // NEE radiance, the state to resume, the light counter, and what the
+  // next light's segment is recomputed from
+  V3 sh_o, sh_d, contrib, extra, nee_p, nee_n, nee_thr;
+  float seg_tmax;
+  int resume, li;
+  Rng nee_rng;
+};
+
+struct Ctx {
+  PathArgs a;
+  SceneRef s;
+  const float* lights;  // [pos * 3L, power * L, radius * L]
+  float sky;
+  uint32_t px, py;
+  Camera cam;
+};
+
+// (primary stream, shade stream) of path counter s_idx
+__device__ __forceinline__ uint32_t prim_stream(const Ctx& c, int s_idx) {
+  return c.a.sample0 + (uint32_t)(c.a.dispersion ? s_idx / 3 : s_idx);
+}
+__device__ __forceinline__ uint32_t shade_stream(const Ctx& c, int s_idx) {
+  if (!c.a.dispersion) return c.a.sample0 + (uint32_t)s_idx;
+  return prim_stream(c, s_idx) * 4u + (uint32_t)(s_idx % 3) + 1u;
+}
+__device__ __forceinline__ V3 lane_channels(const Ctx& c, int s_idx) {
+  if (!c.a.dispersion) return splat(1.0f);
+  const int ci = s_idx % 3;
+  return mk(ci == 0 ? 1.0f : 0.0f, ci == 1 ? 1.0f : 0.0f, ci == 2 ? 1.0f : 0.0f);
+}
+
+__device__ __forceinline__ void reset_segment(const Ctx& c, Lane& L) {
+  L.t = 0.0f;
+  L.steps = c.a.lazy_miss ? L.gstep : 0;
+  if (c.a.relax) {
+    L.omega = c.a.relax_omega;
+    L.prev_r = 0.0f;
+    L.step_len = 0.0f;
+  }
+}
+
+__device__ void march_step(const Ctx& c, Lane& L) {
+  const PathArgs& a = c.a;
+  if (a.lazy_miss) {
+    L.gstep += 1;
+  } else {
+    L.steps += 1;  // unconditional, as in the plain version
+  }
+  const bool shadow = L.state == kShadow;
+  if (L.state != kMarch && !shadow) return;
+  const V3 o = shadow ? L.sh_o : L.o;
+  const V3 d = shadow ? L.sh_d : L.d;
+  const float dist_mult = shadow ? 1.0f : 1.0f - 2.0f * L.inside;
+  const V3 p = add(o, scale(d, L.t));
+  const float dist = map_dist(c.s, a.max_dist, p) * dist_mult;
+  const bool fail = a.relax && L.omega > 1.0f && (dist + L.prev_r < L.step_len);
+  bool hit = !fail && dist < a.hit_eps;
+  bool miss = false;
+  if (a.lazy_miss) {
+    // a shadow ray past its light must not occlude (mark_misses parks it)
+    if (shadow && !(L.t < L.seg_tmax)) hit = false;
+  } else {
+    miss = !fail && !hit && (L.t >= L.seg_tmax || L.steps >= a.max_steps);
+  }
+  if (hit) L.state = shadow ? kShOcc : kWait;
+  if (miss) {
+    if (!shadow) L.thr = scale(L.thr, c.sky);
+    L.state = shadow ? kShLit : kRegen;  // an exhausted shadow ray is lit
+  }
+  const bool still = !hit && !miss;
+  if (a.relax) {
+    const float new_len = fail ? L.step_len * a.one_minus_omega : dist * L.omega;
+    if (fail) L.omega = 1.0f;
+    if (still) {
+      L.prev_r = fabsf(dist);
+      L.step_len = fabsf(new_len);
+      L.t = L.t + new_len;
+    }
+  } else if (still) {
+    L.t = L.t + dist * a.step_multiply;
+  }
+}
+
+__device__ __forceinline__ void mark_misses(const Ctx& c, Lane& L) {
+  const bool shadow = L.state == kShadow;
+  if ((L.state == kMarch || shadow) &&
+      (L.t >= L.seg_tmax || L.gstep - L.steps >= c.a.max_steps)) {
+    if (!shadow) L.thr = scale(L.thr, c.sky);
+    L.state = shadow ? kShLit : kRegen;
+  }
+}
+
+// the shadow segment toward a jittered point of light li
+__device__ void light_segment(const Ctx& c, Lane& L, int li) {
+  Rng lrng = rng_fork(L.nee_rng, 101u + (uint32_t)li);
+  const int n = c.a.n_lights;
+  const V3 lpos = mk(c.lights[3 * li], c.lights[3 * li + 1], c.lights[3 * li + 2]);
+  const float lpower = c.lights[3 * n + li];
+  const float lradius = c.lights[4 * n + li];
+  const float u1 = rng_next(lrng);
+  const float u2 = rng_next(lrng);
+  const V3 target = add(lpos, scale(uniform_sphere(u1, u2), lradius));
+  const V3 delta = sub(target, L.nee_p);
+  const float dist_l = length(delta);
+  const float dd = fmaxf(dist_l, 1e-8f);
+  const V3 ldir = mk(delta.x / dd, delta.y / dd, delta.z / dd);
+  const float cos_t = fmaxf(dot(ldir, L.nee_n), 0.0f);
+  const float fall = lpower / fmaxf(dist_l * dist_l, 1e-8f);
+  L.sh_d = ldir;
+  L.seg_tmax = dist_l;
+  L.contrib = scale(L.nee_thr, cos_t * fall / kPi);
+}
+
+__device__ void shade(const Ctx& c, Lane& L) {
+  if (L.state != kWait) return;
+  const PathArgs& a = c.a;
+  ShadeIn in;
+  in.origin = L.o;
+  in.dir = L.d;
+  in.t = L.t;
+  in.inside = L.inside;
+  in.hit = add(L.o, scale(L.d, L.t));
+  const int mid = map_mid(c.s, a.max_dist, in.hit);
+  in.normal = get_normal(c.s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
+  in.channels = lane_channels(c, L.s_idx);
+  Rng rng = rng_make(a.seed, c.px, c.py, shade_stream(c, L.s_idx), (uint32_t)L.bounce);
+  const ShadeOut so = eval_material(c.s, mid, in, rng);
+  L.thr = mul(L.thr, so.color);
+  const bool new_inside = so.inside.x > 0.5f;
+  L.inside = new_inside ? 1.0f : 0.0f;
+  const bool term = is_zero(so.dir);
+  const int bounce0 = L.bounce;
+  L.bounce += 1;
+  bool done = term || L.bounce >= a.max_bounces;
+  const V3 pre_rr_thr = L.thr;  // NEE sees the throughput before the roulette
+  if (a.rr_start_bounce >= 0) {
+    // the roulette runs on every continuing hit, the last bounce included,
+    // at the lane's bounce before the increment
+    const float p = fminf(fmaxf(fmaxf(L.thr.x, fmaxf(L.thr.y, L.thr.z)), a.rr_min_prob), 1.0f);
+    Rng rr = rng_fork(rng, 13u);
+    const float u = rng_next(rr);
+    const bool do_rr = !term && bounce0 >= a.rr_start_bounce;
+    const bool kill = do_rr && u >= p;
+    if (kill) {
+      L.thr = splat(0.0f);
+    } else if (do_rr) {
+      L.thr = scale(L.thr, 1.0f / p);
+    }
+    done = done || kill;
+  }
+  L.state = done ? kRegen : kMarch;
+  const float off = new_inside ? -a.inside_offset : a.exit_offset;
+  L.o = is_zero(so.hit) ? add(in.hit, scale(in.normal, off)) : so.hit;
+  L.d = so.dir;
+  reset_segment(c, L);
+  if (a.nee && !term) {
+    L.nee_p = in.hit;
+    L.nee_n = in.normal;
+    L.nee_thr = pre_rr_thr;
+    L.nee_rng = rng_fork(rng, 7u);
+    L.resume = L.state;
+    L.state = kShadow;
+    L.li = 0;
+    L.sh_o = add(in.hit, scale(in.normal, a.surface_offset));
+    light_segment(c, L, 0);
+  }
+}
+
+// bank a finished shadow ray and chain to the next light, or resume
+__device__ void resolve(const Ctx& c, Lane& L) {
+  if (L.state != kShLit && L.state != kShOcc) return;
+  if (L.state == kShLit) L.extra = add(L.extra, L.contrib);
+  const int li2 = L.li + 1;
+  if (li2 < c.a.n_lights) {
+    light_segment(c, L, li2);
+    L.state = kShadow;
+    L.li = li2;
+  } else {
+    L.state = L.resume;
+    L.seg_tmax = c.a.max_dist;
+    L.li = 0;
+  }
+  reset_segment(c, L);
+}
+
+__device__ void regen(const Ctx& c, Lane& L) {
+  if (L.state != kRegen) return;
+  L.acc = add(L.acc, c.a.nee ? add(L.thr, L.extra) : L.thr);
+  L.s_idx += 1;
+  const int n_paths = c.a.dispersion ? 3 * c.a.n_samples : c.a.n_samples;
+  if (L.s_idx >= n_paths) {
+    L.state = kExh;
+    return;
+  }
+  L.state = kMarch;
+  L.o = c.cam.eye;
+  L.d = primary_ray(c.cam, c.a.seed, c.px, c.py, prim_stream(c, L.s_idx), c.a.width,
+                    c.a.height);
+  L.thr = lane_channels(c, L.s_idx);
+  L.bounce = 0;
+  L.inside = 0.0f;
+  L.extra = splat(0.0f);
+  reset_segment(c, L);
+}
+
+__device__ void cheap_pass(const Ctx& c, Lane& L) {
+  if (c.a.lazy_miss) mark_misses(c, L);
+  if (c.a.nee) resolve(c, L);
+  regen(c, L);
+}
+
+__device__ void body(const Ctx& c, Lane& L) {
+  const PathArgs& a = c.a;
+  if (a.regen_cadence > 0 && a.regen_cadence < a.march_unroll) {
+    const int n_sub = a.march_unroll / a.regen_cadence;
+    for (int sub = 0; sub < n_sub; ++sub) {
+      for (int k = 0; k < a.regen_cadence; ++k) march_step(c, L);
+      if (sub < n_sub - 1) cheap_pass(c, L);
+    }
+  } else {
+    for (int k = 0; k < a.march_unroll; ++k) march_step(c, L);
+  }
+  if (a.lazy_miss) mark_misses(c, L);
+  shade(c, L);
+  if (a.nee) resolve(c, L);
+  regen(c, L);
+}
+
+// The whole per-pixel program: the sum over the lane's paths.
+__device__ V3 trace_pixel(const Ctx& c) {
+  Lane L;
+  L.o = c.cam.eye;
+  L.d = primary_ray(c.cam, c.a.seed, c.px, c.py, prim_stream(c, 0), c.a.width, c.a.height);
+  L.thr = lane_channels(c, 0);
+  L.acc = splat(0.0f);
+  L.t = 0.0f;
+  L.inside = 0.0f;
+  L.omega = c.a.omega0;
+  L.prev_r = 0.0f;
+  L.step_len = 0.0f;
+  L.bounce = 0;
+  L.s_idx = 0;
+  L.state = kMarch;
+  L.steps = 0;
+  L.gstep = 0;
+  L.sh_o = L.sh_d = L.contrib = L.extra = splat(0.0f);
+  L.nee_p = L.nee_n = L.nee_thr = splat(0.0f);
+  L.seg_tmax = c.a.max_dist;
+  L.resume = 0;
+  L.li = 0;
+  L.nee_rng = rng_make(0u, 0u, 0u, 0u, 0u);
+  march_step(c, L);  // the peeled first step
+  while (L.state < kExh) body(c, L);
+  return L.acc;
+}
+
+// ---- launch ----------------------------------------------------------------
+
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(PathArgs a, const float* __restrict__ corners,
+                                  const float* __restrict__ fdata, const int* __restrict__ prog,
+                                  float* __restrict__ out) {
+  // the sky and the light table, once per block in shared memory
+  __shared__ float s_tail[1 + 5 * kMaxLights];
+  const float* ftail = fdata + prog[2];
+  const int n_tail = 1 + 5 * a.n_lights;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < n_tail; i += blockDim.x * blockDim.y) s_tail[i] = ftail[i];
+  __syncthreads();
+  const int lx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
+  if (lx >= a.pw || ly >= a.ph) return;
+  Ctx c;
+  c.a = a;
+  c.s.prog = prog;
+  c.s.f = fdata;
+  c.sky = s_tail[0];
+  c.lights = s_tail + 1;
+  c.px = (uint32_t)(a.ox + lx);
+  c.py = (uint32_t)(a.oy + ly);
+  c.cam = load_camera(corners);
+  const V3 acc = trace_pixel(c);
+  float* o = out + 3 * ((size_t)ly * a.pw + lx);
+  o[0] = acc.x * a.inv_n;
+  o[1] = acc.y * a.inv_n;
+  o[2] = acc.z * a.inv_n;
+}
+
+// Plain C entry point for ctypes.  `args` is a host pointer; the buffers
+// are device pointers on CUDA device `device`; `out` is (ph, pw, 3)
+// float32.  The library carries its own (static) CUDA runtime, so it
+// selects the device itself before launching on `stream`.  Returns the
+// first CUDA error (0 on success), and cudaErrorInvalidValue for more
+// lights than the shared light table holds.
+extern "C" int rmr_mega_paths(const PathArgs* args, const float* corners, const float* fdata,
+                              const int* prog, float* out, cudaStream_t stream, int device) {
+  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 block(16, kBlockThreads / 16);
+  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
+  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  return (int)cudaGetLastError();
+}

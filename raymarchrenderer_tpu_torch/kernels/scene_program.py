@@ -1,18 +1,31 @@
-"""Compile a `Scene` and its band table into the flat buffers the CUDA
-spectral megakernel interprets (`csrc/mega_spectral.cu`).
+"""Compile a `Scene` into the flat buffers the CUDA megakernels interpret.
 
-int32 program:
+Both kernels share the object program (`csrc/scene_map.cuh`), and each
+appends its own tail:
 
-    [n_objects, n_mats, band_offset, kind_offset]          header
-    [first_word, n_nodes, distance_reg, mat_index] * n_objects
-    [opcode, out_reg, in0, in1, in2, in3] * total nodes
-    [kind] * n_mats
+    int32:   [n_objects, tail_int_offset, tail_float_offset, 0]   header
+             [first_word, n_nodes, distance_reg, mat_index] * n_objects
+             [opcode, out_reg, in0, in1, in2, in3] * object nodes
+             tail ints
+    float32: object parameters (a vec3 each), then tail floats
 
-An input word is a register (>= 0), the sample point (-1), or a parameter
-vec3 at float offset `-word - 2` of the float32 data buffer (a scalar
-parameter is stored splatted, which is what `_param_to_vec3` does).  The
-data buffer holds the object parameters followed by the band table's
-min_wave, max_wave and power rows.
+An object input word is a register (>= 0), the sample point (-1), or a
+parameter vec3 at float offset `-word - 2` (a scalar parameter is stored
+splatted, which is what `_param_to_vec3` does).
+
+Spectral tail (`csrc/mega_spectral.cu`): ints [n_mats, kind * n_mats];
+floats [min_wave * n_mats, max_wave * n_mats, power * n_mats].
+
+RGB tail (`csrc/mega_paths.cu`): ints [n_mats, n_lights, then per material
+(first_word, n_instr, rng_base, color, dir, inside, hit), then the material
+instructions, 12 words each: [opcode, out0..out3, in0..in6]]; floats
+[sky_power, light pos * 3L, power * L, radius * L, material parameters].
+A material input word is a register (>= 0), zero (-1) or a parameter vec3
+(`-word - 2`, absolute in the float buffer); an output word is a register
+or -1 (not bound); a binding is a register or -1 (zero).  `rng_base` is the
+draw counter before the material's first draw: `Scene.shade` evaluates
+every material graph with one stream, so material i draws after the draws
+of materials 0..i-1.
 
 The layout is static per `Scene`; the parameter values are gathered from
 the tensors on the device, so nothing leaves the card.
@@ -21,12 +34,10 @@ from __future__ import annotations
 
 import torch
 
-from raymarchrenderer_tpu_torch.render.spectral_integrator import (
-    SpectralMaterials)
-from raymarchrenderer_tpu_torch.scene.graph import (_PARAM, _POINT, _VAR,
-                                                    Scene)
+from raymarchrenderer_tpu_torch.scene.graph import (_NODE, _PARAM, _POINT,
+                                                    _VAR, Scene)
 
-# opcode and arity of each object node, in the kernel's `Op` order
+# opcode and arity of each object node, in the kernels' `Op` order
 OPCODES = {
     "map_sphere": (0, 3), "map_box": (1, 3), "map_plane": (2, 3),
     "map_torus": (3, 3), "map_cylinder": (4, 3), "map_capsule": (5, 4),
@@ -36,14 +47,53 @@ OPCODES = {
     "math_add": (14, 2), "math_subtract": (15, 2), "math_multiply": (16, 2),
     "math_divide": (17, 2), "math_sine": (18, 1), "math_cosine": (19, 1),
 }
-MAX_REGS = 16          # kMaxRegs in the kernel
+MAX_REGS = 16          # kMaxRegs in csrc/scene_map.cuh
+# FP32 operations of each object node as csrc/scene_map.cuh evaluates it,
+# counting an add, multiply, divide, min, max, abs, fmod, sqrt, sin or cos
+# as one (for the kernels' operation bound, `map_flops`)
+NODE_FLOPS = {
+    "map_sphere": 11, "map_box": 23, "map_plane": 17, "map_torus": 13,
+    "map_cylinder": 19, "map_capsule": 34, "op_union": 3, "op_subtract": 3,
+    "op_intersect": 3, "op_smooth_union": 13, "domain_repeat": 12,
+    "misc_getX": 0, "misc_getY": 0, "misc_getZ": 0, "math_add": 3,
+    "math_subtract": 3, "math_multiply": 3, "math_divide": 3,
+    "math_sine": 3, "math_cosine": 3,
+}
 _HEADER, _OBJ_WORDS, _NODE_WORDS = 4, 4, 6
 
+# material nodes, in mega_paths.cu's `MatOp` order: name -> (opcode,
+# accepted input counts, registers written, random draws)
+MAT_OPCODES = {
+    "shader_diffuse": (0, (1,), 2, 2),
+    "shader_glossy": (1, (2,), 2, 2),
+    "shader_refraction": (2, (2, 3), 3, 2),
+    "shader_volumeScatter": (3, (2,), 4, 4),
+    "shader_emission": (4, (2,), 1, 0),
+    "shader_mix": (5, (5, 7), None, 1),      # 3 outputs (7 inputs) or 2
+    "misc_facing": (6, (0,), 1, 0),
+    "misc_inside": (7, (0,), 1, 0),
+    "misc_fresnel": (8, (0,), 1, 0),
+    "math_add": (9, (2,), 1, 0),
+    "math_subtract": (10, (2,), 1, 0),
+    "math_multiply": (11, (2,), 1, 0),
+    "math_divide": (12, (2,), 1, 0),
+    "math_sine": (13, (1,), 1, 0),
+    "math_cosine": (14, (1,), 1, 0),
+}
+# the gen-2 shaders of the new scene format write a 4-register bundle
+# (color, dir, inside, hit)
+NEW_FMT_OPCODES = {"shader_diffuse": (15, 1, 2), "shader_glossy": (16, 2, 2),
+                   "shader_mix": (17, 3, 1)}
+MAX_MAT_REGS = 32      # kMaxMatRegs in csrc/mega_paths.cu
+MAX_LIGHTS = 8         # kMaxLights in csrc/mega_paths.cu
+_MAT_WORDS, _INSTR_WORDS, _ZERO = 7, 12, -1
 
-def compile_program(scene: Scene, n_mats: int):
-    """(int32 word list, list of (object, param index) in data order)."""
+
+def compile_program(scene: Scene):
+    """(int32 word list of the object program, list of (object, param
+    index) in data order)."""
     n_obj = len(scene.objects)
-    words = [n_obj, n_mats, 0, 0]
+    words = [n_obj, 0, 0, 0]
     obj_words, node_words, param_slots = [], [], []
     first = _HEADER + _OBJ_WORDS * n_obj
     for oi, obj in enumerate(scene.objects):
@@ -87,24 +137,194 @@ def compile_program(scene: Scene, n_mats: int):
     return words, param_slots
 
 
-def scene_buffers(scene: Scene, params, mats: SpectralMaterials, device):
-    """(int32 program tensor, float32 data tensor) on `device`."""
+def map_flops(scene: Scene) -> int:
+    """FP32 operations of one `map_dist` evaluation of the kernels: every
+    object's nodes and the running minimum over the objects."""
+    return (sum(NODE_FLOPS[n.name] for o in scene.objects for n in o.nodes)
+            + max(len(scene.objects) - 1, 0))
+
+
+def _vec3(a: torch.Tensor, device, what: str) -> torch.Tensor:
+    a = a.to(device=device, dtype=torch.float32)
+    if a.ndim != 0 and a.numel() < 3:
+        raise ValueError(f"{what} has shape {tuple(a.shape)}; a vec3 or a "
+                         "scalar is needed")
+    return a.expand(3) if a.ndim == 0 else a.reshape(-1)[:3]
+
+
+def _assemble(program, params, device, tail_ints, tail_floats):
+    """The object program `(words, param slots)` and its parameters on
+    `device`, followed by a kernel's tail: `tail_ints` a list of ints or
+    an int32 tensor, `tail_floats` a list of 1-D float32 tensors."""
+    words, slots = program
+    vecs = [_vec3(params["objects"][oi][pi], device,
+                  f"object {oi} parameter {pi}") for oi, pi in slots]
+    words = list(words)
+    words[1] = len(words)                   # tail ints' offset
+    words[2] = 3 * len(vecs)                # tail floats' offset
+    prog = torch.tensor(words, dtype=torch.int32, device=device)
+    prog = torch.cat([prog, torch.as_tensor(tail_ints, dtype=torch.int32,
+                                            device=device)])
+    data = torch.cat(vecs + list(tail_floats) + [
+        torch.zeros(0, dtype=torch.float32, device=device)])
+    return prog.contiguous(), data.contiguous()
+
+
+def spectral_buffers(scene: Scene, params, mats, device):
+    """(int32 program, float32 data) of `csrc/mega_spectral.cu`, the band
+    table `mats` (`SpectralMaterials`) as the tail."""
     n_mats = int(mats.min_wave.shape[0])
     if scene.objects and n_mats == 0:
         raise ValueError("the band table has no rows")
-    words, slots = compile_program(scene, n_mats)
-    vecs = []
-    for oi, pi in slots:
-        a = params["objects"][oi][pi].to(device=device, dtype=torch.float32)
-        if a.ndim != 0 and a.numel() < 3:
-            raise ValueError(f"object {oi} parameter {pi} has shape "
-                             f"{tuple(a.shape)}; a vec3 or a scalar is needed")
-        vecs.append(a.expand(3) if a.ndim == 0 else a.reshape(-1)[:3])
-    band = [mats.min_wave, mats.max_wave, mats.power]
-    data = torch.cat(vecs + [b.to(device=device, dtype=torch.float32)
-                             for b in band])
-    words[2] = 3 * len(vecs)                 # band rows' float offset
-    words[3] = len(words)                    # kinds' int offset
-    prog = torch.tensor(words, dtype=torch.int32, device=device)
-    kinds = mats.kind.to(device=device, dtype=torch.int32)
-    return torch.cat([prog, kinds]).contiguous(), data.contiguous()
+    kinds = torch.cat([torch.tensor([n_mats], dtype=torch.int32,
+                                    device=device),
+                       mats.kind.to(device=device, dtype=torch.int32)])
+    band = [b.to(device=device, dtype=torch.float32)
+            for b in (mats.min_wave, mats.max_wave, mats.power)]
+    return _assemble(compile_program(scene), params, device, kinds, band)
+
+
+def _material_code(mat, base_float: int, n_floats: int):
+    """(instruction words, bindings, draws, param indices in data order)
+    of one material; parameter codes are absolute float offsets from
+    `base_float` + 3 per parameter already placed (`n_floats`)."""
+    words, slots = [], []
+    regs = {}
+
+    def param(pi):
+        slots.append(pi)
+        return -(base_float + n_floats + 3 * (len(slots) - 1)) - 2
+
+    def reg(key):
+        """The register of `key`, allocated at its first write."""
+        if key not in regs:
+            if len(regs) >= MAX_MAT_REGS:
+                raise ValueError(f"material {mat.mat_id} needs more than "
+                                 f"{MAX_MAT_REGS} registers")
+            regs[key] = len(regs)
+        return regs[key]
+
+    def emit(op, outs, ins):
+        words.extend([op] + list(outs) + [-1] * (4 - len(outs))
+                     + list(ins) + [_ZERO] * (7 - len(ins)))
+
+    draws = 0
+    if mat.fmt == "new":
+        out_regs = {}            # node index -> (first register, width)
+
+        def ev(ni):
+            nonlocal draws
+            if ni in out_regs:
+                return out_regs[ni]
+            node = mat.nodes[ni]
+            ins = []
+            for d in node.inputs:
+                if d[0] == _PARAM:
+                    ins.append((param(d[1]), 1))
+                elif d[0] == _NODE:
+                    ins.append(ev(d[1]))
+                else:
+                    raise ValueError(f"unresolvable input {d}")
+            if node.name == "misc_fresnel":
+                r = reg(ni)
+                emit(MAT_OPCODES["misc_fresnel"][0], [r], [])
+                out_regs[ni] = (r, 1)
+                return out_regs[ni]
+            if node.name not in NEW_FMT_OPCODES:
+                raise KeyError(f"unknown new-format node {node.name}")
+            op, arity, n_draws = NEW_FMT_OPCODES[node.name]
+            if len(ins) != arity:
+                raise ValueError(f"{node.name} takes {arity} inputs")
+            bundles = ins[:2] if node.name == "shader_mix" else []
+            vecs = ins[2:] if node.name == "shader_mix" else ins
+            if any(w != 4 for _, w in bundles) or any(w != 1 for _, w in vecs):
+                raise ValueError(f"material {mat.mat_id}: {node.name} "
+                                 "input of the wrong kind")
+            out = [reg((ni, j)) for j in range(4)]     # consecutive
+            emit(op, out, [c for c, _ in ins])
+            draws += n_draws
+            out_regs[ni] = (out[0], 4)
+            return out_regs[ni]
+
+        first, width = ev(mat.output)
+        if width != 4:
+            raise ValueError("new-format material output node must be a "
+                             "shader")
+        return words, [first, first + 1, first + 2, first + 3], draws, slots
+
+    for node in mat.nodes:
+        if node.name not in MAT_OPCODES:
+            raise KeyError(f"unknown material node {node.name!r}")
+        op, arities, n_out, n_draws = MAT_OPCODES[node.name]
+        if len(node.inputs) not in arities:
+            raise ValueError(f"{node.name} takes {arities} inputs, got "
+                             f"{len(node.inputs)}")
+        ins = []
+        for d in node.inputs:
+            if d[0] == _PARAM:
+                ins.append(param(d[1]))
+            elif d[0] == _VAR:
+                if d[1] not in regs:
+                    raise KeyError(f"material {mat.mat_id}: register "
+                                   f"{d[1]!r} read before it is written")
+                ins.append(regs[d[1]])
+            else:
+                raise ValueError(f"unresolvable input {d}")
+        if node.name == "shader_mix":
+            n_out = 3 if len(ins) == 7 else 2
+            if len(ins) == 5:       # (c1, d1, c2, d2, f): zero insides
+                ins = [ins[0], ins[1], _ZERO, ins[2], ins[3], _ZERO, ins[4]]
+        emit(op, [reg(key) for key in node.outputs[:n_out]], ins)
+        draws += n_draws
+    binds = [-1 if (isinstance(k, int) and k == -1) else regs.get(k, -1)
+             for k in mat.bindings]
+    return words, binds, draws, slots
+
+
+def material_program(scene: Scene, base_float: int):
+    """(tail int words after [n_mats, n_lights], the material parameters
+    as (material, param index) in data order, each material's rng_base)."""
+    table, instrs, slots, bases = [], [], [], []
+    draws = 0
+    for mi, mat in enumerate(scene.materials):
+        w, binds, n_draws, mslots = _material_code(mat, base_float,
+                                                   3 * len(slots))
+        table += [len(instrs), len(w) // _INSTR_WORDS, draws] + binds
+        bases.append(draws + 1)
+        instrs += w
+        slots += [(mi, pi) for pi in mslots]
+        draws += n_draws
+    return table, instrs, slots, bases
+
+
+def rng_bases(scene: Scene):
+    """The slot of each material's first draw in `Scene.shade`'s stream."""
+    return material_program(scene, 0)[3]
+
+
+def paths_buffers(scene: Scene, params, device):
+    """(int32 program, float32 data) of `csrc/mega_paths.cu`: the material
+    program, the light table and the sky power as the tail (the kernel
+    reads the lights only with NEE, at most `MAX_LIGHTS` of them)."""
+    program = compile_program(scene)
+    n_lights = scene.n_lights
+    lights = params["lights"]
+    head = [params["env"]["power"].to(device=device,
+                                      dtype=torch.float32).reshape(1)]
+    if n_lights:
+        pos = lights["pos"].to(device=device, dtype=torch.float32)
+        if tuple(pos.shape) != (n_lights, 3):
+            raise ValueError(f"light positions have shape {tuple(pos.shape)}")
+        head += [pos.reshape(-1)] + [
+            lights[k].to(device=device, dtype=torch.float32).reshape(-1)
+            for k in ("power", "radius")]
+    base = 3 * len(program[1]) + 1 + 5 * n_lights
+    table, instrs, slots, _ = material_program(scene, base)
+    n_mats = len(scene.materials)
+    instr0 = len(program[0]) + 2 + len(table)     # absolute first word
+    for m in range(n_mats):
+        table[_MAT_WORDS * m] += instr0
+    mparams = [_vec3(params["materials"][mi][pi], device,
+                     f"material {mi} parameter {pi}") for mi, pi in slots]
+    return _assemble(program, params, device,
+                     [n_mats, n_lights] + table + instrs, head + mparams)

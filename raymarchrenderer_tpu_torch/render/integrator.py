@@ -1,7 +1,7 @@
 """SDF-gradient normals (the JAX package's `render/integrator.get_normal`).
 
 The wavefront RGB integrator (`trace_rgb`, `march`) is a later slice; the
-spectral megakernel needs only the normal.
+megakernels need only the normal.
 """
 from __future__ import annotations
 

@@ -29,6 +29,18 @@ def frac_off(a, b, tol: float = PIX_TOL) -> float:
     return float((np.abs(np.asarray(a) - np.asarray(b)) > tol).mean())
 
 
+def assert_nee_close(want, got):
+    """The JAX package's own NEE bar (tests/test_mega.py TestMegaNEE):
+    fewer than 1e-3 of the values off by more than 1e-3, and
+    rtol 5e-3 / atol 1e-3.  Next-event estimation adds
+    cos * power / dist^2 / pi at every hit, float math through sqrt, sin,
+    cos and rsqrt, so an NEE image is close, not bitwise."""
+    want, got = np.asarray(want), np.asarray(got)
+    d = np.abs(want - got)
+    assert float((d > 1e-3).mean()) < 1e-3, (d.max(), (d > 1e-3).mean())
+    np.testing.assert_allclose(got, want, rtol=5e-3, atol=1e-3)
+
+
 def np_tree(tree):
     """A JAX pytree -> the same nesting of numpy arrays."""
     import jax     # the card's tests (test_torch_cuda.py) run without JAX
@@ -116,5 +128,98 @@ ALL_NODES_SCENE = json.dumps({
              "outputs": [3]},
             {"name": "op_subtract", "inputs": [1, 3], "outputs": [2]}]},
     ],
+    "environment": {"power": 0.05},
+})
+
+
+# One scene that uses every material node of both scene formats (the gen-1
+# register machine and the gen-2 new format, with an unreachable node), a
+# sphere light for NEE and every object primitive the RGB path meets in
+# the builtins, for the shading, schedule and kernel parity tests.
+ALL_MATERIALS_SCENE = json.dumps({
+    "materials": [
+        {"id": 0, "nodes": [
+            {"name": "shader_diffuse", "inputs": [[0.75, 0.75, 0.75]],
+             "outputs": ["c", "d"]},
+            {"name": "misc_fresnel", "outputs": ["fr"]},
+            {"name": "math_sine", "inputs": [[0.3, 0.2, 0.1]],
+             "outputs": ["s"]},
+            {"name": "math_cosine", "inputs": ["s"], "outputs": ["co"]},
+            {"name": "math_add", "inputs": ["s", "co"], "outputs": ["a"]},
+            {"name": "math_subtract", "inputs": ["a", "fr"],
+             "outputs": ["b"]},
+            {"name": "math_divide", "inputs": ["b", 2.5], "outputs": ["q"]},
+            {"name": "math_multiply", "inputs": ["q", [0.9, 0.8, 0.7]],
+             "outputs": ["tint2"]}],
+         "color": "tint2", "dir": "d"},
+        {"id": 1, "nodes": [
+            {"name": "shader_diffuse", "inputs": [[0.8, 0.2, 0.2]],
+             "outputs": ["dc", "dd"]},
+            {"name": "shader_glossy", "inputs": [[0.9, 0.9, 0.9], 0.1],
+             "outputs": ["gc", "gd"]},
+            {"name": "misc_facing", "outputs": ["f"]},
+            {"name": "shader_mix", "inputs": ["gc", "gd", "dc", "dd", "f"],
+             "outputs": ["color", "dir"]}],
+         "color": "color", "dir": "dir"},
+        {"id": 2, "nodes": [
+            {"name": "shader_refraction",
+             "inputs": [[0.8, 0.9, 0.8], 1.45, [0.02, 0.02, 0.02]],
+             "outputs": [0, 1, 2]},
+            {"name": "shader_glossy", "inputs": [[0.8, 0.9, 0.8], 0.02],
+             "outputs": [3, 4]},
+            {"name": "misc_facing", "outputs": [5]},
+            {"name": "misc_inside", "outputs": [6]},
+            {"name": "math_add", "inputs": [5, 6], "outputs": [7]},
+            {"name": "shader_mix", "inputs": [3, 4, [0, 0, 0], 0, 1, 2, 7],
+             "outputs": [8, 9, 10]}],
+         "color": 8, "dir": 9, "inside": 10},
+        {"id": 3, "nodes": [
+            {"name": "shader_volumeScatter",
+             "inputs": [[0.6, 0.7, 0.9], 2.0], "outputs": [0, 1, 2, 3]}],
+         "color": 0, "dir": 1, "inside": 2, "hit": 3},
+        {"id": 4, "nodes": [
+            {"name": "shader_emission", "inputs": [[1, 0.9, 0.8], 12.0],
+             "outputs": ["color"]}],
+         "color": "color", "dir": -1},
+        {"id": 5, "constants": [[0.75, 0.25, 0.2], [0.95, 0.95, 0.95], 0.3,
+                                0.0, 0.4, [0.2, 0.9, 0.3]],
+         "nodes": [
+             {"name": "shader_diffuse", "inputs": [[-1, 0]]},
+             {"name": "shader_glossy", "inputs": [[-1, 1], [-1, 2]]},
+             {"name": "shader_mix", "inputs": [[0, 0], [1, 0], [3, 0]]},
+             {"name": "misc_fresnel"},
+             {"name": "shader_glossy", "inputs": [[-1, 1], [-1, 3]]},
+             {"name": "shader_mix", "inputs": [[2, 0], [4, 0], [-1, 4]]},
+             {"name": "shader_diffuse", "inputs": [[-1, 5]]}],
+         "output": 5},
+        {"id": 6, "nodes": [
+            {"name": "shader_refraction", "inputs": [[0.9, 0.9, 1.0], 1.3],
+             "outputs": ["c", "d", "i"]}],
+         "color": "c", "dir": "d", "inside": "i"},
+    ],
+    "objects": [
+        {"matID": 0, "distance": 0, "nodes": [
+            {"name": "map_box", "inputs": [-1, [0, -0.025, 0],
+                                           [32, 0.05, 32]], "outputs": [0]}]},
+        {"matID": 1, "distance": 0, "nodes": [
+            {"name": "map_sphere", "inputs": [-1, [-2.2, 0.8, 0], 0.8],
+             "outputs": [0]}]},
+        {"matID": 2, "distance": 0, "nodes": [
+            {"name": "map_box", "inputs": [-1, [0, 0.8, -0.5],
+                                           [0.7, 0.7, 0.1]], "outputs": [0]}]},
+        {"matID": 3, "distance": 0, "nodes": [
+            {"name": "map_sphere", "inputs": [-1, [0, 0.9, 1.5], 0.9],
+             "outputs": [0]}]},
+        {"matID": 4, "distance": 0, "nodes": [
+            {"name": "map_sphere", "inputs": [-1, [5, 7, -4], 2.0],
+             "outputs": [0]}]},
+        {"matID": 5, "distance": 0, "nodes": [
+            {"name": "map_sphere", "inputs": [-1, [2.2, 0.8, 0], 0.8],
+             "outputs": [0]}]},
+        {"matID": 6, "distance": 0, "nodes": [
+            {"name": "map_sphere", "inputs": [-1, [1.0, 0.5, -1.6], 0.5],
+             "outputs": [0]}]},
+    ],
+    "lights": [{"pos": [3, 7, -3], "power": 60.0, "radius": 0.8}],
     "environment": {"power": 0.05},
 })

@@ -1,21 +1,25 @@
-"""Port parity, the CLI: `render --spectral` end to end, the import
-boundary, and the device rule.
+"""Port parity, the CLI: `render` (RGB, with and without
+`--direct-light`) and `render --spectral` end to end, the import boundary,
+and the device rule.
 
-The JAX CLI on the CPU renders the spectral path with its oracle
-(`app/cli.py` picks "oracle" off the TPU; its fused kernel needs a TPU),
-and the megakernel schedule equals that oracle to 1e-6
-(tests/test_mega.py).  Both CLIs run the strict knobs (relax 0, 6 normal
-taps, the defaults); the PNGs are compared after decoding, with the JAX
-package's image bar: fewer than 1e-3 of the values off by more than 1e-5.
+The JAX CLI on the CPU renders with its oracle (`app/cli.py` picks
+"oracle" off the TPU; its fused kernel needs a TPU), and the megakernel
+schedules equal that oracle (tests/test_mega.py: bitwise for RGB without
+NEE, to 1e-6 for spectral, to the NEE bar with NEE).  Both CLIs run the
+strict knobs (relax 0, 6 normal taps, the defaults).  The spectral PNGs
+are compared after decoding and the RGB images as .npy (linear floats),
+with the JAX package's image bar: fewer than 1e-3 of the values off by
+more than 1e-5; with NEE, its NEE bar.
 """
 import os
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
-from _torch_parity import MAX_FRAC_OFF, frac_off
+from _torch_parity import MAX_FRAC_OFF, assert_nee_close, frac_off
 
 _REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _FLAGS = ["--width", "32", "--height", "32", "--spp", "2", "--chunk", "2",
@@ -53,11 +57,41 @@ def test_cmd_render_returns_the_image(tmp_path):
     assert (tmp_path / "o.npy").exists()
 
 
-def test_render_needs_spectral(tmp_path):
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+def test_render_rgb_matches_jax_cli(tmp_path, capsys, nee):
+    """`render` without --spectral: sphere_on_floor, and csg with
+    --direct-light (measured: 0 values off plain; with NEE none off by
+    more than 1e-3)."""
+    from raymarchrenderer_tpu.app import cli as jcli
     from raymarchrenderer_tpu_torch.app import cli as tcli
-    with pytest.raises(SystemExit, match="spectral"):
-        tcli.main(["render", "--device", "cpu", "--out",
-                   str(tmp_path / "x.png")])
+
+    extra = ["--scene", "csg", "--direct-light"] if nee else []
+    jout, tout = tmp_path / "jax.npy", tmp_path / "torch.npy"
+    assert jcli.main(["--no-cache", "render", "--cpu", "--impl", "oracle",
+                      *_FLAGS, *extra, "--out", str(jout)]) == 0
+    assert tcli.main(["render", "--device", "cpu", *_FLAGS, *extra,
+                      "--out", str(tout)]) == 0
+    text = capsys.readouterr().out
+    assert "(rgb, cpu)" in text and "2/2 spp" in text
+    want, got = np.load(jout), np.load(tout)
+    assert got.shape == (32, 32, 3) and got.mean() > 0.01
+    if nee:
+        assert_nee_close(want, got)
+    else:
+        assert frac_off(want, got) < MAX_FRAC_OFF
+
+
+def test_render_needs_spectral(tmp_path):
+    """The RGB path no longer needs `--spectral`; what it refuses, out
+    loud, is a sky it has not ported: a scene with an SH sky raises."""
+    from raymarchrenderer_tpu_torch.app import cli as tcli
+    scene = tmp_path / "sh.scene"
+    scene.write_text('{"materials": [], "objects": [], "environment": '
+                     '{"sh": ' + str([[0.1, 0.2, 0.3]] * 16) + '}}')
+    with pytest.raises(NotImplementedError, match="SH sky"):
+        tcli.main(["render", "--device", "cpu", "--scene", str(scene),
+                   "--width", "8", "--height", "8", "--spp", "1",
+                   "--out", str(tmp_path / "x.png")])
 
 
 def test_cuda_device_without_a_card_fails(tmp_path):
@@ -74,7 +108,11 @@ def test_port_imports_no_jax():
     code = ("import sys, raymarchrenderer_tpu_torch, "
             "raymarchrenderer_tpu_torch.app.cli, "
             "raymarchrenderer_tpu_torch.kernels.march, "
-            "raymarchrenderer_tpu_torch.render.mega; "
+            "raymarchrenderer_tpu_torch.kernels.scene_program, "
+            "raymarchrenderer_tpu_torch.render.mega, "
+            "raymarchrenderer_tpu_torch.scene.nodes, "
+            "raymarchrenderer_tpu_torch.scene.graph, "
+            "raymarchrenderer_tpu_torch.core.sampling; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('raymarchrenderer_tpu.') "
             "or m == 'raymarchrenderer_tpu' for m in sys.modules)")

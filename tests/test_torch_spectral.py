@@ -25,7 +25,8 @@ from raymarchrenderer_tpu.render.config import RenderConfig as JCfg
 from raymarchrenderer_tpu.render.raygen import pixel_grid as jgrid
 from raymarchrenderer_tpu.scene import graph as jgraph
 from raymarchrenderer_tpu_torch.kernels import march as tmarch
-from raymarchrenderer_tpu_torch.kernels.build import NVCC_FLAGS, nvcc_command
+from raymarchrenderer_tpu_torch.kernels.build import (NVCC_FLAGS, CudaKernel,
+                                                     nvcc_command)
 from raymarchrenderer_tpu_torch.render import mega as tmega
 from raymarchrenderer_tpu_torch.render import spectral_integrator as tspec
 from raymarchrenderer_tpu_torch.render.config import RenderConfig as TCfg
@@ -181,10 +182,38 @@ def test_knob_validation():
 def test_kernel_build_command():
     """The kernel is built for sm_90a without FMA contraction or fast
     math (the numerics the plain version is held to)."""
-    cmd = nvcc_command("nvcc", tmarch.MEGA_SPECTRAL.source, "out.so")
+    _check_build_command(tmarch.MEGA_SPECTRAL, "mega_spectral.cu")
+
+
+def test_paths_kernel_build_command():
+    """The RGB kernel is built like the spectral one."""
+    _check_build_command(tmarch.MEGA_PATHS, "mega_paths.cu")
+
+
+def _check_build_command(kernel, name):
+    cmd = nvcc_command("nvcc", kernel.source, "out.so")
     assert "arch=compute_90a,code=sm_90a" in cmd
     assert "--fmad=false" in cmd
     assert not any("fast_math" in a or "fast-math" in a for a in cmd)
     assert tuple(cmd[1:1 + len(NVCC_FLAGS)]) == NVCC_FLAGS
-    assert tmarch.MEGA_SPECTRAL.source.name == "mega_spectral.cu"
-    assert tmarch.MEGA_SPECTRAL.source.exists()
+    assert kernel.source.name == name
+    assert kernel.source.exists()
+    assert (kernel.source.parent / "scene_map.cuh").exists()
+
+
+def test_library_key_hashes_headers(tmp_path):
+    """The built library's name hashes the source and every header of
+    its directory: editing the shared `scene_map.cuh` rebuilds both
+    kernels instead of loading a stale library."""
+    import shutil
+    for f in tmarch.MEGA_PATHS.source.parent.iterdir():
+        shutil.copy(f, tmp_path / f.name)
+    kernels = [CudaKernel(str(tmp_path / k.source.name), k.entry, k.argtypes)
+               for k in (tmarch.MEGA_PATHS, tmarch.MEGA_SPECTRAL)]
+    before = [k.library_path() for k in kernels]
+    assert [k.library_path() for k in kernels] == before   # stable
+    header = tmp_path / "scene_map.cuh"
+    header.write_text(header.read_text() + "\n// edited\n")
+    after = [k.library_path() for k in kernels]
+    assert all(a != b for a, b in zip(after, before))
+    assert all(a.parent == b.parent for a, b in zip(after, before))
