@@ -20,8 +20,9 @@ Phases (any failure raises and the script exits non-zero):
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  The main launches
-     are timed (CUDA events), and the plain version there also counts the
-     map evaluations these inputs need, for the kernel's operation bound;
+     are timed (CUDA events), and a second run of the plain version there
+     counts the map evaluations these inputs need, for the kernel's
+     operation bound;
   4. main paths — the port's CLI in-process, each with its kernel's launch
      counter zeroed just before and read just after:
        render --spectral --scene data/scenes/spectral.scene ...
@@ -46,6 +47,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
@@ -223,24 +225,26 @@ def _bound(scene, cfg, work, in_bytes, out_bytes):
             "operations" if t_ops >= t_bytes else "bytes", ops)
 
 
-def _main_launch(label, kernel, plain, card, in_bytes):
+def _main_launch(label, kernel, plain, card):
     """Kernel vs plain at a main path's own launch: parity, the kernel's
-    time (mean of 3), the plain version's time (one run, counting its
-    work).  Returns (max abs err, ms, plain ms, work)."""
+    time (mean of 3), the plain version's time (one run), then one more
+    plain run that counts the work for the bound, outside that time.
+    Returns (max abs err, ms, plain ms, work)."""
     got = kernel()
-    work = {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = plain(work)
+    want = plain()
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     max_err = _compare(label, got, want)
     del got, want
     ms = _cuda_ms(kernel, reps=3, warmup=False)
-    print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms [{card}]",
-          flush=True)
+    work = {}
+    count_ms = _cuda_ms(lambda: plain(work), reps=1, warmup=False)
+    print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (with work "
+          f"counters {count_ms:.3f} ms) [{card}]", flush=True)
     return max_err, ms, plain_ms, work
 
 
@@ -259,7 +263,7 @@ def parity_paths(dev, card):
     in_bytes = 15 * 4 + _buffer_bytes(prog, data)
     max_err, ms, plain_ms, work = _main_launch(
         "RGB, sphere_on_floor 1024x1024, 128 spp (the main path's launch)",
-        kernel, plain, card, in_bytes)
+        kernel, plain, card)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
 
     kernel, plain, *_ = _paths_fns(dev, "csg_demo", 8, _NEE_PATCH,
@@ -285,7 +289,7 @@ def parity_spectral(dev, card):
     in_bytes = 15 * 4 + _buffer_bytes(prog, data)
     max_err, ms, plain_ms, work = _main_launch(
         "spectral 1024x1024, 128 spp (the main path's launch)", kernel,
-        plain, card, in_bytes)
+        plain, card)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
     kernel, plain, *_ = _spectral_fns(dev, 4, _SPEC_PATCH, (128, 128))
     max_err = max(max_err, _compare(
@@ -368,9 +372,10 @@ def main() -> int:
 
     # 2. build, one nvcc per kernel, all started together
     from raymarchrenderer_tpu_torch.kernels import march
-    from raymarchrenderer_tpu_torch.kernels.build import build_all
     t0 = time.perf_counter()
-    build_all((march.MEGA_PATHS, march.MEGA_SPECTRAL))
+    kernels = (march.MEGA_PATHS, march.MEGA_SPECTRAL)
+    with ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.build(), kernels))
     print(f"build: both kernels in {time.perf_counter() - t0:.2f} s (nvcc "
           f"{march.MEGA_PATHS.source.name} "
           f"{march.MEGA_PATHS.build_seconds:.2f} s, "

@@ -15,7 +15,6 @@ only, never jax and never the reference package.
                 build, bind and wrappers
   * `io`      — BMP/PNG/NPY writers
   * `app`     — the `render` CLI (RGB, and `--spectral`)
-  * `utils`   — measurement tools for the card
 """
 
 from raymarchrenderer_tpu_torch.core.camera import Camera  # noqa: F401

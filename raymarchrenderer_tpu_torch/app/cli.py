@@ -110,7 +110,8 @@ def cmd_render(args):
 
     from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
     from raymarchrenderer_tpu_torch.kernels.march import (
-        prepare, render_progressive_fused, render_progressive_fused_spectral)
+        MEGA_PATHS, MEGA_SPECTRAL, prepare, render_progressive_fused,
+        render_progressive_fused_spectral)
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         band_table)
 
@@ -119,19 +120,19 @@ def cmd_render(args):
     params = scene.init_params(device)
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
-    build_s = prepare(device)       # nvcc stays out of the render time
+    # nvcc stays out of the render time
+    build_s = prepare(device,
+                      MEGA_SPECTRAL if args.spectral else MEGA_PATHS)
     if build_s is not None:
-        print(f"kernels built and loaded in {build_s:.3f}s")
+        print(f"kernel built and loaded in {build_s:.3f}s")
     kind = "spectral" if args.spectral else "rgb"
     print(f"rendering {cfg.width}x{cfg.height} @ {cfg.spp} spp "
           f"({kind}, {device})")
-    t0 = time.perf_counter()
 
     def progress(s, state):
-        el = time.perf_counter() - t0
-        print(f"  {s}/{cfg.spp} spp  ({s / max(el, 1e-9):.2f} spp/s)",
-              flush=True)
+        print(f"  {s}/{cfg.spp} spp", flush=True)
 
+    t0 = time.perf_counter()
     if args.spectral:
         img, n = render_progressive_fused_spectral(
             scene, params, band_table(scene, device), cfg, corners,

@@ -41,17 +41,12 @@ constexpr uint32_t kW2 = 0xC2B2AE35u;
 constexpr uint32_t kW3 = 0x27D4EB2Fu;
 
 // Launch shape of both megakernels: blocks of 16 x 8 threads, and at least
-// RMR_MIN_BLOCKS of them resident per SM (`__launch_bounds__`), which caps
-// a thread's registers (six blocks: 80).  The kernels are latency-bound by
-// divergent, interpreted map evaluations, so resident warps pay; the
-// default of six keeps the spectral kernel at the occupancy it had before
-// it shared this header.  raymarchrenderer_tpu_torch/utils/launch_sweep.py
-// times other values (PERF.md).
-#ifndef RMR_MIN_BLOCKS
-#define RMR_MIN_BLOCKS 6
-#endif
+// six of them resident per SM (`__launch_bounds__`), which caps a thread's
+// registers at 80.  The kernels are latency-bound by divergent, interpreted
+// map evaluations, so resident warps pay; six keeps the spectral kernel at
+// the occupancy it had before it shared this header (PERF.md).
 constexpr int kBlockThreads = 128;
-constexpr int kMinBlocks = RMR_MIN_BLOCKS;
+constexpr int kMinBlocks = 6;
 
 constexpr float kTwoPi = 6.28318530717958647692f;  // f32(2 * pi), as 2.0 * _PI rounds
 constexpr float kPi = 3.14159265358979323846f;

@@ -5,9 +5,8 @@ Each source is compiled for Hopper (`sm_90a`) into a shared library with a
 plain C entry point, at first use, under `build/raymarchrenderer_tpu_torch/`
 beside the package, named by a hash of the source, every `csrc/*.cuh`
 header and the command, so an edited source or header rebuilds and an
-unchanged one is loaded as it is.  `build_all` runs one nvcc per source,
-all at once.  Nothing is compiled or imported from CUDA when this module
-is imported.
+unchanged one is loaded as it is.  Nothing is compiled or imported from
+CUDA when this module is imported.
 
 Numerics flags: `--fmad=false` keeps every multiply and add separately
 rounded, as in the plain PyTorch versions, and fast math stays off (so
@@ -47,8 +46,8 @@ def find_nvcc() -> str:
                        "or set CUDA_HOME")
 
 
-def nvcc_command(nvcc: str, src: Path, out: Path, extra=()) -> list:
-    return [nvcc, *NVCC_FLAGS, *extra, "-o", str(out), str(src)]
+def nvcc_command(nvcc: str, src: Path, out: Path) -> list:
+    return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
 class CudaKernel:
@@ -56,59 +55,41 @@ class CudaKernel:
 
     `launches` counts the launches made through `launch`, and nothing
     else adds to it.  `build_seconds` is the wall time of the last build
-    (0.0 when the library was already built) and `build_log` nvcc's output.
-    `extra_flags` go to nvcc after `NVCC_FLAGS` (e.g. a `-D` define) and
-    into the library's key."""
+    (0.0 when the library was already built)."""
 
-    def __init__(self, source: str, entry: str, argtypes, extra_flags=()):
+    def __init__(self, source: str, entry: str, argtypes):
         self.source = CSRC / source
         self.entry = entry
         self.argtypes = argtypes
-        self.extra_flags = tuple(extra_flags)
         self.launches = 0
         self.build_seconds = 0.0
-        self.build_log = ""
         self._fn = None
 
     def library_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.name.encode() + header.read_bytes())
-        h.update(" ".join(NVCC_FLAGS + self.extra_flags).encode())
+        h.update(" ".join(NVCC_FLAGS).encode())
         return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
-
-    def _start(self):
-        """Start nvcc on the source unless its library exists; returns
-        (process, temporary output, library, start time) or None."""
-        lib = self.library_path()
-        if self._fn is not None or lib.exists():
-            return None
-        nvcc = find_nvcc()
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-        proc = subprocess.Popen(nvcc_command(nvcc, self.source, tmp,
-                                             self.extra_flags),
-                                stdout=subprocess.PIPE,
-                                stderr=subprocess.STDOUT, text=True)
-        return proc, tmp, lib, time.perf_counter()
-
-    def _finish(self, started) -> None:
-        proc, tmp, lib, t0 = started
-        out, _ = proc.communicate()
-        self.build_log = out
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed on {self.source.name}:\n{out}")
-        os.replace(tmp, lib)
-        self.build_seconds = time.perf_counter() - t0
 
     def build(self):
         """Compile (if needed) and load; returns the ctypes function."""
         if self._fn is not None:
             return self._fn
-        started = self._start()
-        if started is not None:
-            self._finish(started)
-        fn = getattr(ctypes.CDLL(str(self.library_path())), self.entry)
+        lib = self.library_path()
+        if not lib.exists():
+            nvcc = find_nvcc()
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+            t0 = time.perf_counter()
+            proc = subprocess.run(nvcc_command(nvcc, self.source, tmp),
+                                  capture_output=True, text=True)
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
+                                   f"{proc.stdout}{proc.stderr}")
+            os.replace(tmp, lib)
+            self.build_seconds = time.perf_counter() - t0
+        fn = getattr(ctypes.CDLL(str(lib)), self.entry)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
         self._fn = fn
@@ -119,20 +100,3 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: CUDA error {err}")
         self.launches += 1
-
-
-def build_all(kernels) -> None:
-    """Build and load every kernel, one nvcc process per source, all
-    started together."""
-    started = [(k, k._start()) for k in kernels]
-    try:
-        for k, st in started:
-            if st is not None:
-                k._finish(st)
-    finally:
-        for _, st in started:
-            if st is not None and st[0].poll() is None:
-                st[0].kill()
-                st[0].wait()
-    for k in kernels:
-        k.build()

@@ -24,7 +24,7 @@ import time
 import numpy as np
 import torch
 
-from raymarchrenderer_tpu_torch.kernels.build import CudaKernel, build_all
+from raymarchrenderer_tpu_torch.kernels.build import CudaKernel
 from raymarchrenderer_tpu_torch.kernels.scene_program import (
     paths_buffers, spectral_buffers)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
@@ -282,13 +282,14 @@ def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,
     return accum, n
 
 
-def prepare(device):
-    """Build and load the kernels that render on `device` ahead of their
-    first launch; returns the seconds this took, or None on the CPU."""
+def prepare(device, kernel: CudaKernel):
+    """Build and load `kernel` (`MEGA_PATHS` or `MEGA_SPECTRAL`), when it
+    renders on `device`, ahead of its first launch; returns the seconds
+    this took, or None on the CPU."""
     if torch.device(device).type != "cuda":
         return None
     t0 = time.perf_counter()
-    build_all((MEGA_SPECTRAL, MEGA_PATHS))
+    kernel.build()
     return time.perf_counter() - t0
 
 
