@@ -5,8 +5,10 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device — a CUDA card must be present; print its name and power limit;
-  2. build  — compile csrc/mega_paths.cu and csrc/mega_spectral.cu with
-     nvcc (sm_90a), one process each, started together; time each;
+  2. build  — compile csrc/mega_paths.cu (the render and the recording
+     entries), csrc/mega_spectral.cu and csrc/march_fused.cu with nvcc
+     (sm_90a), one process per source, started together; time each and
+     print every kernel's registers and spills (ptxas);
   3. parity — each kernel's wrapper on CUDA tensors against its plain
      PyTorch version on the same tensors, production knobs:
        * RGB (`render_fused_patch` vs `trace_mega_paths`): the main path's
@@ -17,12 +19,27 @@ Phases (any failure raises and the script exits non-zero):
        * spectral (`render_fused_spectral` vs `trace_mega_spectral`): the
          main path's own launch (spectral_demo, 1024^2, 128 samples), then
          a 128^2 patch at a non-zero origin, 4 samples.
+       * the recorder (`trace_record_fused` vs `record_plain`): the train
+         path's own launch (sphere_on_floor, 1024^2, 4 samples, 4
+         bounces, relax 1.9, 4 taps); csg_demo with NEE on a 256^2 patch,
+         2 samples (the sd bank, strict miss test); csg_demo with
+         dispersion, NEE and roulette on a 128^2 patch, 1 sample;
+       * `march_fused` vs `integrator.march`: the train launch's
+         sample-folded primary plane (4 * 1024, 1024), and a shadow-style
+         plane (per-lane t_max, a quarter of the rays inside the ball
+         with dist_mult -1, an eighth inactive);
+       * gradients: one train step at 256^2, 2 samples, replayed over the
+         recorder's banks and over its plain version's, and with
+         `march_fused` against the plain march.
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
-     off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  The main launches
-     are timed (CUDA events), and a second run of the plain version there
-     counts the map evaluations these inputs need, for the kernel's
-     operation bound;
+     off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
+     planes: fewer than 1e-3 of the entries with another material, hit or
+     visibility, and fewer than 1e-3 of those where both hit with t off by
+     more than 1e-5.  Gradients: loss to rtol 1e-5, each leaf to atol
+     1e-3 * max|g|.  The main launches are timed (CUDA events), and a
+     second run of the plain version there counts the map evaluations
+     these inputs need, for the kernel's operation bound;
   4. main paths — the port's CLI in-process, each with its kernel's launch
      counter zeroed just before and read just after:
        render --spectral --scene data/scenes/spectral.scene ...
@@ -30,10 +47,22 @@ Phases (any failure raises and the script exits non-zero):
        render --scene csg --direct-light ...
      all at --width 1024 --height 1024 --spp 128 --chunk 128 --relax 2.0
      --normal-taps 4; the counter must have risen, the image be finite and
-     non-zero and the PNG written;
+     non-zero and the PNG written; then `train` (RGB inverse rendering),
+     --spp 4 --max-bounces 4 --relax 1.9 --normal-taps 4 --steps 3
+     --lr 1e-2 toward a target the port renders itself (the scene with a
+     radius scaled by 1.05, 64 samples):
+       train --scene sphere_on_floor --width 1024 --height 1024
+       train --scene sphere_on_floor --impl fused --width 256 --height 256
+       train --scene csg --direct-light --width 512 --height 512
+     the recorder must launch once per step (or march_fused once per
+     march) and the RGB kernel for the final render, the loss and every
+     gradient be finite, a gradient that must not vanish not vanish, and
+     the npz and PNG be written;
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
      launch (the CLI's default chunk), and the RGB kernel at 128, one
-     `perf:` JSON line.
+     `perf:` JSON line; then the train step at the full configuration
+     (recorder, replay forward, the whole step, its rate, peak memory with
+     and without remat), one `train perf:` JSON line.
 
 The line before the last is a JSON object with one entry per kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -66,6 +95,15 @@ SPECTRAL_ARGV = ["render", "--spectral", "--scene",
                  *_SIZE]
 RGB_ARGV = ["render", "--scene", "sphere_on_floor", *_SIZE]
 NEE_ARGV = ["render", "--scene", "csg", "--direct-light", *_SIZE]
+_TRAIN = ["--spp", "4", "--max-bounces", "4", "--relax", "1.9",
+          "--normal-taps", "4", "--steps", "3", "--lr", "1e-2"]
+TRAIN_ARGV = ["train", "--scene", "sphere_on_floor", "--width", "1024",
+              "--height", "1024", *_TRAIN]
+TRAIN_FUSED_ARGV = ["train", "--scene", "sphere_on_floor", "--impl", "fused",
+                    "--width", "256", "--height", "256", *_TRAIN]
+TRAIN_NEE_ARGV = ["train", "--scene", "csg", "--direct-light", "--width",
+                  "512", "--height", "512", *_TRAIN]
+TRAIN_SPP = 4
 
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 PEAK_FP32 = 67e12             # FLOP/s outside the tensor cores
@@ -212,7 +250,7 @@ def _bound(scene, cfg, work, in_bytes, out_bytes):
     Returns (ms, "bytes" or "operations", operations)."""
     from raymarchrenderer_tpu_torch.kernels.scene_program import map_flops
     mf = map_flops(scene)
-    march, shade = int(work["march"]), int(work["shade"])
+    march, shade = int(work["march"]), int(work.get("shade", 0))
     taps = cfg.normal_taps
     ops = (march * (mf + MARCH_STEP_FLOPS)
            + shade * ((1 + taps) * mf + 6 * taps + 11))
@@ -225,11 +263,11 @@ def _bound(scene, cfg, work, in_bytes, out_bytes):
             "operations" if t_ops >= t_bytes else "bytes", ops)
 
 
-def _main_launch(label, kernel, plain, card):
-    """Kernel vs plain at a main path's own launch: parity, the kernel's
-    time (mean of 3), the plain version's time (one run), then one more
-    plain run that counts the work for the bound, outside that time.
-    Returns (max abs err, ms, plain ms, work)."""
+def _main_launch(label, kernel, plain, card, compare=_compare):
+    """Kernel vs plain at a main path's own launch: parity by `compare`,
+    the kernel's time (mean of 3), the plain version's time (one run),
+    then one more plain run that counts the work for the bound, outside
+    that time.  Returns (max abs err, ms, plain ms, work)."""
     got = kernel()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
@@ -238,7 +276,7 @@ def _main_launch(label, kernel, plain, card):
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
-    max_err = _compare(label, got, want)
+    max_err = compare(label, got, want)
     del got, want
     ms = _cuda_ms(kernel, reps=3, warmup=False)
     work = {}
@@ -296,6 +334,348 @@ def parity_spectral(dev, card):
         f"spectral 128x128 patch at {_SPEC_PATCH}, 4 spp", kernel(),
         plain()))
     return max_err, ms, plain_ms, bound
+
+
+def _train_cfg(size, **kw):
+    """The train workload's configuration (`tools/train_bench.py`): 4
+    bounces, relax 1.9, 4 normal taps, the CLI's other defaults."""
+    from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    return RenderConfig(width=size, height=size, max_bounces=4,
+                        relax_omega=1.9, normal_taps=4, **kw)
+
+
+def _planes_compare(label, got, want):
+    """Hold a kernel's (t, mid, hit[, sd]) planes against the plain
+    version's: decisions (material, hit, visibility) off on fewer than
+    1e-3 of the entries, and t off by more than 1e-5 on fewer than 1e-3 of
+    the entries where both hit.  Returns the max abs t error there."""
+    torch.cuda.synchronize()
+    if set(got) != set(want) or any(
+            tuple(got[k].shape) != tuple(want[k].shape) for k in want):
+        raise AssertionError(f"{label}: planes {sorted(got)} vs "
+                             f"{sorted(want)} differ in name or shape")
+    hit = (got["hit"] > 0) & (want["hit"] > 0)
+    dt = torch.where(hit, (got["t"] - want["t"]).abs(), 0.0)
+    dec = float(((got["mid"] != want["mid"])
+                 | (got["hit"] != want["hit"])).float().mean())
+    sd = (float((got["sd"] != want["sd"]).float().mean()) if "sd" in want
+          else 0.0)
+    n_hit = int(hit.sum())
+    t_off = float((dt > PIX_TOL).sum()) / max(n_hit, 1)
+    max_err = float(dt.max())
+    print(f"parity, {label}: decisions off {dec:.3e}, sd off {sd:.3e}; "
+          f"{n_hit} both-hit entries, t off by > {PIX_TOL:g} {t_off:.3e} "
+          f"(bars {MAX_FRAC_OFF:g}), max abs t err {max_err:.3e}",
+          flush=True)
+    if not (n_hit > 0 and dec < MAX_FRAC_OFF and sd < MAX_FRAC_OFF
+            and t_off < MAX_FRAC_OFF):
+        raise AssertionError(f"kernel disagrees with its plain version "
+                             f"({label})")
+    return max_err
+
+
+def _record_fns(dev, scene_name, size, n, origin_xy=(0, 0),
+                patch_shape=None, direct_light=False, **cfg_kw):
+    """(kernel, plain, scene, cfg, params) of a recording launch: the
+    wrapper on CUDA tensors and `record_plain` on the same tensors, each
+    returning the folded banks; `plain` takes an optional work dict."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        record_plain, trace_record_fused)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = getattr(builtin, scene_name)()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(size, **cfg_kw)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    shape = patch_shape or (size, size)
+
+    def kernel():
+        return trace_record_fused(scene, params, cfg, corners, origin_xy,
+                                  shape, 0, n_samples=n,
+                                  direct_light=direct_light)
+
+    def plain(work=None):
+        return record_plain(scene, params, cfg, corners, origin_xy, shape, 0,
+                            n_samples=n, direct_light=direct_light, work=work)
+
+    return kernel, plain, scene, cfg, params
+
+
+def parity_record(dev, card):
+    """The recorder: the train path's launch, then the NEE and the
+    dispersion + NEE + roulette patches."""
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        paths_buffers)
+    kernel, plain, scene, cfg, params = _record_fns(
+        dev, "sphere_on_floor", 1024, TRAIN_SPP)
+    prog, data = paths_buffers(scene, params, dev)
+    max_err, ms, plain_ms, work = _main_launch(
+        f"recorder, sphere_on_floor 1024x1024, {TRAIN_SPP} samples, "
+        f"{cfg.max_bounces} bounces (the train path's launch)", kernel,
+        plain, card, _planes_compare)
+    banks = 12 * cfg.max_bounces * TRAIN_SPP * 1024 * 1024
+    bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
+                   banks)
+    kernel, plain, *_ = _record_fns(dev, "csg_demo", 1024, 2, _NEE_PATCH,
+                                    (256, 256), direct_light=True)
+    max_err = max(max_err, _planes_compare(
+        f"recorder + NEE, csg_demo 256x256 patch at {_NEE_PATCH}, 2 "
+        f"samples", kernel(), plain()))
+    kernel, plain, *_ = _record_fns(dev, "csg_demo", 1024, 1, _DISP_PATCH,
+                                    (128, 128), direct_light=True,
+                                    separate_channels=True,
+                                    rr_start_bounce=1)
+    max_err = max(max_err, _planes_compare(
+        f"recorder + dispersion + NEE + RR, csg_demo 128x128 patch at "
+        f"{_DISP_PATCH}, 1 sample", kernel(), plain()))
+    return max_err, ms, plain_ms, bound
+
+
+def _shadow_plane(dev, h=512, w=1024, seed=5):
+    """Camera rays, a quarter of them inside the ball with dist_mult -1,
+    an eighth inactive, and a per-lane t_max in [2, 12] (the shadow
+    rays' cap)."""
+    from raymarchrenderer_tpu_torch.core.vecmath import Vec3
+    rng = np.random.RandomState(seed)
+    o = np.broadcast_to(np.float32([0.0, 4.0, -6.0]), (h, w, 3)).copy()
+    d = (np.float32([0.0, -0.447, 0.894])
+         + rng.uniform(-0.45, 0.45, (h, w, 3))).astype(np.float32)
+    inside = rng.uniform(size=(h, w)) < 0.25
+    o[inside] = np.float32([0.0, 1.0, 0.0]) + rng.uniform(
+        -0.4, 0.4, (int(inside.sum()), 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    return (Vec3(*(put(o[..., k]) for k in range(3))),
+            Vec3(*(put(d[..., k]) for k in range(3))),
+            put(np.where(inside, -1.0, 1.0)),
+            torch.from_numpy(rng.uniform(size=(h, w)) >= 0.125).to(dev),
+            put(rng.uniform(2.0, 12.0, (h, w))))
+
+
+def parity_march(dev, card):
+    """`march_fused`: the train launch's primary plane, sample-folded
+    (4 * 1024, 1024), then a shadow-style plane."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.march import march_fused
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        object_buffers)
+    from raymarchrenderer_tpu_torch.render.integrator import march, spp_rays
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(1024)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    _, _, _, eye, d = spp_rays(cfg, corners, (0, 0), (1024, 1024), 0,
+                               TRAIN_SPP)
+    act = torch.ones(eye.x.shape, dtype=torch.bool, device=dev)
+
+    def planes(out):
+        return {"t": out[0], "mid": out[1], "hit": out[2].int()}
+
+    def kernel(o=eye, d=d, dm=1.0, act=act, t_max=None):
+        return planes(march_fused(scene, params, cfg, o, d, dm, act,
+                                  t_max=t_max))
+
+    def plain(work=None, o=eye, d=d, dm=1.0, act=act, t_max=None):
+        return planes(march(scene, params, cfg, o, d, dm, act, t_max=t_max,
+                            work=work))
+
+    n = eye.x.numel()
+    max_err, ms, plain_ms, work = _main_launch(
+        f"march_fused, the train launch's primary plane "
+        f"({TRAIN_SPP}x1024, 1024)", kernel, plain, card, _planes_compare)
+    prog, data = object_buffers(scene, params, dev)
+    bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
+                   12 * n)
+    o, d2, dm, act2, tmax = _shadow_plane(dev)
+    max_err = max(max_err, _planes_compare(
+        "march_fused, a shadow-style plane (512, 1024): per-lane t_max, "
+        "dist_mult -1 inside the ball, inactive lanes",
+        kernel(o, d2, dm, act2, tmax), plain(None, o, d2, dm, act2, tmax)))
+    return max_err, ms, plain_ms, bound
+
+
+def _grads_compare(label, got, want):
+    """Loss to rtol 1e-5 and every leaf to atol 1e-3 * max|g|."""
+    from raymarchrenderer_tpu_torch.scene import param_leaves
+    (loss, grads), (want_loss, want_grads) = got, want
+    worst = 0.0
+    for g, w in zip(param_leaves(grads), param_leaves(want_grads)):
+        if not bool(torch.isfinite(g).all()):
+            raise AssertionError(f"{label}: a gradient is not finite")
+        if w.numel():
+            scale = max(1e-6, float(w.abs().max()))
+            worst = max(worst, float((g - w).abs().max()) / scale)
+    rel = abs(float(loss) - float(want_loss)) / max(abs(float(want_loss)),
+                                                    1e-30)
+    print(f"parity, {label}: loss {float(loss):.8f} vs "
+          f"{float(want_loss):.8f} (rel {rel:.2e}, bar 1e-5), worst leaf "
+          f"error {worst:.2e} of its max|g| (bar 1e-3)", flush=True)
+    if not (rel <= 1e-5 and worst <= 1e-3):
+        raise AssertionError(f"gradients disagree ({label})")
+
+
+def parity_grads(dev, card):
+    """One train step's loss and gradients at 256^2, 2 samples: replayed
+    over the recorder's banks and over its plain version's; and with
+    `march_fused` against the plain march."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        record_plain, trace_record_fused)
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        train_grads_sharded)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(256)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    target = torch.from_numpy(np.random.RandomState(3).uniform(
+        0.0, 0.5, (256, 256, 3)).astype(np.float32)).to(dev)
+    args = (scene, params, cfg, corners, target, 2)
+    rec = (trace_record_fused, record_plain)
+    banks = [f(scene, params, cfg, corners, (0, 0), (256, 256), 0,
+               n_samples=2) for f in rec]
+    _grads_compare("train step 256x256, 2 samples: kernel banks vs plain "
+                   "banks", *(train_grads_sharded(
+                       *args, march_impl="recorded", recorded=b)
+                       for b in banks))
+    _grads_compare("train step 256x256, 2 samples: --impl fused vs oracle",
+                   *(train_grads_sharded(*args, march_impl=m)
+                     for m in ("fused", "oracle")))
+
+
+def _write_target(path, dev, scene_name, size, direct_light, leaf):
+    """The port's own render of the scene with the parameter `leaf(params)`
+    (a radius) scaled by 1.05, 64 samples, saved as .npy."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.march import render_fused
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = getattr(builtin, scene_name)()
+    params = scene.init_params(dev)
+    leaf(params).mul_(1.05)
+    img = render_fused(scene, params, _train_cfg(size),
+                       Camera(aspect=1.0).corner_rays_flat(dev), 0,
+                       n_samples=64, direct_light=direct_light)
+    np.save(path, img.cpu().numpy())
+
+
+def train_path(label, argv, dev, card, scene_name, size, direct_light,
+               target_leaf, check_leaf, launches_expected):
+    """One `train` run through the CLI toward a target rendered with
+    `target_leaf(params)` scaled; `check_leaf(tree)` picks the leaf whose
+    gradient must not vanish; `launches_expected` maps each kernel to the
+    launches the run must make (None: at least one).  Returns the
+    launches."""
+    from raymarchrenderer_tpu_torch.app import cli
+    from raymarchrenderer_tpu_torch.scene import param_leaves
+
+    with tempfile.TemporaryDirectory() as tmp:
+        target = os.path.join(tmp, "target.npy")
+        _write_target(target, dev, scene_name, size, direct_light,
+                      target_leaf)
+        out = os.path.join(tmp, "fit.npz")
+        args = cli.build_parser().parse_args(
+            argv + ["--target", target, "--out", out])
+        for kernel in launches_expected:
+            kernel.launches = 0
+        t0 = time.perf_counter()
+        loss, params, grads, img = cli.cmd_train(args)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {k: k.launches for k in launches_expected}
+        for kernel, want in launches_expected.items():
+            got = launches[kernel]
+            if (got < 1) if want is None else (got != want):
+                raise AssertionError(
+                    f"{label}: {got} launches of {kernel.entry}, expected "
+                    f"{'at least 1' if want is None else want}")
+        if not (os.path.getsize(out) and os.path.getsize(
+                os.path.join(tmp, "fit.png"))):
+            raise AssertionError(f"{label}: the npz or the PNG is empty")
+        if not np.isfinite(float(loss)):
+            raise AssertionError(f"{label}: the loss is not finite")
+        if not all(bool(torch.isfinite(g).all())
+                   for g in param_leaves(grads)):
+            raise AssertionError(f"{label}: a gradient is not finite")
+        moved = float(check_leaf(grads).abs().max())
+        if not moved > 0.0:
+            raise AssertionError(f"{label}: the gradient that must not "
+                                 "vanish is zero")
+        if not bool(torch.isfinite(img).all()):
+            raise AssertionError(f"{label}: the final render is not finite")
+    print(f"main path, {label}: final loss {float(loss):.6f}, max |grad| of "
+          f"the checked leaf {moved:.4e}, wall with target render, steps, "
+          f"final render and files {wall:.3f} s, launches "
+          f"{ {k.entry: v for k, v in launches.items()} } [{card}]",
+          flush=True)
+    return launches
+
+
+def _mean_spread(xs):
+    return {"mean": sum(xs) / len(xs), "min": min(xs), "max": max(xs)}
+
+
+def train_perf(dev, card):
+    """The train step at the full configuration, 3 repetitions: the
+    recorder alone, the replay's forward (loss, no graph), the whole step
+    (record, replay, backward, SGD), host clock around synchronised work;
+    then one step's peak memory with and without remat."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import trace_record_fused
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        sgd, train_grads_sharded, train_loss_sharded)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(1024)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    target = torch.full((1024, 1024, 3), 0.2, device=dev)
+    args = (scene, params, cfg, corners, target, TRAIN_SPP)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    record, forward, step = [], [], []
+    for _ in range(3):
+        banks, ms = timed(lambda: trace_record_fused(
+            scene, params, cfg, corners, (0, 0), (1024, 1024), 0,
+            n_samples=TRAIN_SPP))
+        record.append(ms)
+        forward.append(timed(lambda: train_loss_sharded(
+            *args, march_impl="recorded", recorded=banks))[1])
+        del banks
+        step.append(timed(lambda: sgd(params, train_grads_sharded(
+            *args, march_impl="recorded")[1], 1e-2))[1])
+    memory = {}
+    for remat in (True, False):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        timed(lambda: train_grads_sharded(*args, march_impl="recorded",
+                                          remat=remat))
+        memory[f"peak_gb_remat_{'on' if remat else 'off'}"] = (
+            torch.cuda.max_memory_allocated(dev) / 1e9)
+    res = {"card": card, "config": "sphere_on_floor 1024x1024, 4 spp, 4 "
+           "bounces, relax 1.9, 4 taps, recorded, remat",
+           "record_ms": _mean_spread(record),
+           "replay_forward_ms": _mean_spread(forward),
+           "step_ms": _mean_spread(step),
+           "backward_update_ms_derived": (sum(step) - sum(record)
+                                          - sum(forward)) / len(step),
+           "step_mpix_spp_per_s": 1024 * 1024 * TRAIN_SPP / 1e3 / (
+               sum(step) / len(step)), **memory}
+    print("train perf: " + json.dumps(res), flush=True)
 
 
 def main_path(label, argv, kernel, card):
@@ -370,21 +750,32 @@ def main() -> int:
     print(card, flush=True)     # nvidia-smi's name, power.limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build, one nvcc per kernel, all started together
+    # 2. build, one nvcc per source, all started together (the render and
+    # the recording entries share mega_paths.cu: one builds, one waits)
     from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     t0 = time.perf_counter()
-    kernels = (march.MEGA_PATHS, march.MEGA_SPECTRAL)
+    kernels = (march.MEGA_PATHS, march.RECORD_PATHS, march.MEGA_SPECTRAL,
+               march.MARCH_FUSED)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels))
-    print(f"build: both kernels in {time.perf_counter() - t0:.2f} s (nvcc "
-          f"{march.MEGA_PATHS.source.name} "
-          f"{march.MEGA_PATHS.build_seconds:.2f} s, "
-          f"{march.MEGA_SPECTRAL.source.name} "
-          f"{march.MEGA_SPECTRAL.build_seconds:.2f} s) [{card}]", flush=True)
+    print(f"build: {len(kernels)} kernels of 3 sources in "
+          f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
+              f"{k.source.name} {k.build_seconds:.2f} s" for k in kernels
+              if k.build_log) + f") [{card}]", flush=True)
+    for k in kernels:
+        for fn, use in ptxas_usage(k.build_log).items():
+            print(f"ptxas: {k.source.name} {fn}: {use['registers']} "
+                  f"registers, {use.get('spill_stores', 0)} bytes spill "
+                  f"stores, {use.get('spill_loads', 0)} bytes spill loads",
+                  flush=True)
 
     # 3. parity (its launches do not count for the main paths)
     p_err, p_ms, p_plain, p_bound = parity_paths(dev, card)
     s_err, s_ms, s_plain, s_bound = parity_spectral(dev, card)
+    r_err, r_ms, r_plain, r_bound = parity_record(dev, card)
+    m_err, m_ms, m_plain, m_bound = parity_march(dev, card)
+    parity_grads(dev, card)
 
     # 4. main paths
     s_launches = main_path("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL,
@@ -392,9 +783,37 @@ def main() -> int:
     p_launches = main_path("rgb sphere_on_floor", RGB_ARGV, march.MEGA_PATHS,
                            card)
     main_path("rgb csg --direct-light", NEE_ARGV, march.MEGA_PATHS, card)
+    steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
+
+    def radius(tree):            # sphere_on_floor's ball radius
+        return tree["objects"][1][1]
+
+    def ball_albedo(tree):
+        return tree["materials"][2][0]
+
+    def csg_radius(tree):        # the smooth union's larger sphere
+        return tree["objects"][3][1]
+
+    # without NEE, sphere_on_floor's radiance is piecewise constant in
+    # geometry (diffuse albedos and an emitter), so its radius gradient is
+    # 0 in both packages; the ball's albedo carries the check there, and
+    # the NEE run checks a radius
+    r_launches = train_path(
+        "train sphere_on_floor 1024x1024 (recorded)", TRAIN_ARGV, dev, card,
+        "sphere_on_floor", 1024, False, radius, ball_albedo,
+        {march.RECORD_PATHS: steps, march.MEGA_PATHS: None})[
+            march.RECORD_PATHS]
+    m_launches = train_path(
+        "train sphere_on_floor 256x256 --impl fused", TRAIN_FUSED_ARGV, dev,
+        card, "sphere_on_floor", 256, False, radius, ball_albedo,
+        {march.MARCH_FUSED: None, march.MEGA_PATHS: None})[march.MARCH_FUSED]
+    train_path("train csg --direct-light 512x512 (recorded)", TRAIN_NEE_ARGV,
+               dev, card, "csg_demo", 512, True, csg_radius, csg_radius,
+               {march.RECORD_PATHS: steps, march.MEGA_PATHS: None})
 
     # 5. perf
     perf(dev, card)
+    train_perf(dev, card)
 
     print(json.dumps({"kernels": [
         _entry("mega_paths", "mega_paths.cu",
@@ -402,7 +821,13 @@ def main() -> int:
                p_err, p_ms, p_plain, p_bound),
         _entry("mega_spectral", "mega_spectral.cu",
                "raymarchrenderer_tpu/kernels/march.py:782", s_launches,
-               s_err, s_ms, s_plain, s_bound)]}))
+               s_err, s_ms, s_plain, s_bound),
+        _entry("record_paths", "mega_paths.cu",
+               "raymarchrenderer_tpu/kernels/record.py:395", r_launches,
+               r_err, r_ms, r_plain, r_bound),
+        _entry("march_fused", "march_fused.cu",
+               "raymarchrenderer_tpu/kernels/march.py:575", m_launches,
+               m_err, m_ms, m_plain, m_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

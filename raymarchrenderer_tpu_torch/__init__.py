@@ -8,13 +8,17 @@ only, never jax and never the reference package.
   * `core`    — vector math, counter-based RNG, SDFs, sampling, camera
   * `scene`   — `.scene` parsing, the object and material node
                 libraries, `Scene.shade`, builtin scenes
-  * `render`  — config, ray generation, normals, the spectral band table
-                and the eager megakernel schedules (the kernels' plain
+  * `render`  — config, ray generation, normals, the march, the wavefront
+                RGB integrator (`trace_rgb`), the spectral band table and
+                the eager megakernel schedules (the kernels' plain
                 versions)
-  * `kernels` — the CUDA megakernels' (RGB and spectral) scene compiler,
-                build, bind and wrappers
-  * `io`      — BMP/PNG/NPY writers
-  * `app`     — the `render` CLI (RGB, and `--spectral`)
+  * `diff`    — the implicit-function march adjoint under torch autograd
+  * `kernels` — the CUDA kernels' (RGB and spectral megakernels, the
+                recorder, `march_fused`) scene compiler, build, bind and
+                wrappers
+  * `parallel`— the render and the train step over the device layout
+  * `io`      — BMP/PNG/NPY writers, the train target's readers
+  * `app`     — the CLI: `render` (RGB, and `--spectral`) and `train`
 """
 
 from raymarchrenderer_tpu_torch.core.camera import Camera  # noqa: F401

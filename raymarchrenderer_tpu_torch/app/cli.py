@@ -1,4 +1,5 @@
-"""CLI frontend of the PyTorch port: `render`, RGB or `--spectral`.
+"""CLI frontend of the PyTorch port: `render`, RGB or `--spectral`, and
+`train`, RGB inverse rendering.
 
     python -m raymarchrenderer_tpu_torch render --scene csg --direct-light \\
         --width 1024 --height 1024 --spp 128 --chunk 128 --relax 2.0 \\
@@ -6,12 +7,15 @@
     python -m raymarchrenderer_tpu_torch render --spectral \\
         --scene data/scenes/spectral.scene --width 1024 --height 1024 \\
         --spp 128 --chunk 8 --relax 2.0 --normal-taps 4 --out out.png
+    python -m raymarchrenderer_tpu_torch train --scene sphere_on_floor \
+        --width 1024 --height 1024 --spp 4 --max-bounces 4 --relax 1.9 \
+        --normal-taps 4 --steps 3 --lr 1e-2 --target T.npy --out fit.npz
 
-The same flags as the JAX package's `render` subcommand that these paths
-read, plus `--device` (default `cuda`; `--device cpu` runs the plain
-PyTorch versions of the kernels).  On `cuda` with no card it fails.
-Env maps (`--env-map`), checkpoints and the other subcommands are not
-ported yet.
+The same flags as the JAX package's `render` and `train` subcommands that
+these paths read, plus `--device` (default `cuda`; `--device cpu` runs the
+plain PyTorch versions of the kernels).  On `cuda` with no card it fails.
+Env maps (`--env-map`), checkpoints, `train --spectral` and the other
+subcommands are not ported yet.
 """
 from __future__ import annotations
 
@@ -154,6 +158,98 @@ def cmd_render(args):
     return img, n, dt
 
 
+def load_target(path: str):
+    """A train target as (H, W, 3) linear float32: .npy as it is, .exr
+    linear, .png and .bmp decoded from sRGB."""
+    import numpy as np
+
+    from raymarchrenderer_tpu_torch.io.image import (_srgb_to_linear_np,
+                                                     load_bmp, load_exr,
+                                                     load_png)
+    ext = os.path.splitext(path)[1].lower()
+    if ext == ".npy":
+        return np.load(path).astype(np.float32)
+    if ext == ".exr":
+        return load_exr(path)
+    if ext == ".png":
+        return load_png(path).astype(np.float32)
+    if ext == ".bmp":
+        return _srgb_to_linear_np(
+            load_bmp(path).astype(np.float32) / 255.0).astype(np.float32)
+    raise SystemExit(f"unsupported target format: {path!r}")
+
+
+def cmd_train(args):
+    """Inverse rendering: fit every scene parameter to a target image by
+    SGD through the differentiable render (`parallel.sharding`), write the
+    fitted leaves (npz, `leaf{i}` in the JAX package's leaf order) and a
+    PNG of the final render.  `--impl auto` records each step's marches
+    with the recording megakernel; `fused` marches every bounce with
+    `march_fused`; `oracle` uses the plain march (an explicit choice, not
+    a fallback).  Returns (final loss, fitted params, the last step's
+    gradients, the final render)."""
+    import numpy as np
+    import torch
+
+    from raymarchrenderer_tpu_torch.io.image import save_image
+    from raymarchrenderer_tpu_torch.kernels.march import (
+        MARCH_FUSED, MEGA_PATHS, RECORD_PATHS, prepare)
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        render_sharded, sgd, train_grads_sharded)
+    from raymarchrenderer_tpu_torch.scene.graph import params_to_numpy
+
+    if args.spectral:
+        raise NotImplementedError(
+            "train --spectral is not ported yet (the next slice: the "
+            "spectral recorder and the soft band replay)")
+    if args.steps < 1:
+        raise SystemExit("--steps must be >= 1")
+    device = _device(args.device)
+    scene = _build_scene(args)
+    params = scene.init_params(device)
+    cfg = _config(args)
+    corners = _camera(args).corner_rays_flat(device)
+    target = load_target(args.target)
+    if target.shape != (cfg.height, cfg.width, 3):
+        raise SystemExit(
+            f"target is {target.shape}, render is "
+            f"({cfg.height}, {cfg.width}, 3): pass matching --width/--height")
+    target = torch.as_tensor(target, device=device)
+    march_impl = {"auto": "recorded", "fused": "fused",
+                  "oracle": "oracle"}[args.impl]
+    impl = "oracle" if args.impl == "oracle" else "fused"
+    kernels = {"recorded": (RECORD_PATHS,), "fused": (MARCH_FUSED,),
+               "oracle": ()}[march_impl] + ((MEGA_PATHS,)
+                                            if impl == "fused" else ())
+    build_s = prepare(device, *kernels)
+    if build_s is not None:
+        print(f"kernels built and loaded in {build_s:.3f}s")
+    print(f"training {cfg.width}x{cfg.height} @ {args.spp} spp, "
+          f"{args.steps} steps ({march_impl}, {device})")
+    for k in range(args.steps):
+        t0 = time.perf_counter()
+        loss, grads = train_grads_sharded(
+            scene, params, cfg, corners, target, spp=args.spp,
+            direct_light=args.direct_light, march_impl=march_impl)
+        params = sgd(params, grads, args.lr)
+        loss_f = float(loss)            # waits for the device
+        if k % max(1, args.steps // 10) == 0 or k == args.steps - 1:
+            print(f"step {k:4d} loss {loss_f:.6f} "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    img = render_sharded(scene, params, cfg, corners, spp=args.spp,
+                         direct_light=args.direct_light, impl=impl)
+    out = args.out or "output/fitted_params.npz"
+    if not out.endswith(".npz"):
+        out += ".npz"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    np.savez(out, **{f"leaf{i}": a
+                     for i, a in enumerate(params_to_numpy(params))})
+    png = os.path.splitext(out)[0] + ".png"
+    save_image(png, img.cpu().numpy())
+    print(f"saved {out} and {png} (final loss {loss_f:.6f})")
+    return loss, params, grads, img
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raymarchrenderer_tpu_torch",
@@ -162,6 +258,19 @@ def build_parser() -> argparse.ArgumentParser:
     pr = sub.add_parser("render", help="render a scene to an image")
     _add_render_flags(pr)
     pr.set_defaults(fn=cmd_render)
+    pt = sub.add_parser("train", help="inverse-render: fit the scene's "
+                                      "parameters to a target image")
+    _add_render_flags(pt)
+    pt.add_argument("--target", required=True,
+                    help="target image (.png/.bmp sRGB, .exr linear, .npy "
+                         "linear float32), the size of --width/--height")
+    pt.add_argument("--steps", type=int, default=100)
+    pt.add_argument("--lr", type=float, default=1e-2)
+    pt.add_argument("--impl", choices=("auto", "fused", "oracle"),
+                    default="auto",
+                    help="auto: the recording megakernel; fused: "
+                         "march_fused per bounce; oracle: the plain march")
+    pt.set_defaults(fn=cmd_train)
     return p
 
 

@@ -66,11 +66,12 @@ class Camera:
         n = math.sqrt(sum(c * c for c in d))
         self.direction = tuple(c / n for c in d)
 
-    def corner_rays_flat(self, device="cpu") -> torch.Tensor:
-        """(5, 3) float32 tensor: eye, ray00 (top-left), ray10 (top-right),
-        ray01 (bottom-left), ray11 (bottom-right).  Corners stay
-        unnormalized: bilinear interpolation then per-pixel normalization
-        is the exact pinhole projection."""
+    def corner_rays_flat(self, device="cuda") -> torch.Tensor:
+        """(5, 3) float32 tensor on `device` (the card by default): eye,
+        ray00 (top-left), ray10 (top-right), ray01 (bottom-left), ray11
+        (bottom-right); the renders route by this tensor's device.
+        Corners stay unnormalized: bilinear interpolation then per-pixel
+        normalization is the exact pinhole projection."""
         r, u, d = self._frame()
         tv = _F(math.tan(self.fov / 2.0))
         th = _F(self.aspect * math.tan(self.fov / 2.0))

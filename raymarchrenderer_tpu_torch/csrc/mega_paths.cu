@@ -45,6 +45,26 @@
 // with --fmad=false, no fast math), 1/sqrtf for normalisation, and the
 // scene and materials interpreted.  Per-scene code generation, FMA
 // contraction and persistent threads are left for later work.
+//
+// The recording entry `rmr_record_paths` replaces the TPU kernel
+// `_record_mega` (raymarchrenderer_tpu/kernels/record.py:289, the
+// pl.pallas_call at :395, whose body is trace_mega_paths(record_banks)).
+// Its plain version is render/mega.py `trace_mega_paths(record_banks=True)`
+// and its wrapper kernels/record.py `trace_record_fused`.  It runs the same
+// lane machine, instantiated with `Banks` instead of `NoBanks` (a template
+// argument, so the render kernel compiles to the code it had without
+// banks): a shaded hit writes (t, material, 1) to slot bounce * P + path of
+// the (B * P, ph, pw) banks, a resolved shadow ray writes its visibility
+// (3.4e38 lit, 0 occluded) to slot ((bounce - 1) * P + path) * L + light,
+// and the lane evaluates no sky and writes no image.  Each slot of a pixel
+// has one writer, so no atomics; neighbouring threads write neighbouring
+// addresses of a slot only when they are at the same (bounce, path), so
+// the stores are partly coalesced.  The wrapper fills the banks with the
+// miss values first.  Bound: bytes are 12 per (bounce, path) slot and
+// pixel (plus 4 per light with NEE), written once: 201 MB = 0.06 ms at
+// 3.35 TB/s for 1024^2 pixels x 4 samples x 4 bounces; the operations (the
+// map evaluations the lanes make, counted by the plain version's `work`)
+// bind, as for the render (PERF.md).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -73,6 +93,23 @@ constexpr int kInstrWords = 12;  // opcode, 4 outputs, 7 inputs
 enum MatOp {
   M_DIFFUSE = 0, M_GLOSSY, M_REFRACTION, M_VOLUME, M_EMISSION, M_MIX, M_FACING, M_INSIDE,
   M_FRESNEL, M_ADD, M_SUB, M_MUL, M_DIV, M_SIN, M_COS, M_DIFFUSE2, M_GLOSSY2, M_MIX2
+};
+
+// The render: no banks.
+struct NoBanks {
+  static constexpr bool kOn = false;
+};
+
+// The record banks of one recording launch, at this lane's pixel.
+struct Banks {
+  static constexpr bool kOn = true;
+  float* t;
+  int* mid;
+  int* hit;
+  float* sd;
+  size_t plane;  // ph * pw
+  size_t pix;    // the lane's pixel in the patch
+  int paths;     // P: samples, or (sample, channel) pairs with dispersion
 };
 
 }  // namespace
@@ -357,6 +394,7 @@ __device__ __forceinline__ void reset_segment(const Ctx& c, Lane& L) {
   }
 }
 
+template <class R>
 __device__ void march_step(const Ctx& c, Lane& L) {
   const PathArgs& a = c.a;
   if (a.lazy_miss) {
@@ -382,7 +420,7 @@ __device__ void march_step(const Ctx& c, Lane& L) {
   }
   if (hit) L.state = shadow ? kShOcc : kWait;
   if (miss) {
-    if (!shadow) L.thr = scale(L.thr, c.sky);
+    if (!shadow && !R::kOn) L.thr = scale(L.thr, c.sky);
     L.state = shadow ? kShLit : kRegen;  // an exhausted shadow ray is lit
   }
   const bool still = !hit && !miss;
@@ -399,11 +437,12 @@ __device__ void march_step(const Ctx& c, Lane& L) {
   }
 }
 
+template <class R>
 __device__ __forceinline__ void mark_misses(const Ctx& c, Lane& L) {
   const bool shadow = L.state == kShadow;
   if ((L.state == kMarch || shadow) &&
       (L.t >= L.seg_tmax || L.gstep - L.steps >= c.a.max_steps)) {
-    if (!shadow) L.thr = scale(L.thr, c.sky);
+    if (!shadow && !R::kOn) L.thr = scale(L.thr, c.sky);
     L.state = shadow ? kShLit : kRegen;
   }
 }
@@ -429,7 +468,8 @@ __device__ void light_segment(const Ctx& c, Lane& L, int li) {
   L.contrib = scale(L.nee_thr, cos_t * fall / kPi);
 }
 
-__device__ void shade(const Ctx& c, Lane& L) {
+template <class R>
+__device__ void shade(const Ctx& c, Lane& L, const R& r) {
   if (L.state != kWait) return;
   const PathArgs& a = c.a;
   ShadeIn in;
@@ -439,6 +479,12 @@ __device__ void shade(const Ctx& c, Lane& L) {
   in.inside = L.inside;
   in.hit = add(L.o, scale(L.d, L.t));
   const int mid = map_mid(c.s, a.max_dist, in.hit);
+  if constexpr (R::kOn) {
+    const size_t k = (size_t)(L.bounce * r.paths + L.s_idx) * r.plane + r.pix;
+    r.t[k] = L.t;
+    r.mid[k] = mid;
+    r.hit[k] = 1;
+  }
   in.normal = get_normal(c.s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
   in.channels = lane_channels(c, L.s_idx);
   Rng rng = rng_make(a.seed, c.px, c.py, shade_stream(c, L.s_idx), (uint32_t)L.bounce);
@@ -485,8 +531,14 @@ __device__ void shade(const Ctx& c, Lane& L) {
 }
 
 // bank a finished shadow ray and chain to the next light, or resume
-__device__ void resolve(const Ctx& c, Lane& L) {
+template <class R>
+__device__ void resolve(const Ctx& c, Lane& L, const R& r) {
   if (L.state != kShLit && L.state != kShOcc) return;
+  if constexpr (R::kOn) {
+    // L.bounce was already incremented by the shade that staged the ray
+    const size_t slot = (size_t)((L.bounce - 1) * r.paths + L.s_idx) * c.a.n_lights + L.li;
+    r.sd[slot * r.plane + r.pix] = L.state == kShLit ? 3.4e38f : 0.0f;
+  }
   if (L.state == kShLit) L.extra = add(L.extra, L.contrib);
   const int li2 = L.li + 1;
   if (li2 < c.a.n_lights) {
@@ -501,9 +553,10 @@ __device__ void resolve(const Ctx& c, Lane& L) {
   reset_segment(c, L);
 }
 
+template <class R>
 __device__ void regen(const Ctx& c, Lane& L) {
   if (L.state != kRegen) return;
-  L.acc = add(L.acc, c.a.nee ? add(L.thr, L.extra) : L.thr);
+  if constexpr (!R::kOn) L.acc = add(L.acc, c.a.nee ? add(L.thr, L.extra) : L.thr);
   L.s_idx += 1;
   const int n_paths = c.a.dispersion ? 3 * c.a.n_samples : c.a.n_samples;
   if (L.s_idx >= n_paths) {
@@ -521,31 +574,35 @@ __device__ void regen(const Ctx& c, Lane& L) {
   reset_segment(c, L);
 }
 
-__device__ void cheap_pass(const Ctx& c, Lane& L) {
-  if (c.a.lazy_miss) mark_misses(c, L);
-  if (c.a.nee) resolve(c, L);
-  regen(c, L);
+template <class R>
+__device__ void cheap_pass(const Ctx& c, Lane& L, const R& r) {
+  if (c.a.lazy_miss) mark_misses<R>(c, L);
+  if (c.a.nee) resolve(c, L, r);
+  regen<R>(c, L);
 }
 
-__device__ void body(const Ctx& c, Lane& L) {
+template <class R>
+__device__ void body(const Ctx& c, Lane& L, const R& r) {
   const PathArgs& a = c.a;
   if (a.regen_cadence > 0 && a.regen_cadence < a.march_unroll) {
     const int n_sub = a.march_unroll / a.regen_cadence;
     for (int sub = 0; sub < n_sub; ++sub) {
-      for (int k = 0; k < a.regen_cadence; ++k) march_step(c, L);
-      if (sub < n_sub - 1) cheap_pass(c, L);
+      for (int k = 0; k < a.regen_cadence; ++k) march_step<R>(c, L);
+      if (sub < n_sub - 1) cheap_pass(c, L, r);
     }
   } else {
-    for (int k = 0; k < a.march_unroll; ++k) march_step(c, L);
+    for (int k = 0; k < a.march_unroll; ++k) march_step<R>(c, L);
   }
-  if (a.lazy_miss) mark_misses(c, L);
-  shade(c, L);
-  if (a.nee) resolve(c, L);
-  regen(c, L);
+  if (a.lazy_miss) mark_misses<R>(c, L);
+  shade(c, L, r);
+  if (a.nee) resolve(c, L, r);
+  regen<R>(c, L);
 }
 
-// The whole per-pixel program: the sum over the lane's paths.
-__device__ V3 trace_pixel(const Ctx& c) {
+// The whole per-pixel program: the sum over the lane's paths (a recording
+// lane returns zero and leaves its banks).
+template <class R>
+__device__ V3 trace_pixel(const Ctx& c, const R& r) {
   Lane L;
   L.o = c.cam.eye;
   L.d = primary_ray(c.cam, c.a.seed, c.px, c.py, prim_stream(c, 0), c.a.width, c.a.height);
@@ -567,16 +624,19 @@ __device__ V3 trace_pixel(const Ctx& c) {
   L.resume = 0;
   L.li = 0;
   L.nee_rng = rng_make(0u, 0u, 0u, 0u, 0u);
-  march_step(c, L);  // the peeled first step
-  while (L.state < kExh) body(c, L);
+  march_step<R>(c, L);  // the peeled first step
+  while (L.state < kExh) body(c, L, r);
   return L.acc;
 }
 
 // ---- launch ----------------------------------------------------------------
 
+// One kernel for both entries: R = NoBanks renders into `out`, R = Banks
+// records into its banks.
+template <class R>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(PathArgs a, const float* __restrict__ corners,
                                   const float* __restrict__ fdata, const int* __restrict__ prog,
-                                  float* __restrict__ out) {
+                                  float* __restrict__ out, R banks) {
   // the sky and the light table, once per block in shared memory
   __shared__ float s_tail[1 + 5 * kMaxLights];
   const float* ftail = fdata + prog[2];
@@ -596,11 +656,17 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(P
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
-  const V3 acc = trace_pixel(c);
-  float* o = out + 3 * ((size_t)ly * a.pw + lx);
-  o[0] = acc.x * a.inv_n;
-  o[1] = acc.y * a.inv_n;
-  o[2] = acc.z * a.inv_n;
+  if constexpr (R::kOn) {
+    R r = banks;
+    r.pix = (size_t)ly * a.pw + lx;
+    trace_pixel(c, r);
+  } else {
+    const V3 acc = trace_pixel(c, banks);
+    float* o = out + 3 * ((size_t)ly * a.pw + lx);
+    o[0] = acc.x * a.inv_n;
+    o[1] = acc.y * a.inv_n;
+    o[2] = acc.z * a.inv_n;
+  }
 }
 
 // Plain C entry point for ctypes.  `args` is a host pointer; the buffers
@@ -616,6 +682,32 @@ extern "C" int rmr_mega_paths(const PathArgs* args, const float* corners, const 
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, NoBanks());
+  return (int)cudaGetLastError();
+}
+
+// The recording entry: as rmr_mega_paths, but the lanes bank their march
+// residuals into `t` (float32), `mid` and `hit` (int32), each
+// (max_bounces * P, ph, pw) with P = n_samples (3 * n_samples with
+// dispersion), and with NEE their shadow visibility into `sd` (float32,
+// (max_bounces * P * n_lights, ph, pw)); the caller fills them with the
+// miss values first.  No image is written.
+extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, const float* fdata,
+                                const int* prog, float* t, int* mid, int* hit, float* sd,
+                                cudaStream_t stream, int device) {
+  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Banks banks;
+  banks.t = t;
+  banks.mid = mid;
+  banks.hit = hit;
+  banks.sd = sd;
+  banks.plane = (size_t)args->ph * args->pw;
+  banks.pix = 0;
+  banks.paths = args->dispersion ? 3 * args->n_samples : args->n_samples;
+  const dim3 block(16, kBlockThreads / 16);
+  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
+  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, nullptr, banks);
   return (int)cudaGetLastError();
 }

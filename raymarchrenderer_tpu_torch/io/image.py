@@ -1,12 +1,15 @@
-"""Image output: linear float accumulation -> sRGB BMP/PNG, or float NPY.
+"""Image I/O: linear float accumulation -> sRGB BMP/PNG, or float NPY; and
+the readers of a train target (BMP, PNG, EXR).
 
 The reference saves its accumulation buffer as an sRGB-encoded BMP
 (`Graphics::SaveImage`, `Graphics.cpp:754-799`) named
 "%Y-%m-%d_%H-%M-%S.bmp" (`Program.cpp:71-84`).  The buffer stays float32
 linear and ONE explicit sRGB OETF applies at encode time.  These are the
 JAX package's pure-Python encoders (24-bit bottom-up BGR BMP, zlib PNG),
-byte for byte; the native C++ encoder is not bound here.  Images are numpy
-arrays: callers hand over `tensor.cpu().numpy()`.
+byte for byte, and its numpy-only readers (`load_bmp`, `load_png`,
+`load_png_bytes`, `load_exr`, `_srgb_to_linear_np`); the native C++
+encoder is not bound here.  Images are numpy arrays: callers hand over
+`tensor.cpu().numpy()`.
 """
 from __future__ import annotations
 
@@ -94,3 +97,131 @@ def save_image(path: str, img_linear: np.ndarray) -> None:
         save_npy(path, img_linear)
     else:
         raise ValueError(f"unsupported image extension {ext}")
+
+
+def load_exr(path: str) -> np.ndarray:
+    """Decode the EXRs we write (uncompressed float32 scanline, RGB) →
+    (H, W, 3) linear float32."""
+    with open(path, "rb") as f:
+        data = f.read()
+    magic, version = struct.unpack_from("<II", data, 0)
+    assert magic == 20000630, "not an EXR file"
+    assert version & 0xFF == 2 and not (version >> 8), "unsupported EXR flags"
+    pos = 8
+    channels, box = [], None
+    compression = 0
+    while data[pos] != 0:                 # attribute loop
+        end = data.index(b"\x00", pos)
+        name = data[pos:end]
+        pos = end + 1
+        end = data.index(b"\x00", pos)
+        typ = data[pos:end]
+        pos = end + 1
+        (size,) = struct.unpack_from("<I", data, pos)
+        pos += 4
+        body = data[pos:pos + size]
+        pos += size
+        if name == b"dataWindow":
+            box = struct.unpack("<iiii", body)
+        elif name == b"compression":
+            compression = body[0]
+        elif name == b"channels":
+            p = 0
+            while body[p] != 0:
+                e = body.index(b"\x00", p)
+                cname = body[p:e].decode()
+                (ptype,) = struct.unpack_from("<i", body, e + 1)
+                channels.append((cname, ptype))
+                p = e + 1 + 16
+    pos += 1                              # header terminator
+    assert compression == 0, "only uncompressed EXR supported"
+    assert all(t == 2 for _, t in channels), "only float32 channels supported"
+    w = box[2] - box[0] + 1
+    h = box[3] - box[1] + 1
+    offsets = np.frombuffer(data, np.uint64, h, pos)
+    names = [n for n, _ in channels]
+    out = np.zeros((h, len(names), w), np.float32)
+    for i, off in enumerate(offsets):
+        o = int(off)
+        y, size = struct.unpack_from("<ii", data, o)
+        row = np.frombuffer(data, np.float32, len(names) * w, o + 8)
+        out[y - box[1]] = row.reshape(len(names), w)
+    idx = [names.index(c) for c in ("R", "G", "B") if c in names]
+    if len(idx) == 3:
+        return np.ascontiguousarray(out[:, idx].transpose(0, 2, 1))
+    return np.ascontiguousarray(out.transpose(0, 2, 1))
+
+
+def _srgb_to_linear_np(c: np.ndarray) -> np.ndarray:
+    c = np.clip(c, 0.0, 1.0)
+    return np.where(c <= 0.04045, c / 12.92,
+                    np.power((c + 0.055) / 1.055, 2.4))
+
+
+def load_bmp(path: str) -> np.ndarray:
+    """Decode an uncompressed (BI_RGB) BMP → (H, W, 3) uint8 RGB,
+    top-down row order.  24-bit is the format the reference's
+    `SaveImage` emits via SOIL (`Graphics.cpp:754-799`) and round-trips
+    our own `save_bmp`; 8-bit palettized is also read (one 2015 golden —
+    `output/2015-07-20_20-46.bmp` — was saved through an indexed
+    pipeline)."""
+    with open(path, "rb") as f:
+        data = f.read()
+    assert data[:2] == b"BM", "not a BMP file"
+    (offset,) = struct.unpack_from("<I", data, 10)
+    hdr_size, w, h = struct.unpack_from("<Iii", data, 14)
+    planes, bpp = struct.unpack_from("<HH", data, 26)
+    (compression,) = struct.unpack_from("<I", data, 30)
+    assert hdr_size >= 40 and bpp in (8, 24) and compression == 0, (
+        f"unsupported BMP variant (bpp={bpp}, compression={compression})")
+    flip = h > 0          # positive height = bottom-up storage
+    h = abs(h)
+    if bpp == 8:
+        (colors_used,) = struct.unpack_from("<I", data, 46)
+        n_pal = colors_used or 256
+        pal = np.frombuffer(data, np.uint8, n_pal * 4,
+                            14 + hdr_size).reshape(n_pal, 4)
+        row_size = (w + 3) & ~3
+        idx = np.frombuffer(data, np.uint8, row_size * h, offset)
+        idx = idx.reshape(h, row_size)[:, :w]
+        rows = pal[idx, :3]                       # BGRX palette entries
+        if flip:
+            rows = rows[::-1]
+        return np.ascontiguousarray(rows[:, :, ::-1])  # BGR → RGB
+    row_size = (w * 3 + 3) & ~3
+    rows = np.frombuffer(data, np.uint8, row_size * h, offset)
+    rows = rows.reshape(h, row_size)[:, :w * 3].reshape(h, w, 3)
+    if flip:
+        rows = rows[::-1]
+    return np.ascontiguousarray(rows[:, :, ::-1])  # BGR → RGB
+
+
+def load_png(path: str) -> np.ndarray:
+    """Decode the PNGs we write (8-bit RGB, filter 0) → linear float32."""
+    with open(path, "rb") as f:
+        data = f.read()
+    return load_png_bytes(data)
+
+
+def load_png_bytes(data: bytes) -> np.ndarray:
+    """`load_png` over an in-memory buffer (e.g. the viewer's
+    ``/api/image.png`` response)."""
+    assert data[:8] == b"\x89PNG\r\n\x1a\n"
+    pos = 8
+    w = h = None
+    idat = b""
+    while pos < len(data):
+        (length,) = struct.unpack(">I", data[pos:pos + 4])
+        tag = data[pos + 4:pos + 8]
+        body = data[pos + 8:pos + 8 + length]
+        if tag == b"IHDR":
+            w, h = struct.unpack(">II", body[:8])
+        elif tag == b"IDAT":
+            idat += body
+        pos += 12 + length
+    raw = zlib.decompress(idat)
+    stride = w * 3 + 1
+    rows = [np.frombuffer(raw[r * stride + 1:(r + 1) * stride], np.uint8)
+            for r in range(h)]
+    u8 = np.stack(rows).reshape(h, w, 3)
+    return _srgb_to_linear_np(u8.astype(np.float32) / 255.0)

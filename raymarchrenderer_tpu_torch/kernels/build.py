@@ -5,20 +5,26 @@ Each source is compiled for Hopper (`sm_90a`) into a shared library with a
 plain C entry point, at first use, under `build/raymarchrenderer_tpu_torch/`
 beside the package, named by a hash of the source, every `csrc/*.cuh`
 header and the command, so an edited source or header rebuilds and an
-unchanged one is loaded as it is.  Nothing is compiled or imported from
-CUDA when this module is imported.
+unchanged one is loaded as it is.  Kernels that share a source (two entry
+points of one file) share its library, and a lock per library path lets
+one thread compile it while the others wait and load it.  Nothing is
+compiled or imported from CUDA when this module is imported.
 
 Numerics flags: `--fmad=false` keeps every multiply and add separately
 rounded, as in the plain PyTorch versions, and fast math stays off (so
-`sqrtf` and `/` are correctly rounded).
+`sqrtf` and `/` are correctly rounded).  `-Xptxas -v` makes every build
+report each kernel's registers and spills (`CudaKernel.build_log`,
+`ptxas_usage`).
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -27,7 +33,17 @@ CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / _PKG.name
 
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
+
+
+_LOCKS_GUARD = threading.Lock()
+_BUILD_LOCKS = {}        # library path -> the lock its builders share
+
+
+def _build_lock(lib: Path) -> threading.Lock:
+    with _LOCKS_GUARD:
+        return _BUILD_LOCKS.setdefault(lib, threading.Lock())
 
 
 def find_nvcc() -> str:
@@ -50,12 +66,50 @@ def nvcc_command(nvcc: str, src: Path, out: Path) -> list:
     return [nvcc, *NVCC_FLAGS, "-o", str(out), str(src)]
 
 
+def compile_source(src: Path, out: Path) -> str:
+    """nvcc `src` into the shared library `out`; returns nvcc's output,
+    which holds ptxas's resource usage of every kernel.  Raises when nvcc
+    fails."""
+    proc = subprocess.run(nvcc_command(find_nvcc(), Path(src), Path(out)),
+                          capture_output=True, text=True)
+    if proc.returncode != 0:
+        raise RuntimeError(f"nvcc failed on {Path(src).name}:\n"
+                           f"{proc.stdout}{proc.stderr}")
+    return proc.stdout + proc.stderr
+
+
+def ptxas_usage(log: str) -> dict:
+    """{kernel (mangled name): {"registers", "spill_stores", "spill_loads"}}
+    from the `-Xptxas -v` lines of an nvcc output."""
+    usage, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"(?:Compiling entry function|Function properties for)"
+                      r" '?([\w$]+)'?", line)
+        if m:
+            name = m.group(1)
+            usage.setdefault(name, {})
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
+                      line)
+        if m:
+            usage[name]["spill_stores"] = int(m.group(1))
+            usage[name]["spill_loads"] = int(m.group(2))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            usage[name]["registers"] = int(m.group(1))
+    return {k: v for k, v in usage.items() if "registers" in v}
+
+
 class CudaKernel:
     """One `csrc/*.cu` file and its C entry point.
 
     `launches` counts the launches made through `launch`, and nothing
-    else adds to it.  `build_seconds` is the wall time of the last build
-    (0.0 when the library was already built)."""
+    else adds to it.  `build_seconds` and `build_log` are the wall time
+    and the output of the nvcc run this kernel made (0.0 and "" when its
+    library was already built, by an earlier run or by another kernel of
+    the same source)."""
 
     def __init__(self, source: str, entry: str, argtypes):
         self.source = CSRC / source
@@ -63,6 +117,7 @@ class CudaKernel:
         self.argtypes = argtypes
         self.launches = 0
         self.build_seconds = 0.0
+        self.build_log = ""
         self._fn = None
 
     def library_path(self) -> Path:
@@ -77,18 +132,14 @@ class CudaKernel:
         if self._fn is not None:
             return self._fn
         lib = self.library_path()
-        if not lib.exists():
-            nvcc = find_nvcc()
-            BUILD_DIR.mkdir(parents=True, exist_ok=True)
-            tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
-            t0 = time.perf_counter()
-            proc = subprocess.run(nvcc_command(nvcc, self.source, tmp),
-                                  capture_output=True, text=True)
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed on {self.source.name}:\n"
-                                   f"{proc.stdout}{proc.stderr}")
-            os.replace(tmp, lib)
-            self.build_seconds = time.perf_counter() - t0
+        with _build_lock(lib):
+            if not lib.exists():
+                lib.parent.mkdir(parents=True, exist_ok=True)
+                tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
+                t0 = time.perf_counter()
+                self.build_log = compile_source(self.source, tmp)
+                os.replace(tmp, lib)
+                self.build_seconds = time.perf_counter() - t0
         fn = getattr(ctypes.CDLL(str(lib)), self.entry)
         fn.argtypes = self.argtypes
         fn.restype = ctypes.c_int
@@ -100,3 +151,27 @@ class CudaKernel:
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: CUDA error {err}")
         self.launches += 1
+
+
+def main(argv=None) -> int:
+    """python -m raymarchrenderer_tpu_torch.kernels.build SOURCE.cu ...:
+    compile each source as the kernels are built (into a temporary
+    directory) and print ptxas's registers and spills of its kernels."""
+    import argparse
+    import tempfile
+    p = argparse.ArgumentParser(description=main.__doc__)
+    p.add_argument("sources", nargs="+", type=Path)
+    args = p.parse_args(argv)
+    with tempfile.TemporaryDirectory() as tmp:
+        for src in args.sources:
+            log = compile_source(src, Path(tmp) / f"{src.stem}.so")
+            for name, use in ptxas_usage(log).items():
+                print(f"{src}: {name}: {use['registers']} registers, "
+                      f"{use.get('spill_stores', 0)} / "
+                      f"{use.get('spill_loads', 0)} bytes spill stores / "
+                      "loads")
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

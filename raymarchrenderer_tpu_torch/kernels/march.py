@@ -1,4 +1,5 @@
-"""The fused renders: one kernel launch renders a patch.
+"""The fused kernels' wrappers: one launch renders a patch, or marches a
+plane of rays.
 
   * `render_fused_patch` / `render_fused` — the RGB path tracer, the port
     of the JAX package's TPU kernel `render_fused_patch` in mega mode
@@ -7,14 +8,20 @@
     roulette and dispersion: CUDA kernel `csrc/mega_paths.cu`;
   * `render_fused_spectral` — the gen-3 spectral transport, the port of
     the TPU kernel of that name (body `trace_mega_spectral`): CUDA kernel
-    `csrc/mega_spectral.cu`.
+    `csrc/mega_spectral.cu`;
+  * `march_fused` — the per-ray sphere trace of the differentiable path,
+    the port of the TPU kernel of that name: CUDA kernel
+    `csrc/march_fused.cu`, plain version `render/integrator.py::march`.
 
-Each kernel runs one thread per pixel through the lane-state machine.  The
-device of the `corners` tensor picks the route: a CUDA tensor launches the
-hand-written Hopper kernel, or raises; a CPU tensor runs the plain PyTorch
-version (`render/mega.py`).  There is no other route and no fallback
-between the two.  Env-map and SH skies, `normal_taps=0` and the TPU
-kernel's wavefront mode are not ported; they raise on both routes.
+The recording megakernel (`RECORD_PATHS`, a second entry of
+`csrc/mega_paths.cu`) is wrapped by `kernels/record.py`.  The megakernels
+run one thread per pixel through the lane-state machine.  The device of
+the input tensors (`corners`, or the ray planes) picks the route: a CUDA
+tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
+runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`).
+There is no other route and no fallback between the two.  Env-map and SH
+skies, `normal_taps=0` and the TPU kernel's wavefront mode are not ported;
+they raise on both routes.
 """
 from __future__ import annotations
 
@@ -24,11 +31,12 @@ import time
 import numpy as np
 import torch
 
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3
 from raymarchrenderer_tpu_torch.kernels.build import CudaKernel
 from raymarchrenderer_tpu_torch.kernels.scene_program import (
-    paths_buffers, spectral_buffers)
+    MAX_LIGHTS, object_buffers, paths_buffers, spectral_buffers)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
-from raymarchrenderer_tpu_torch.kernels.scene_program import MAX_LIGHTS
+from raymarchrenderer_tpu_torch.render.integrator import march
 from raymarchrenderer_tpu_torch.render.mega import (check_knobs,
                                                     check_paths_supported,
                                                     trace_mega_paths,
@@ -72,6 +80,13 @@ class PathArgs(ctypes.Structure):
             "exit_offset", "inside_offset", "rr_min_prob", "inv_n")]
 
 
+class MarchArgs(ctypes.Structure):
+    """Mirror of `struct MarchArgs` in csrc/march_fused.cu."""
+    _fields_ = [(n, ctypes.c_int) for n in ("n", "max_steps", "relax")] + [
+        (n, ctypes.c_float) for n in ("max_dist", "hit_eps", "step_multiply",
+                                      "relax_omega")]
+
+
 _P = ctypes.c_void_p
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
@@ -79,6 +94,16 @@ MEGA_SPECTRAL = CudaKernel(
 MEGA_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_mega_paths",
     [ctypes.POINTER(PathArgs), _P, _P, _P, _P, _P, ctypes.c_int])
+# the recording entry of the same source (one library with MEGA_PATHS):
+# args, corners, data, program, then the t, mid, hit and sd banks
+RECORD_PATHS = CudaKernel(
+    "mega_paths.cu", "rmr_record_paths",
+    [ctypes.POINTER(PathArgs), _P, _P, _P, _P, _P, _P, _P, _P,
+     ctypes.c_int])
+# args, program, data, the nine input planes, the three outputs
+MARCH_FUSED = CudaKernel(
+    "march_fused.cu", "rmr_march_fused",
+    [ctypes.POINTER(MarchArgs)] + [_P] * 14 + [_P, ctypes.c_int])
 
 
 def _inv(n_samples: int, normalize: bool) -> float:
@@ -130,17 +155,22 @@ def _common_fields(cfg, origin_xy, ph, pw, sample0, n_samples, normalize,
         surface_offset=cfg.surface_offset, inv_n=_inv(n_samples, normalize))
 
 
+def stream_args(device):
+    """(the current CUDA stream as an int, the device index) of a CUDA
+    `device`: the last two arguments of every kernel entry point."""
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    return torch.cuda.current_stream(index).cuda_stream, index
+
+
 def _launch(kernel, args, corners, prog, data, ph, pw):
     """Launch `kernel` on PyTorch's current stream of the corners' device;
     returns the (ph, pw, 3) float32 output."""
     device = corners.device
     corners = corners.contiguous()
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    index = (device.index if device.index is not None
-             else torch.cuda.current_device())
     kernel.launch(ctypes.byref(args), corners.data_ptr(), data.data_ptr(),
-                  prog.data_ptr(), out.data_ptr(),
-                  torch.cuda.current_stream(index).cuda_stream, index)
+                  prog.data_ptr(), out.data_ptr(), *stream_args(device))
     return out
 
 
@@ -187,9 +217,11 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     return torch.stack([c.x * inv, c.y * inv, c.z * inv], dim=-1)
 
 
-def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
-                       sample0, n_samples, direct_light, march_unroll,
-                       normalize, lazy_miss, regen_cadence):
+def paths_launch(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
+                 n_samples, direct_light, march_unroll, normalize,
+                 lazy_miss, regen_cadence):
+    """The checks and the (PathArgs, program, data) of a launch of
+    `csrc/mega_paths.cu`, rendering or recording."""
     nee = bool(direct_light) and scene.n_lights > 0
     if nee and scene.n_lights > MAX_LIGHTS:
         raise ValueError(f"the RGB kernel takes at most {MAX_LIGHTS} lights "
@@ -205,6 +237,15 @@ def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
         inside_offset=cfg.inside_offset, rr_min_prob=cfg.rr_min_prob,
         **_common_fields(cfg, origin_xy, ph, pw, sample0, n_samples,
                          normalize, march_unroll, regen_cadence, lazy_miss))
+    return args, prog, data
+
+
+def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
+                       sample0, n_samples, direct_light, march_unroll,
+                       normalize, lazy_miss, regen_cadence):
+    args, prog, data = paths_launch(
+        scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_samples,
+        direct_light, march_unroll, normalize, lazy_miss, regen_cadence)
     return _launch(MEGA_PATHS, args, corners, prog, data, ph, pw)
 
 
@@ -282,17 +323,6 @@ def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,
     return accum, n
 
 
-def prepare(device, kernel: CudaKernel):
-    """Build and load `kernel` (`MEGA_PATHS` or `MEGA_SPECTRAL`), when it
-    renders on `device`, ahead of its first launch; returns the seconds
-    this took, or None on the CPU."""
-    if torch.device(device).type != "cuda":
-        return None
-    t0 = time.perf_counter()
-    kernel.build()
-    return time.perf_counter() - t0
-
-
 def render_progressive_fused_spectral(scene: Scene, params, mats,
                                       cfg: RenderConfig, corners,
                                       spp: int = None,
@@ -317,3 +347,72 @@ def render_progressive_fused_spectral(scene: Scene, params, mats,
         if callback is not None:
             callback(s, (accum, n))
     return accum, n
+
+
+def prepare(device, *kernels: CudaKernel):
+    """Build and load `kernels` (`MEGA_PATHS`, `MEGA_SPECTRAL`,
+    `RECORD_PATHS`, `MARCH_FUSED`), when they run on `device`, ahead of
+    their first launch; returns the seconds this took, or None on the
+    CPU."""
+    if torch.device(device).type != "cuda":
+        return None
+    t0 = time.perf_counter()
+    for kernel in kernels:
+        kernel.build()
+    return time.perf_counter() - t0
+
+
+def _plane(x, shape, dtype, device) -> torch.Tensor:
+    """`x` (a tensor or a number) as a contiguous plane of `shape`."""
+    return torch.as_tensor(x, dtype=dtype, device=device).expand(
+        shape).contiguous()
+
+
+def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
+                        t_max):
+    device = o.x.device
+    shape = torch.broadcast_shapes(*(c.shape for c in (*o, *d)))
+    for leaf in _leaves(params["objects"]):
+        if leaf.device != device:
+            raise ValueError("scene tensors and rays are on different "
+                             f"devices ({leaf.device} vs {device})")
+    f32 = torch.float32
+    planes = [_plane(c, shape, f32, device) for c in (*o, *d)]
+    planes.append(_plane(dist_mult, shape, f32, device))
+    planes.append(_plane(active, shape, torch.int32, device))
+    planes.append(_plane(cfg.max_dist if t_max is None else t_max, shape,
+                         f32, device))
+    prog, data = object_buffers(scene, params, device)
+    t = torch.empty(shape, dtype=f32, device=device)
+    mid = torch.empty(shape, dtype=torch.int32, device=device)
+    hit = torch.empty(shape, dtype=torch.int32, device=device)
+    args = MarchArgs(n=t.numel(), max_steps=cfg.max_steps,
+                     relax=int(cfg.relax_omega > 1.0), max_dist=cfg.max_dist,
+                     hit_eps=cfg.hit_eps, step_multiply=cfg.step_multiply,
+                     relax_omega=cfg.relax_omega)
+    MARCH_FUSED.launch(ctypes.byref(args), prog.data_ptr(), data.data_ptr(),
+                       *(p.data_ptr() for p in planes), t.data_ptr(),
+                       mid.data_ptr(), hit.data_ptr(), *stream_args(device))
+    return t, mid, hit > 0
+
+
+def march_fused(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
+                dist_mult, active, t_max=None):
+    """Sphere trace of every lane of the ray planes `o`, `d` (any shape):
+    (t float32, material index int32, hit bool), the same contract as
+    `render.integrator.march`, of which it is the fused twin.  `dist_mult`
+    and `t_max` (default `cfg.max_dist`) are numbers or planes; `active`
+    a bool plane.  Forward only: the outputs carry no gradient
+    (`diff.march.march_diff_fused` attaches the adjoint).
+
+    CUDA planes launch `csrc/march_fused.cu`, one thread per ray, nothing
+    padded; CPU planes run `march`."""
+    device = o.x.device
+    with torch.no_grad():
+        if device.type == "cuda":
+            return _launch_march_fused(scene, params, cfg, o, d, dist_mult,
+                                       active, t_max)
+        if device.type != "cpu":
+            raise ValueError(f"no route for device {device}")
+        return march(scene, params, cfg, o, d, dist_mult, active,
+                     t_max=t_max)

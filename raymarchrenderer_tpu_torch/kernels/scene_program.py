@@ -13,6 +13,9 @@ An object input word is a register (>= 0), the sample point (-1), or a
 parameter vec3 at float offset `-word - 2` (a scalar parameter is stored
 splatted, which is what `_param_to_vec3` does).
 
+`csrc/march_fused.cu` reads the object program alone (no tail), as the
+JAX package's `march_fused` ships only `params["objects"]`.
+
 Spectral tail (`csrc/mega_spectral.cu`): ints [n_mats, kind * n_mats];
 floats [min_wave * n_mats, max_wave * n_mats, power * n_mats].
 
@@ -168,6 +171,12 @@ def _assemble(program, params, device, tail_ints, tail_floats):
     data = torch.cat(vecs + list(tail_floats) + [
         torch.zeros(0, dtype=torch.float32, device=device)])
     return prog.contiguous(), data.contiguous()
+
+
+def object_buffers(scene: Scene, params, device):
+    """(int32 program, float32 data) of `csrc/march_fused.cu`: the object
+    program and the object parameters, no tail."""
+    return _assemble(compile_program(scene), params, device, [], [])
 
 
 def spectral_buffers(scene: Scene, params, mats, device):

@@ -24,13 +24,17 @@ lanes overshoot `max_dist`, so the peel is part of the semantics.  Every
 random draw is keyed on (seed, px, py, sample, bounce, slot), so a lane's
 paths do not depend on the batch it runs in.  Forward only;
 `shade_gate` is fixed at 0 (an unconditional pass per body; the gate is
-bitwise-invariant in the JAX package), and the occupancy counters, record
-banks and deferred sky are not ported yet.
+bitwise-invariant in the JAX package), and the occupancy counters and the
+deferred sky are not ported yet.
 
 `trace_mega_paths` runs the gen-1 RGB transport the same way, with the
 scene's material graphs (`Scene.shade`), Russian roulette, dispersion and
 next-event estimation, whose shadow rays march as extra segments of the
 same loop (`_SHADOW` -> `_SH_LIT` / `_SH_OCC`, banked by `resolve`).
+With `record_banks` it is the plain version of the recording megakernel:
+it banks every shaded hit's march residuals (t, material, hit) and every
+resolved shadow ray's visibility, the planes the differentiable replay
+reads in place of its marches (`kernels/record.py`).
 """
 from __future__ import annotations
 
@@ -61,6 +65,14 @@ _SH_LIT = 5      # NEE: shadow ray reached the light (or its budget)
 _SH_OCC = 6      # NEE: shadow ray hit something first
 _EXH = 7         # all samples done (the largest state)
 _WAIT_MISS = -1  # parked miss: the sky is an emitter band, so misses shade
+
+
+def _bank_write(bank, slot, mask, value) -> None:
+    """bank[slot[l], l] = value[l] for every lane l set in `mask`, the bank
+    viewed as (slots, lanes); each (slot, lane) has at most one writer."""
+    flat = bank.view(bank.shape[0], -1)
+    lanes = mask.reshape(-1).nonzero().squeeze(1)
+    flat[slot.reshape(-1)[lanes].long(), lanes] = value.reshape(-1)[lanes]
 
 
 def _count(work, key: str, mask) -> None:
@@ -301,9 +313,18 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     of the same loop.  `cfg.rr_start_bounce >= 0` turns on Russian
     roulette, drawn from `rng.fork(13)` at the lane's bounce.  `work` is
     as for `trace_mega_spectral` (shadow-ray steps count as "march").  The
-    record banks and the deferred (env-map) sky are not ported yet."""
-    if record_banks or defer_sky:
-        raise NotImplementedError("record_banks / defer_sky are not ported "
+    deferred (env-map) sky is not ported yet.
+
+    `record_banks`: returns (sum, banks), the banks stacked over slots,
+    P = n_paths paths per bounce: t float32, mid int32 and hit int32, each
+    (B * P, *shape), written at each shaded hit's slot bounce * P + path;
+    with NEE also sd float32 (B * P * L, *shape), written at each resolved
+    shadow ray's slot ((bounce - 1) * P + path) * L + light, 3.4e38 when
+    lit and 0 when occluded.  Unreached slots keep the march's miss values
+    (t = max_dist, mid = -1, hit = 0, sd lit).  A recording run evaluates
+    no sky (a miss ends the path, so no banked value depends on it)."""
+    if defer_sky:
+        raise NotImplementedError("defer_sky (env-map skies) is not ported "
                                   "yet")
     check_knobs(march_unroll, regen_cadence)
     check_paths_supported(scene, cfg)
@@ -322,6 +343,18 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     relax = cfg.relax_omega > 1.0
     nee = direct_light and scene.n_lights > 0
     one_minus_omega = float(np.float32(1.0) - np.float32(cfg.relax_omega))
+    n_l = scene.n_lights if nee else 0
+    banks = ()
+    if record_banks:
+        bp = cfg.max_bounces * n_paths
+        banks = (torch.full((bp, *shape), cfg.max_dist, dtype=torch.float32,
+                            device=device),
+                 torch.full((bp, *shape), -1, dtype=torch.int32,
+                            device=device),
+                 torch.zeros((bp, *shape), dtype=torch.int32, device=device))
+        if n_l:
+            banks += (torch.full((bp * n_l, *shape), 3.4e38,
+                                 dtype=torch.float32, device=device),)
 
     if dispersion:
         def lane_streams(s_idx):
@@ -392,9 +425,9 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
             st.steps = st.steps + 1
             is_miss = seg & not_fail & ~is_hit & (
                 (st.t >= tmax) | (st.steps >= cfg.max_steps))
-            sky = scene.sky(params, st.d)
+            if not record_banks:    # a recording evaluates no sky
+                sky_miss(st, is_miss & ~shadow if nee else is_miss)
             if nee:
-                st.thr = vselect(is_miss & ~shadow, st.thr * sky, st.thr)
                 # an exhausted shadow ray counts as lit
                 st.state = torch.where(
                     is_hit, torch.where(shadow, _SH_OCC, _WAIT),
@@ -402,7 +435,6 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
                                 torch.where(shadow, _SH_LIT, _REGEN),
                                 st.state))
             else:
-                st.thr = vselect(is_miss, st.thr * sky, st.thr)
                 st.state = torch.where(
                     is_hit, _WAIT, torch.where(is_miss, _REGEN, st.state))
             still = seg & ~is_hit & ~is_miss
@@ -416,6 +448,11 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         else:
             st.t = torch.where(still, st.t + dist * cfg.step_multiply, st.t)
 
+    def sky_miss(st, bounce_miss):
+        """A missed bounce ray's throughput times the sky."""
+        st.thr = vselect(bounce_miss, st.thr * scene.sky(params, st.d),
+                         st.thr)
+
     def mark_misses(st):
         """The lazy miss test at a pass boundary, with the miss-time sky
         multiply the strict step would have made."""
@@ -428,13 +465,12 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
             tmax = cfg.max_dist
         is_miss = seg & ((st.t >= tmax)
                          | (st.gstep - st.steps >= cfg.max_steps))
-        sky = scene.sky(params, st.d)
+        if not record_banks:
+            sky_miss(st, is_miss & ~shadow if nee else is_miss)
         if nee:
-            st.thr = vselect(is_miss & ~shadow, st.thr * sky, st.thr)
             st.state = torch.where(
                 is_miss, torch.where(shadow, _SH_LIT, _REGEN), st.state)
         else:
-            st.thr = vselect(is_miss, st.thr * sky, st.thr)
             st.state = torch.where(is_miss, _REGEN, st.state)
 
     def light_segment(lix, nrng, hitp, normal, thr):
@@ -455,6 +491,11 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         _count(work, "shade", waiting)
         hitp = st.o + st.d * st.t
         _, mid = scene.map(params, hitp, cfg.max_dist)
+        if record_banks:
+            slot = st.bounce * n_paths + st.s_idx
+            _bank_write(banks[0], slot, waiting, st.t)
+            _bank_write(banks[1], slot, waiting, mid)
+            _bank_write(banks[2], slot, waiting, torch.ones_like(mid))
         normal = get_normal(scene, params, cfg, hitp)
         rng = RNGStream(cfg.seed, px, py, lane_streams(st.s_idx)[1],
                         st.bounce)
@@ -521,6 +562,11 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         light, or resume the bounce ray / regeneration."""
         parked = (st.state == _SH_LIT) | (st.state == _SH_OCC)
         lit = st.state == _SH_LIT
+        if record_banks:
+            # st.bounce was already incremented by the staging shade
+            slot = ((st.bounce - 1) * n_paths + st.s_idx) * n_l + st.li
+            _bank_write(banks[3], slot, parked,
+                        torch.where(lit, 3.4e38, 0.0))
         st.extra = Vec3(*(a + torch.where(lit, c, 0.0)
                           for a, c in zip(st.extra, st.contrib)))
         li2 = st.li + 1
@@ -608,4 +654,4 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     march_step(st)                      # the peeled first step
     while bool((st.state < _EXH).any()):
         body(st)
-    return st.acc
+    return (st.acc, banks) if record_banks else st.acc

@@ -94,10 +94,11 @@ def band_table(scene: Scene, device) -> SpectralMaterials:
     return default_band_table(scene, device)
 
 
-def spectral_demo(device="cpu"):
+def spectral_demo(device="cuda"):
     """The gen-3 hardcoded scene (`RayMarch3.glsl:132-143,251-345`):
     `sphere_on_floor` with its band table (file twin
-    `data/scenes/spectral.scene`).  Returns (scene, params, mats)."""
+    `data/scenes/spectral.scene`) on `device` (the card by default).
+    Returns (scene, params, mats)."""
     from raymarchrenderer_tpu_torch.scene.builtin import sphere_on_floor
     scene = sphere_on_floor()
     return scene, scene.init_params(device), band_table(scene, device)

@@ -154,6 +154,42 @@ def params_from_numpy(tree, device) -> Any:
     return torch.as_tensor(np.array(tree), device=device)  # a writable copy
 
 
+def param_leaves(tree) -> list:
+    """The leaves of a parameter tree in `jax.tree.flatten` order: dict
+    keys sorted, lists in order (for a scene: env, lights, materials,
+    objects)."""
+    if isinstance(tree, dict):
+        return [leaf for k in sorted(tree) for leaf in param_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in param_leaves(v)]
+    return [tree]
+
+
+def params_replace(tree, leaves) -> Any:
+    """`tree` with its leaves, in `param_leaves` order, replaced by
+    `leaves`."""
+    it = iter(leaves)
+
+    def rebuild(t):
+        if isinstance(t, dict):
+            out = {k: rebuild(t[k]) for k in sorted(t)}
+            return {k: out[k] for k in t}
+        if isinstance(t, (list, tuple)):
+            return [rebuild(v) for v in t]
+        return next(it)
+
+    out = rebuild(tree)
+    if next(it, None) is not None:
+        raise ValueError("more leaves than the tree has")
+    return out
+
+
+def params_to_numpy(params) -> list:
+    """The parameter leaves as numpy arrays, in `jax.tree.flatten` order,
+    so a `leaf{i}` of a saved fit names the JAX package's leaf i."""
+    return [leaf.detach().cpu().numpy() for leaf in param_leaves(params)]
+
+
 @dataclasses.dataclass(frozen=True)
 class Scene:
     """Static scene structure; every evaluation takes the parameter dict,
@@ -173,7 +209,9 @@ class Scene:
     _init: dict = dataclasses.field(default=None, compare=False, hash=False,
                                     repr=False)
 
-    def init_params(self, device="cpu") -> dict:
+    def init_params(self, device="cuda") -> dict:
+        """The parse-time parameter values as tensors on `device` (the
+        card by default; pass "cpu" for the plain PyTorch versions)."""
         return params_from_numpy(self._init, device)
 
     def mat_index(self, mat_id: int) -> int:

@@ -41,6 +41,67 @@ def assert_nee_close(want, got):
     np.testing.assert_allclose(got, want, rtol=5e-3, atol=1e-3)
 
 
+# t of a march against the JAX package's (tests/test_torch_march.py,
+# test_torch_record.py): 1e-6 relative, but on fewer than 5e-3 of the
+# lanes, where XLA:CPU's 1-ulp sqrt moves a grazing hit to the
+# neighbouring march step (< 1e-3 away).  A later bounce's t starts from a
+# hit point and a direction through sin, cos and rsqrt: fewer than 5% of
+# those entries off by more than 1e-4 (a tenth of hit_eps), none by 2e-2.
+T_RTOL = 1e-6
+T_FRAC_OFF = 5e-3
+T_STEP = 1e-3
+LATER_TOL = 1e-4
+LATER_FRAC_OFF = 0.05
+LATER_MAX = 2e-2
+
+
+def assert_t_close(want, got):
+    """t to T_RTOL relative, but on fewer than T_FRAC_OFF of the lanes,
+    which may be one march step (< T_STEP) apart."""
+    want, got = np.asarray(want), np.asarray(got)
+    d = np.abs(want - got)
+    off = d > T_RTOL * np.maximum(np.abs(want), 1.0)
+    assert float(off.mean()) < T_FRAC_OFF, (float(off.mean()), d.max())
+    assert float(d.max()) < T_STEP, float(d.max())
+
+
+def assert_banked_t_close(want, got, n_first):
+    """t banks with the slot axis first: the first `n_first` slots are
+    bounce 0 (the march bar), the rest later bounces (see above)."""
+    want, got = np.asarray(want), np.asarray(got)
+    assert_t_close(want[:n_first], got[:n_first])
+    d = np.abs(want[n_first:] - got[n_first:])
+    off = float((d > LATER_TOL).mean())
+    assert off < LATER_FRAC_OFF, off
+    assert float(d.max()) < LATER_MAX, float(d.max())
+
+
+def bank_parity(got: dict, want: dict, bounce_axis=None) -> dict:
+    """Kernel planes against plain planes (the same device): the fraction
+    of entries whose mid or hit differ ("decisions"), of sd entries that
+    differ ("sd"); where both hit, of bounce-0 entries (all of a march
+    plane) with t off by more than 1e-5 ("t"), and of later bounces'
+    (banks, t's bounce axis `bounce_axis`) off by more than LATER_TOL
+    ("t_later", with its max "max_later")."""
+    hit = (got["hit"] > 0) & (want["hit"] > 0)
+    dt = torch.where(hit, (got["t"] - want["t"]).abs(), 0.0)
+    first = torch.ones_like(hit)
+    if bounce_axis is not None:
+        first = first.movedim(bounce_axis, 0)
+        first[1:] = False
+        first = first.movedim(0, bounce_axis)
+    n0, n1 = max(int((hit & first).sum()), 1), max(int((hit & ~first).sum()),
+                                                   1)
+    out = {"decisions": float(((got["mid"] != want["mid"])
+                               | (got["hit"] != want["hit"])).float().mean()),
+           "t": float(((dt > 1e-5) & first).sum()) / n0,
+           "t_later": float(((dt > LATER_TOL) & ~first).sum()) / n1,
+           "max_later": float(torch.where(first, 0.0, dt).max())}
+    if "sd" in want:
+        out["sd"] = float((got["sd"] != want["sd"]).float().mean())
+    return out
+
+
 def np_tree(tree):
     """A JAX pytree -> the same nesting of numpy arrays."""
     import jax     # the card's tests (test_torch_cuda.py) run without JAX

@@ -108,7 +108,12 @@ def test_port_imports_no_jax():
     code = ("import sys, raymarchrenderer_tpu_torch, "
             "raymarchrenderer_tpu_torch.app.cli, "
             "raymarchrenderer_tpu_torch.kernels.march, "
+            "raymarchrenderer_tpu_torch.kernels.record, "
             "raymarchrenderer_tpu_torch.kernels.scene_program, "
+            "raymarchrenderer_tpu_torch.diff.march, "
+            "raymarchrenderer_tpu_torch.parallel.sharding, "
+            "raymarchrenderer_tpu_torch.render.integrator, "
+            "raymarchrenderer_tpu_torch.io.image, "
             "raymarchrenderer_tpu_torch.render.mega, "
             "raymarchrenderer_tpu_torch.scene.nodes, "
             "raymarchrenderer_tpu_torch.scene.graph, "

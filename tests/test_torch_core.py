@@ -103,7 +103,7 @@ def test_camera_look_at():
     jc.look_at((1.0, 0.5, 2.0))
     tc.look_at((1.0, 0.5, 2.0))
     np.testing.assert_allclose(
-        tc.corner_rays_flat().numpy(),
+        tc.corner_rays_flat("cpu").numpy(),
         corners_to_torch(jc.corner_rays_flat()).numpy(), rtol=0, atol=1e-7)
 
 

@@ -8,24 +8,40 @@ No JAX: on the machine with the card run
 (`--noconftest` because tests/conftest.py configures JAX).  The bar is the
 one the JAX package sets for its own kernel: fewer than 1e-3 of the values
 off by more than 1e-5; with NEE or a colour computed at the hit (float
-math), its NEE bar.
+math), its NEE bar.  The recorder's banks and `march_fused`'s planes:
+fewer than 1e-3 of the entries with another material or hit verdict (or
+NEE visibility), and fewer than 1e-3 of those where both hit with t off
+by more than 1e-5; at a later bounce of the banks, whose ray starts from
+a direction an ulp apart between the kernel and torch's CUDA build
+(sinf, cosf), fewer than 5% off by more than 1e-4, with no bound on the
+largest: a grazing ray that starts an ulp away stops at another point of
+the surface (measured on csg_demo with NEE: 1.25% and 0.22).  Gradients
+from kernel banks against plain banks (the same replay): loss to rtol
+1e-5, every leaf to atol 1e-3 * max|g|.
 """
 import numpy as np
 import pytest
 import torch
 
 from _torch_parity import (ALL_MATERIALS_SCENE, ALL_NODES_SCENE,  # noqa: F401
-                           MAX_FRAC_OFF, assert_nee_close, cuda_device,
+                           LATER_FRAC_OFF, MAX_FRAC_OFF,
+                           assert_nee_close, bank_parity, cuda_device,
                            frac_off)
 
 from raymarchrenderer_tpu_torch.core.camera import Camera
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3
 from raymarchrenderer_tpu_torch.kernels import march
+from raymarchrenderer_tpu_torch.kernels.record import (record_plain,
+                                                       trace_record_fused)
+from raymarchrenderer_tpu_torch.parallel.sharding import train_grads_sharded
+from raymarchrenderer_tpu_torch.render import integrator
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.mega import (trace_mega_paths,
                                                     trace_mega_spectral)
 from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
 from raymarchrenderer_tpu_torch.render.spectral_integrator import band_table
 from raymarchrenderer_tpu_torch.scene import builtin, loads_scene
+from raymarchrenderer_tpu_torch.scene import param_leaves
 
 _STRICT = dict(relax=0.0, taps=6, lazy_miss=False, march_unroll=4,
                regen_cadence=0)
@@ -165,3 +181,125 @@ def test_paths_kernel_rejects_too_many_lights(cuda_device):
     img = march.render_fused(scene, params, cfg, corners, 0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(img).all())
+
+
+# (scene, direct_light, config extras, samples)
+_RECORD_CASES = {
+    "sphere_on_floor": ("demo", False, {}, 2),
+    "csg_nee": ("csg", True, {}, 2),
+    "csg_dispersion_nee_rr": ("csg", True, dict(separate_channels=True,
+                                                rr_start_bounce=1), 1),
+}
+
+
+def _assert_banks_match(got, want, bounce_axis=None):
+    p = bank_parity(got, want, bounce_axis)
+    assert set(got) == set(want)
+    assert p["decisions"] < MAX_FRAC_OFF and p["t"] < MAX_FRAC_OFF, p
+    assert p.get("sd", 0.0) < MAX_FRAC_OFF, p
+    assert p["t_later"] < LATER_FRAC_OFF, p
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(_RECORD_CASES))
+def test_record_kernel_matches_plain(cuda_device, case):
+    """The recording launch against its plain version with the same knobs
+    (production: unroll 32, cadence 16, lazy miss unless NEE) on the same
+    CUDA tensors, a patch at a non-zero origin; one launch."""
+    name, nee, extra, n = _RECORD_CASES[case]
+    scene = _paths_scene(name)
+    params = scene.init_params(cuda_device)
+    # the train workload's configuration (the CLI's max_steps, max_dist)
+    cfg = RenderConfig(width=96, height=64, max_bounces=4, relax_omega=1.9,
+                       normal_taps=4, **extra)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    launches = march.RECORD_PATHS.launches
+    got = trace_record_fused(scene, params, cfg, corners, (8, 4), (48, 80), 0,
+                             n_samples=n, direct_light=nee)
+    torch.cuda.synchronize()
+    assert march.RECORD_PATHS.launches == launches + 1
+    want = record_plain(scene, params, cfg, corners, (8, 4), (48, 80), 0,
+                        n_samples=n, direct_light=nee)
+    assert int(got["hit"].sum()) > 0
+    _assert_banks_match(got, want, 1 if cfg.separate_channels else 0)
+
+
+def _ray_planes(device, h=48, w=80, seed=5):
+    """Camera rays, a quarter starting inside the ball with dist_mult -1,
+    an eighth inactive, and a per-lane t_max."""
+    rng = np.random.RandomState(seed)
+    o = np.broadcast_to(np.float32([0.0, 4.0, -6.0]), (h, w, 3)).copy()
+    d = (np.float32([0.0, -0.447, 0.894])
+         + rng.uniform(-0.45, 0.45, (h, w, 3))).astype(np.float32)
+    inside = rng.uniform(size=(h, w)) < 0.25
+    o[inside] = np.float32([0.0, 1.0, 0.0]) + rng.uniform(
+        -0.4, 0.4, (int(inside.sum()), 3))
+    d = d / np.linalg.norm(d, axis=-1, keepdims=True)
+    t = {k: torch.from_numpy(np.ascontiguousarray(v, np.float32)).to(device)
+         for k, v in (("dm", np.where(inside, -1.0, 1.0)),
+                      ("tmax", rng.uniform(2.0, 12.0, (h, w))))}
+    act = torch.from_numpy(rng.uniform(size=(h, w)) >= 0.125).to(device)
+    vec = [Vec3(*(torch.from_numpy(np.ascontiguousarray(a[..., k],
+                                                        np.float32)).to(device)
+                  for k in range(3))) for a in (o, d)]
+    return vec[0], vec[1], t["dm"], act, t["tmax"]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("relax", [0.0, 1.9], ids=["classic", "relaxed"])
+def test_march_fused_kernel_matches_plain(cuda_device, relax):
+    """`march_fused` against `integrator.march` on the same CUDA planes,
+    with and without t_max; one launch each."""
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=80, height=48, max_steps=160, max_dist=100.0,
+                       relax_omega=relax)
+    o, d, dm, act, tmax = _ray_planes(cuda_device)
+    for t_max in (None, tmax):
+        launches = march.MARCH_FUSED.launches
+        t, mid, hit = march.march_fused(scene, params, cfg, o, d, dm, act,
+                                        t_max=t_max)
+        torch.cuda.synchronize()
+        assert march.MARCH_FUSED.launches == launches + 1
+        assert hit.dtype == torch.bool and mid.dtype == torch.int32
+        pt, pmid, phit = integrator.march(scene, params, cfg, o, d, dm, act,
+                                          t_max=t_max)
+        _assert_banks_match({"t": t, "mid": mid, "hit": hit.int()},
+                            {"t": pt, "mid": pmid, "hit": phit.int()})
+        assert 0 < int(hit.sum()) < hit.numel()
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("name,nee", [("demo", False), ("csg", True)])
+def test_train_grads_kernel_banks_match_plain_banks(cuda_device, name, nee):
+    """One train step's loss and gradients replayed over the recorder's
+    banks and over its plain version's, and with `march_fused` against
+    the plain march: each leaf to atol 1e-3 * max|g|, with NEE the JAX
+    package's NEE bar 2e-2 * max|g| (tests/test_diff.py:409-413)."""
+    scene = _paths_scene(name)
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=64, height=48, max_bounces=3, relax_omega=1.9,
+                       normal_taps=4)
+    corners = Camera(aspect=64 / 48).corner_rays_flat(cuda_device)
+    target = torch.full((48, 64, 3), 0.2, device=cuda_device)
+    kw = dict(spp=2, direct_light=nee)
+    banks = {"kernel": trace_record_fused(scene, params, cfg, corners, (0, 0),
+                                          (48, 64), 0, n_samples=2,
+                                          direct_light=nee),
+             "plain": record_plain(scene, params, cfg, corners, (0, 0),
+                                   (48, 64), 0, n_samples=2,
+                                   direct_light=nee)}
+    pairs = [[train_grads_sharded(scene, params, cfg, corners, target,
+                                  march_impl="recorded", recorded=banks[k],
+                                  **kw) for k in ("kernel", "plain")],
+             [train_grads_sharded(scene, params, cfg, corners, target,
+                                  march_impl=m, **kw)
+              for m in ("fused", "oracle")]]
+    for (loss, grads), (want_loss, want_grads) in pairs:
+        assert bool(torch.isfinite(loss))
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+        for g, w in zip(param_leaves(grads), param_leaves(want_grads)):
+            if w.numel():
+                tol = (2e-2 if nee else 1e-3) * max(1e-6, float(w.abs().max()))
+                assert float((g - w).abs().max()) <= tol, (g, w)

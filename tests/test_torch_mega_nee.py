@@ -136,31 +136,31 @@ def _tiny():
 
 
 def test_unported_paths_refused():
-    """An SH sky, normal_taps=0, the record banks and the deferred sky are
-    refused out loud on the RGB path, never rendered as something else."""
+    """An SH sky, normal_taps=0 and the deferred sky are refused out loud
+    on the RGB path, never rendered as something else (the record banks
+    are ported: tests/test_torch_record.py)."""
     cfg, corners = _tiny()
     sh = loads_scene('{"materials": [], "objects": [], "environment": '
                      '{"sh": ' + str([[0.1, 0.1, 0.1]] * 16) + '}}')
     with pytest.raises(NotImplementedError, match="SH sky"):
-        tmarch.render_fused(sh, sh.init_params(), cfg, corners, 0)
+        tmarch.render_fused(sh, sh.init_params("cpu"), cfg, corners, 0)
     scene = builtin.sphere_on_floor()
-    params = scene.init_params()
+    params = scene.init_params("cpu")
     with pytest.raises(NotImplementedError, match="normal_taps=0"):
         tmarch.render_fused(scene, params, cfg.replace(normal_taps=0),
                             corners, 0)
     px, py = pixel_grid(8, 8, "cpu")
-    for flag in ("record_banks", "defer_sky"):
-        with pytest.raises(NotImplementedError, match="not ported"):
-            tmega.trace_mega_paths(scene, params, cfg, corners, px, py, 0,
-                                   **{flag: True})
+    with pytest.raises(NotImplementedError, match="not ported"):
+        tmega.trace_mega_paths(scene, params, cfg, corners, px, py, 0,
+                               defer_sky=True)
 
 
 def test_knob_validation():
     cfg, corners = _tiny()
     scene = builtin.sphere_on_floor()
     with pytest.raises(ValueError, match="divide"):
-        tmarch.render_fused(scene, scene.init_params(), cfg, corners, 0,
+        tmarch.render_fused(scene, scene.init_params("cpu"), cfg, corners, 0,
                             march_unroll=32, regen_cadence=12)
     with pytest.raises(ValueError, match="n_samples"):
-        tmarch.render_fused(scene, scene.init_params(), cfg, corners, 0,
+        tmarch.render_fused(scene, scene.init_params("cpu"), cfg, corners, 0,
                             n_samples=0)

@@ -155,4 +155,4 @@ def test_get_normal_exact_gradient_not_ported():
     ts = tgraph.loads_scene(_texts("simple.scene"))
     p = TVec3(torch.zeros(4), torch.ones(4), torch.zeros(4))
     with pytest.raises(NotImplementedError):
-        tint.get_normal(ts, ts.init_params(), TCfg(normal_taps=0), p)
+        tint.get_normal(ts, ts.init_params("cpu"), TCfg(normal_taps=0), p)
