@@ -5,8 +5,9 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device — a CUDA card must be present; print its name and power limit;
-  2. build  — compile csrc/mega_paths.cu (the render and the recording
-     entries), csrc/mega_spectral.cu and csrc/march_fused.cu with nvcc
+  2. build  — compile csrc/mega_paths.cu (the render, the recording and
+     the wavefront recording entries), csrc/mega_spectral.cu (the render
+     and the recording entries) and csrc/march_fused.cu with nvcc
      (sm_90a), one process per source, started together; time each and
      print every kernel's registers and spills (ptxas);
   3. parity — each kernel's wrapper on CUDA tensors against its plain
@@ -30,7 +31,21 @@ Phases (any failure raises and the script exits non-zero):
          with dist_mult -1, an eighth inactive);
        * gradients: one train step at 256^2, 2 samples, replayed over the
          recorder's banks and over its plain version's, and with
-         `march_fused` against the plain march.
+         `march_fused` against the plain march;
+       * the spectral recorder (`trace_record_fused_spectral` vs
+         `record_spectral_plain`): the spectral train path's own launch
+         (spectral_demo, 1024^2, 4 samples, 4 bounces, relax 1.9, 4 taps),
+         and a 128^2 patch at a non-zero origin, 4 samples;
+       * the wavefront recorder (`trace_record_wavefront` vs
+         `record_wavefront_plain`): the train launch's bounce-0 planes
+         (sphere_on_floor, 1024^2, 1 sample, 4 bounces); csg_demo with NEE
+         and roulette on a 256^2 patch, and there against the mega
+         recorder on the same rays (decisions and visibility off on fewer
+         than 5e-3 of the entries, bounce-0 t within 5e-3, later t off by
+         more than 1e-5 on fewer than 1e-3 of the both-hit entries);
+       * spectral gradients: one spectral train step at 256^2, 2 samples,
+         replayed over the spectral recorder's banks and over its plain
+         version's (scene leaves and band rows).
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -57,12 +72,23 @@ Phases (any failure raises and the script exits non-zero):
      the recorder must launch once per step (or march_fused once per
      march) and the RGB kernel for the final render, the loss and every
      gradient be finite, a gradient that must not vanish not vanish, and
-     the npz and PNG be written;
+     the npz and PNG be written; then `train --spectral` with the same
+     flags toward the port's own spectral render with the sphere row's
+     band ending at 620 nm instead of 590 (64 samples):
+       train --spectral --scene sphere_on_floor --width 1024 --height 1024
+       train --spectral --scene sphere_on_floor --impl fused --width 256
+             --height 256
+     the spectral recorder must launch once per step (or march_fused) and
+     the spectral kernel for the final render, the band rows' gradients be
+     non-zero, the rows stay in [380, 830] nm and the npz hold the JAX
+     keys; and the wavefront recorder through its entry point (no CLI
+     verb reaches it) on the train launch's primary planes, one launch;
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
      launch (the CLI's default chunk), and the RGB kernel at 128, one
      `perf:` JSON line; then the train step at the full configuration
      (recorder, replay forward, the whole step, its rate, peak memory with
-     and without remat), one `train perf:` JSON line.
+     and without remat), one `train perf:` JSON line, and the spectral
+     train step likewise, one `spectral train perf:` JSON line.
 
 The line before the last is a JSON object with one entry per kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -103,6 +129,11 @@ TRAIN_FUSED_ARGV = ["train", "--scene", "sphere_on_floor", "--impl", "fused",
                     "--width", "256", "--height", "256", *_TRAIN]
 TRAIN_NEE_ARGV = ["train", "--scene", "csg", "--direct-light", "--width",
                   "512", "--height", "512", *_TRAIN]
+TRAIN_SPECTRAL_ARGV = ["train", "--spectral", "--scene", "sphere_on_floor",
+                       "--width", "1024", "--height", "1024", *_TRAIN]
+TRAIN_SPECTRAL_FUSED_ARGV = ["train", "--spectral", "--scene",
+                             "sphere_on_floor", "--impl", "fused", "--width",
+                             "256", "--height", "256", *_TRAIN]
 TRAIN_SPP = 4
 
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
@@ -239,21 +270,22 @@ def _compare(label, got, want, nee=False):
     return max_err
 
 
-def _bound(scene, cfg, work, in_bytes, out_bytes):
+def _bound(scene, cfg, work, in_bytes, out_bytes, lookups=1):
     """The least time the card could take for one launch: the larger of
     its bytes (each input read once, each output written once) over the
     HBM rate and its FP32 operations over the FP32 peak.  Operations are
     the map evaluations these inputs need, as counted by the plain version
-    (march steps of live lanes, and per shaded hit one material lookup and
-    `normal_taps` taps), times the object program's FP32 cost; integer RNG
-    hashing and material arithmetic are left out, so the bound is low.
-    Returns (ms, "bytes" or "operations", operations)."""
+    (march steps of live lanes, and per shaded hit `lookups` material
+    lookups, 1 for the megakernels and 0 where the march returns the
+    material, and `normal_taps` taps), times the object program's FP32
+    cost; integer RNG hashing and material arithmetic are left out, so the
+    bound is low.  Returns (ms, "bytes" or "operations", operations)."""
     from raymarchrenderer_tpu_torch.kernels.scene_program import map_flops
     mf = map_flops(scene)
     march, shade = int(work["march"]), int(work.get("shade", 0))
     taps = cfg.normal_taps
     ops = (march * (mf + MARCH_STEP_FLOPS)
-           + shade * ((1 + taps) * mf + 6 * taps + 11))
+           + shade * ((lookups + taps) * mf + 6 * taps + 11))
     t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
     print(f"bound: {march} march and {shade} shade evaluations of a "
           f"{mf}-FLOP map, {ops:.4e} FP32 ops = {t_ops * 1e3:.3f} ms; "
@@ -550,6 +582,175 @@ def parity_grads(dev, card):
                      for m in ("fused", "oracle")))
 
 
+def _record_spectral_fns(dev, size, n, origin_xy=(0, 0), patch_shape=None):
+    """(kernel, plain, scene, cfg, (params, mats)) of a spectral recording
+    launch on spectral_demo: the wrapper on CUDA tensors and
+    `record_spectral_plain` on the same tensors, each returning the folded
+    banks; `plain` takes an optional work dict."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        record_spectral_plain, trace_record_fused_spectral)
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+
+    scene, params, mats = spectral_demo(dev)
+    cfg = _train_cfg(size)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    shape = patch_shape or (size, size)
+
+    def kernel():
+        return trace_record_fused_spectral(scene, params, mats, cfg, corners,
+                                           origin_xy, shape, 0, n_samples=n)
+
+    def plain(work=None):
+        return record_spectral_plain(scene, params, mats, cfg, corners,
+                                     origin_xy, shape, 0, n_samples=n,
+                                     work=work)
+
+    return kernel, plain, scene, cfg, (params, mats)
+
+
+def parity_record_spectral(dev, card):
+    """The spectral recorder: the spectral train path's launch
+    (spectral_demo, 1024^2, 4 samples, 4 bounces, relax 1.9, 4 taps), then
+    a 128^2 patch at a non-zero origin, 4 samples."""
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        spectral_buffers)
+    kernel, plain, scene, cfg, (params, mats) = _record_spectral_fns(
+        dev, 1024, TRAIN_SPP)
+    prog, data = spectral_buffers(scene, params, mats, dev)
+    max_err, ms, plain_ms, work = _main_launch(
+        f"spectral recorder, spectral_demo 1024x1024, {TRAIN_SPP} samples, "
+        f"{cfg.max_bounces} bounces (the spectral train path's launch)",
+        kernel, plain, card, _planes_compare)
+    banks = 12 * cfg.max_bounces * TRAIN_SPP * 1024 * 1024
+    bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
+                   banks)
+    kernel, plain, *_ = _record_spectral_fns(dev, 1024, 4, _SPEC_PATCH,
+                                             (128, 128))
+    max_err = max(max_err, _planes_compare(
+        f"spectral recorder, 128x128 patch at {_SPEC_PATCH}, 4 samples",
+        kernel(), plain()))
+    return max_err, ms, plain_ms, bound
+
+
+def _wavefront_fns(dev, scene_name, size, origin_xy=(0, 0), patch_shape=None,
+                   direct_light=False, **cfg_kw):
+    """(kernel, plain, scene, cfg, params, corners) of the wavefront recorder
+    over the primary planes of one sample (sample 0) of a patch: the
+    wrapper on CUDA tensors and `record_wavefront_plain` on the same
+    planes; `plain` takes an optional work dict."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        record_wavefront_plain, trace_record_wavefront)
+    from raymarchrenderer_tpu_torch.render.integrator import spp_rays
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = getattr(builtin, scene_name)()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(size, **cfg_kw)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    px, py, sample, eye, d = spp_rays(cfg, corners, origin_xy,
+                                      patch_shape or (size, size), 0, 1)
+
+    def kernel():
+        return trace_record_wavefront(scene, params, cfg, eye, d, px, py,
+                                      sample, direct_light=direct_light)
+
+    def plain(work=None):
+        return record_wavefront_plain(scene, params, cfg, eye, d, px, py,
+                                      sample, direct_light=direct_light,
+                                      work=work)
+
+    return kernel, plain, scene, cfg, params, corners
+
+
+# the wavefront recorder against the mega recorder on the same rays
+# (tests/test_diff.py:481-497): decisions and visibility off on fewer than
+# 5e-3 of the entries, both-hit t within 5e-3 at bounce 0 and off by more
+# than 1e-5 on fewer than 1e-3 of the later bounces' entries
+WAVE_MEGA_FRAC = 5e-3
+WAVE_MEGA_T = 5e-3
+
+
+def parity_wavefront(dev, card):
+    """The wavefront recorder: the spectral train launch's bounce-0 planes
+    (sphere_on_floor, 1024^2, 1 sample per lane, 4 bounces), then csg_demo
+    with NEE and roulette on a 256^2 patch, and there against the mega
+    recorder (kernel #5) on the same rays."""
+    from raymarchrenderer_tpu_torch.kernels.record import trace_record_fused
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        paths_buffers)
+    kernel, plain, scene, cfg, params, _ = _wavefront_fns(
+        dev, "sphere_on_floor", 1024)
+    prog, data = paths_buffers(scene, params, dev)
+    max_err, ms, plain_ms, work = _main_launch(
+        "wavefront recorder, sphere_on_floor 1024x1024 bounce-0 planes, 1 "
+        f"sample, {cfg.max_bounces} bounces", kernel, plain, card,
+        _planes_compare)
+    n = 1024 * 1024
+    bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
+                   12 * cfg.max_bounces * n, lookups=0)
+    kernel, plain, scene, cfg, params, corners = _wavefront_fns(
+        dev, "csg_demo", 1024, _NEE_PATCH, (256, 256), direct_light=True,
+        rr_start_bounce=1)
+    wave = kernel()
+    max_err = max(max_err, _planes_compare(
+        f"wavefront recorder + NEE + RR, csg_demo 256x256 patch at "
+        f"{_NEE_PATCH}", wave, plain()))
+    mega = trace_record_fused(scene, params, cfg, corners, _NEE_PATCH,
+                              (256, 256), 0, n_samples=1, direct_light=True)
+    torch.cuda.synchronize()
+    hit = (wave["hit"] > 0) & (mega["hit"] > 0)
+    dt = torch.where(hit, (wave["t"] - mega["t"]).abs(), 0.0)
+    dec = float(((wave["mid"] != mega["mid"])
+                 | (wave["hit"] != mega["hit"])).float().mean())
+    sd = float((wave["sd"] != mega["sd"]).float().mean())
+    later = float((dt[1:] > PIX_TOL).sum()) / max(int(hit[1:].sum()), 1)
+    print(f"parity, wavefront vs mega recorder (kernel #4 vs #5), csg_demo "
+          f"256x256 + NEE + RR: decisions off {dec:.3e}, sd off {sd:.3e} "
+          f"(bars {WAVE_MEGA_FRAC:g}); bounce-0 max |dt| "
+          f"{float(dt[0].max()):.3e} (bar {WAVE_MEGA_T:g}); later t off by "
+          f"> {PIX_TOL:g} {later:.3e} (bar {MAX_FRAC_OFF:g}), max "
+          f"{float(dt.max()):.3e}", flush=True)
+    if not (int(hit.sum()) > 0 and dec < WAVE_MEGA_FRAC
+            and sd < WAVE_MEGA_FRAC and float(dt[0].max()) < WAVE_MEGA_T
+            and later < MAX_FRAC_OFF):
+        raise AssertionError("the wavefront and mega recorders disagree")
+    return max_err, ms, plain_ms, bound
+
+
+def parity_spectral_grads(dev, card):
+    """One spectral train step's loss and gradients (scene leaves and band
+    rows) at 256^2, 2 samples, replayed over the spectral recorder's banks
+    and over its plain version's."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        record_spectral_plain, trace_record_fused_spectral)
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        train_grads_spectral_sharded)
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+
+    scene, params, mats = spectral_demo(dev)
+    cfg = _train_cfg(256)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    target = torch.from_numpy(np.random.RandomState(3).uniform(
+        0.0, 0.3, (256, 256, 3)).astype(np.float32)).to(dev)
+    results = []
+    for f in (trace_record_fused_spectral, record_spectral_plain):
+        banks = f(scene, params, mats, cfg, corners, (0, 0), (256, 256), 0,
+                  n_samples=2)
+        loss, grads, bands = train_grads_spectral_sharded(
+            scene, params, mats, cfg, corners, target, 2,
+            march_impl="recorded", recorded=banks)
+        if not all(float(b.abs().sum()) > 0.0 for b in bands):
+            raise AssertionError("a band row's gradient vanished")
+        results.append((loss, (grads, bands)))
+    _grads_compare("spectral train step 256x256, 2 samples: kernel banks "
+                   "vs plain banks (scene leaves and band rows)", *results)
+
+
 def _write_target(path, dev, scene_name, size, direct_light, leaf):
     """The port's own render of the scene with the parameter `leaf(params)`
     (a radius) scaled by 1.05, 64 samples, saved as .npy."""
@@ -566,27 +767,48 @@ def _write_target(path, dev, scene_name, size, direct_light, leaf):
     np.save(path, img.cpu().numpy())
 
 
-def train_path(label, argv, dev, card, scene_name, size, direct_light,
-               target_leaf, check_leaf, launches_expected):
-    """One `train` run through the CLI toward a target rendered with
-    `target_leaf(params)` scaled; `check_leaf(tree)` picks the leaf whose
-    gradient must not vanish; `launches_expected` maps each kernel to the
-    launches the run must make (None: at least one).  Returns the
-    launches."""
+def _write_spectral_target(path, dev, size):
+    """The port's own spectral render of spectral_demo with the sphere
+    row's band ending at 620 nm instead of 590, 64 samples, saved as
+    .npy."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.march import render_fused_spectral
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+
+    scene, params, mats = spectral_demo(dev)
+    mats.max_wave[2] = 620.0
+    img = render_fused_spectral(scene, params, mats, _train_cfg(size),
+                                Camera(aspect=1.0).corner_rays_flat(dev), 0,
+                                n_samples=64)
+    np.save(path, img.cpu().numpy())
+
+
+def train_path(label, argv, dev, card, write_target, check_leaf,
+               launches_expected):
+    """One `train` run through the CLI toward the target `write_target(path)`
+    writes; `check_leaf(tree)` picks the leaf whose gradient must not
+    vanish (None: none); `launches_expected` maps each kernel to the
+    launches the run must make (None: at least one).  With `--spectral`
+    the band rows' gradients must not vanish, the fitted rows stay inside
+    [380, 830] nm and the npz holds them.  Returns the launches."""
     from raymarchrenderer_tpu_torch.app import cli
     from raymarchrenderer_tpu_torch.scene import param_leaves
 
+    spectral = "--spectral" in argv
     with tempfile.TemporaryDirectory() as tmp:
         target = os.path.join(tmp, "target.npy")
-        _write_target(target, dev, scene_name, size, direct_light,
-                      target_leaf)
+        write_target(target)
         out = os.path.join(tmp, "fit.npz")
         args = cli.build_parser().parse_args(
             argv + ["--target", target, "--out", out])
         for kernel in launches_expected:
             kernel.launches = 0
         t0 = time.perf_counter()
-        loss, params, grads, img = cli.cmd_train(args)
+        if spectral:
+            loss, params, mats, (grads, band_grads), img = cli.cmd_train(args)
+        else:
+            loss, params, grads, img = cli.cmd_train(args)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = {k: k.launches for k in launches_expected}
@@ -604,15 +826,32 @@ def train_path(label, argv, dev, card, scene_name, size, direct_light,
         if not all(bool(torch.isfinite(g).all())
                    for g in param_leaves(grads)):
             raise AssertionError(f"{label}: a gradient is not finite")
-        moved = float(check_leaf(grads).abs().max())
-        if not moved > 0.0:
+        moved = (float(check_leaf(grads).abs().max())
+                 if check_leaf is not None else float("nan"))
+        if check_leaf is not None and not moved > 0.0:
             raise AssertionError(f"{label}: the gradient that must not "
                                  "vanish is zero")
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label}: the final render is not finite")
+        bands = ""
+        if spectral:
+            if not all(bool(torch.isfinite(g).all())
+                       and float(g.abs().max()) > 0.0 for g in band_grads):
+                raise AssertionError(f"{label}: a band row's gradient is "
+                                     "zero or not finite")
+            rows = torch.stack(list(mats[:2]))
+            if not bool(((rows >= 380.0) & (rows <= 830.0)).all()):
+                raise AssertionError(f"{label}: a band left [380, 830] nm")
+            with np.load(out) as z:
+                if not {"band_min_wave", "band_max_wave",
+                        "band_power", "leaf0"} <= set(z.files):
+                    raise AssertionError(f"{label}: npz keys {z.files}")
+            bands = (f", bands min {mats.min_wave.tolist()} max "
+                     f"{mats.max_wave.tolist()} power "
+                     f"{[round(x, 4) for x in mats.power.tolist()]}")
     print(f"main path, {label}: final loss {float(loss):.6f}, max |grad| of "
-          f"the checked leaf {moved:.4e}, wall with target render, steps, "
-          f"final render and files {wall:.3f} s, launches "
+          f"the checked leaf {moved:.4e}{bands}, wall with target render, "
+          f"steps, final render and files {wall:.3f} s, launches "
           f"{ {k.entry: v for k, v in launches.items()} } [{card}]",
           flush=True)
     return launches
@@ -676,6 +915,88 @@ def train_perf(dev, card):
            "step_mpix_spp_per_s": 1024 * 1024 * TRAIN_SPP / 1e3 / (
                sum(step) / len(step)), **memory}
     print("train perf: " + json.dumps(res), flush=True)
+
+
+def spectral_train_perf(dev, card):
+    """The spectral train step at the full configuration, 3 repetitions:
+    the spectral recorder alone, the replay's forward (loss, no graph),
+    the whole step (record, replay, backward, band and SGD update), host
+    clock around synchronised work; then one step's peak memory (the
+    spectral step has no remat)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        trace_record_fused_spectral)
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        spectral_update, train_grads_spectral_sharded,
+        train_loss_spectral_sharded)
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+
+    scene, params, mats = spectral_demo(dev)
+    cfg = _train_cfg(1024)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    target = torch.full((1024, 1024, 3), 0.1, device=dev)
+    args = (scene, params, mats, cfg, corners, target, TRAIN_SPP)
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    def step():
+        _, grads, bands = train_grads_spectral_sharded(
+            *args, march_impl="recorded")
+        return spectral_update(params, mats, grads, bands, 1e-2)
+
+    record, forward, whole = [], [], []
+    for _ in range(3):
+        banks, ms = timed(lambda: trace_record_fused_spectral(
+            scene, params, mats, cfg, corners, (0, 0), (1024, 1024), 0,
+            n_samples=TRAIN_SPP))
+        record.append(ms)
+        forward.append(timed(lambda: train_loss_spectral_sharded(
+            *args, march_impl="recorded", recorded=banks))[1])
+        del banks
+        whole.append(timed(step)[1])
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    timed(step)
+    res = {"card": card, "config": "spectral_demo 1024x1024, 4 spp, 4 "
+           "bounces, relax 1.9, 4 taps, recorded, soft edge 8 nm",
+           "record_ms": _mean_spread(record),
+           "replay_forward_ms": _mean_spread(forward),
+           "step_ms": _mean_spread(whole),
+           "backward_update_ms_derived": (sum(whole) - sum(record)
+                                          - sum(forward)) / len(whole),
+           "step_mpix_spp_per_s": 1024 * 1024 * TRAIN_SPP / 1e3 / (
+               sum(whole) / len(whole)),
+           "peak_gb": torch.cuda.max_memory_allocated(dev) / 1e9}
+    print("spectral train perf: " + json.dumps(res), flush=True)
+
+
+def wavefront_path(dev, card):
+    """The wavefront recorder through its entry point: no CLI verb reaches
+    it (in the JAX package only tests do), so its path is one call of
+    `trace_record_wavefront` on the train launch's primary planes
+    (sphere_on_floor, 1024^2, 1 sample, 4 bounces), the counter zeroed
+    just before and read just after.  Returns the launches."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    kernel, *_ = _wavefront_fns(dev, "sphere_on_floor", 1024)
+    march.RECORD_WAVEFRONT.launches = 0
+    rec = kernel()
+    torch.cuda.synchronize()
+    launches = march.RECORD_WAVEFRONT.launches
+    if launches != 1:
+        raise AssertionError(f"wavefront path: {launches} launches")
+    if not (bool(torch.isfinite(rec["t"]).all())
+            and int(rec["hit"].sum()) > 0):
+        raise AssertionError("wavefront path: no finite hits")
+    print(f"main path, wavefront recorder (trace_record_wavefront, "
+          f"sphere_on_floor 1024x1024 primary planes): {launches} launch, "
+          f"{int(rec['hit'].sum())} banked hits [{card}]", flush=True)
+    return launches
 
 
 def main_path(label, argv, kernel, card):
@@ -755,8 +1076,8 @@ def main() -> int:
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     t0 = time.perf_counter()
-    kernels = (march.MEGA_PATHS, march.RECORD_PATHS, march.MEGA_SPECTRAL,
-               march.MARCH_FUSED)
+    kernels = (march.MEGA_PATHS, march.RECORD_PATHS, march.RECORD_WAVEFRONT,
+               march.MEGA_SPECTRAL, march.RECORD_SPECTRAL, march.MARCH_FUSED)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels))
     print(f"build: {len(kernels)} kernels of 3 sources in "
@@ -776,6 +1097,9 @@ def main() -> int:
     r_err, r_ms, r_plain, r_bound = parity_record(dev, card)
     m_err, m_ms, m_plain, m_bound = parity_march(dev, card)
     parity_grads(dev, card)
+    rs_err, rs_ms, rs_plain, rs_bound = parity_record_spectral(dev, card)
+    w_err, w_ms, w_plain, w_bound = parity_wavefront(dev, card)
+    parity_spectral_grads(dev, card)
 
     # 4. main paths
     s_launches = main_path("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL,
@@ -798,22 +1122,43 @@ def main() -> int:
     # geometry (diffuse albedos and an emitter), so its radius gradient is
     # 0 in both packages; the ball's albedo carries the check there, and
     # the NEE run checks a radius
+    def target(scene_name, size, direct_light, leaf):
+        return lambda path: _write_target(path, dev, scene_name, size,
+                                          direct_light, leaf)
+
     r_launches = train_path(
         "train sphere_on_floor 1024x1024 (recorded)", TRAIN_ARGV, dev, card,
-        "sphere_on_floor", 1024, False, radius, ball_albedo,
+        target("sphere_on_floor", 1024, False, radius), ball_albedo,
         {march.RECORD_PATHS: steps, march.MEGA_PATHS: None})[
             march.RECORD_PATHS]
     m_launches = train_path(
         "train sphere_on_floor 256x256 --impl fused", TRAIN_FUSED_ARGV, dev,
-        card, "sphere_on_floor", 256, False, radius, ball_albedo,
+        card, target("sphere_on_floor", 256, False, radius), ball_albedo,
         {march.MARCH_FUSED: None, march.MEGA_PATHS: None})[march.MARCH_FUSED]
     train_path("train csg --direct-light 512x512 (recorded)", TRAIN_NEE_ARGV,
-               dev, card, "csg_demo", 512, True, csg_radius, csg_radius,
+               dev, card, target("csg_demo", 512, True, csg_radius),
+               csg_radius,
                {march.RECORD_PATHS: steps, march.MEGA_PATHS: None})
+    # spectral inverse rendering: the radiance is piecewise constant in
+    # geometry (no scene leaf's gradient is non-zero, in both packages);
+    # the band rows carry the check
+    rs_launches = train_path(
+        "train --spectral sphere_on_floor 1024x1024 (recorded)",
+        TRAIN_SPECTRAL_ARGV, dev, card,
+        lambda path: _write_spectral_target(path, dev, 1024), None,
+        {march.RECORD_SPECTRAL: steps, march.MEGA_SPECTRAL: None,
+         march.RECORD_PATHS: 0, march.MARCH_FUSED: 0})[march.RECORD_SPECTRAL]
+    train_path("train --spectral sphere_on_floor 256x256 --impl fused",
+               TRAIN_SPECTRAL_FUSED_ARGV, dev, card,
+               lambda path: _write_spectral_target(path, dev, 256), None,
+               {march.MARCH_FUSED: None, march.MEGA_SPECTRAL: None,
+                march.RECORD_SPECTRAL: 0})
+    w_launches = wavefront_path(dev, card)
 
     # 5. perf
     perf(dev, card)
     train_perf(dev, card)
+    spectral_train_perf(dev, card)
 
     print(json.dumps({"kernels": [
         _entry("mega_paths", "mega_paths.cu",
@@ -827,7 +1172,13 @@ def main() -> int:
                r_err, r_ms, r_plain, r_bound),
         _entry("march_fused", "march_fused.cu",
                "raymarchrenderer_tpu/kernels/march.py:575", m_launches,
-               m_err, m_ms, m_plain, m_bound)]}))
+               m_err, m_ms, m_plain, m_bound),
+        _entry("record_spectral", "mega_spectral.cu",
+               "raymarchrenderer_tpu/kernels/record.py:513", rs_launches,
+               rs_err, rs_ms, rs_plain, rs_bound),
+        _entry("record_wavefront", "mega_paths.cu",
+               "raymarchrenderer_tpu/kernels/record.py:274", w_launches,
+               w_err, w_ms, w_plain, w_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

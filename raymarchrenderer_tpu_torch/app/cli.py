@@ -1,5 +1,5 @@
 """CLI frontend of the PyTorch port: `render`, RGB or `--spectral`, and
-`train`, RGB inverse rendering.
+`train`, RGB or `--spectral` inverse rendering.
 
     python -m raymarchrenderer_tpu_torch render --scene csg --direct-light \\
         --width 1024 --height 1024 --spp 128 --chunk 128 --relax 2.0 \\
@@ -10,12 +10,16 @@
     python -m raymarchrenderer_tpu_torch train --scene sphere_on_floor \
         --width 1024 --height 1024 --spp 4 --max-bounces 4 --relax 1.9 \
         --normal-taps 4 --steps 3 --lr 1e-2 --target T.npy --out fit.npz
+    python -m raymarchrenderer_tpu_torch train --spectral \
+        --scene sphere_on_floor --width 1024 --height 1024 --spp 4 \
+        --max-bounces 4 --relax 1.9 --normal-taps 4 --steps 3 --lr 1e-2 \
+        --target T.npy --out fit.npz
 
 The same flags as the JAX package's `render` and `train` subcommands that
 these paths read, plus `--device` (default `cuda`; `--device cpu` runs the
 plain PyTorch versions of the kernels).  On `cuda` with no card it fails.
-Env maps (`--env-map`), checkpoints, `train --spectral` and the other
-subcommands are not ported yet.
+Env maps (`--env-map`), checkpoints and the other subcommands are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -187,7 +191,9 @@ def cmd_train(args):
     with the recording megakernel; `fused` marches every bounce with
     `march_fused`; `oracle` uses the plain march (an explicit choice, not
     a fallback).  Returns (final loss, fitted params, the last step's
-    gradients, the final render)."""
+    gradients, the final render); with `--spectral` the band table is fit
+    too and the fitted `SpectralMaterials` come third
+    (`_train_spectral`)."""
     import numpy as np
     import torch
 
@@ -198,10 +204,6 @@ def cmd_train(args):
         render_sharded, sgd, train_grads_sharded)
     from raymarchrenderer_tpu_torch.scene.graph import params_to_numpy
 
-    if args.spectral:
-        raise NotImplementedError(
-            "train --spectral is not ported yet (the next slice: the "
-            "spectral recorder and the soft band replay)")
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
     device = _device(args.device)
@@ -217,6 +219,9 @@ def cmd_train(args):
     target = torch.as_tensor(target, device=device)
     march_impl = {"auto": "recorded", "fused": "fused",
                   "oracle": "oracle"}[args.impl]
+    if args.spectral:
+        return _train_spectral(args, device, scene, params, cfg, corners,
+                               target, march_impl)
     impl = "oracle" if args.impl == "oracle" else "fused"
     kernels = {"recorded": (RECORD_PATHS,), "fused": (MARCH_FUSED,),
                "oracle": ()}[march_impl] + ((MEGA_PATHS,)
@@ -248,6 +253,64 @@ def cmd_train(args):
     save_image(png, img.cpu().numpy())
     print(f"saved {out} and {png} (final loss {loss_f:.6f})")
     return loss, params, grads, img
+
+
+def _train_spectral(args, device, scene, params, cfg, corners, target,
+                    march_impl):
+    """`train --spectral`: fit the scene parameters (SGD) and the band
+    table's rows (a sign step, `parallel.sharding.spectral_update`) to the
+    target through the soft-band differentiable spectral render, a fresh
+    sample batch per step (sample0 = k * spp); the final render is one
+    launch of the spectral megakernel.  The npz holds the fitted band rows
+    (`band_min_wave`, `band_max_wave`, `band_power`) and the scene leaves
+    (`leaf{i}`, the JAX package's leaf order).  Returns (final loss,
+    fitted params, fitted `SpectralMaterials`, the last step's (param
+    grads, band grads), the final render)."""
+    import numpy as np
+
+    from raymarchrenderer_tpu_torch.io.image import save_image
+    from raymarchrenderer_tpu_torch.kernels.march import (
+        MARCH_FUSED, MEGA_SPECTRAL, RECORD_SPECTRAL, prepare)
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        render_sharded_spectral, spectral_update,
+        train_grads_spectral_sharded)
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        band_table)
+    from raymarchrenderer_tpu_torch.scene.graph import params_to_numpy
+
+    mats = band_table(scene, device)
+    kernels = {"recorded": (RECORD_SPECTRAL,), "fused": (MARCH_FUSED,),
+               "oracle": ()}[march_impl] + (MEGA_SPECTRAL,)
+    build_s = prepare(device, *kernels)
+    if build_s is not None:
+        print(f"kernels built and loaded in {build_s:.3f}s")
+    print(f"training spectral {cfg.width}x{cfg.height} @ {args.spp} spp, "
+          f"{args.steps} steps ({march_impl}, {device})")
+    for k in range(args.steps):
+        t0 = time.perf_counter()
+        loss, grads, band_grads = train_grads_spectral_sharded(
+            scene, params, mats, cfg, corners, target, spp=args.spp,
+            march_impl=march_impl, sample0=k * args.spp)
+        params, mats = spectral_update(params, mats, grads, band_grads,
+                                       args.lr)
+        loss_f = float(loss)            # waits for the device
+        if k % max(1, args.steps // 10) == 0 or k == args.steps - 1:
+            print(f"step {k:4d} loss {loss_f:.6f} "
+                  f"({time.perf_counter() - t0:.3f} s)", flush=True)
+    img = render_sharded_spectral(scene, params, mats, cfg, corners,
+                                  spp=args.spp)
+    out = args.out or "output/fitted_params.npz"
+    if not out.endswith(".npz"):
+        out += ".npz"
+    os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
+    np.savez(out, band_min_wave=mats.min_wave.cpu().numpy(),
+             band_max_wave=mats.max_wave.cpu().numpy(),
+             band_power=mats.power.cpu().numpy(),
+             **{f"leaf{i}": a for i, a in enumerate(params_to_numpy(params))})
+    png = os.path.splitext(out)[0] + ".png"
+    save_image(png, img.cpu().numpy())
+    print(f"saved {out} and {png} (final loss {loss_f:.6f})")
+    return loss, params, mats, (grads, band_grads), img
 
 
 def build_parser() -> argparse.ArgumentParser:

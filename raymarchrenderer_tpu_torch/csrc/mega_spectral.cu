@@ -31,6 +31,29 @@
 // math), 1/sqrtf for normalisation, a divide by 5 in the band filter, and
 // an interpreted scene.  Contraction and per-scene specialisation are left
 // for later work.
+//
+// The recording entry `rmr_record_spectral` replaces the TPU kernel
+// `trace_record_fused_spectral` (raymarchrenderer_tpu/kernels/record.py:434,
+// the pl.pallas_call at :513, whose body is trace_mega_spectral with
+// record_banks).  Its plain version is render/mega.py
+// `trace_mega_spectral(record_banks=True)` and its wrapper
+// kernels/record.py `trace_record_fused_spectral`.  It runs the same lane
+// machine, instantiated with `Banks` instead of `NoBanks` (a template
+// argument, so the render kernel compiles to the code it had without
+// banks): a shaded hit writes (t, material, 1) to slot
+// bounce * n_samples + sample of the (B * S, ph, pw) banks, each slot of a
+// pixel with one writer, so no atomics.  The banked geometry does not
+// depend on the band values (uniform hemisphere bounces, and a recording
+// path ends only on an emitter hit or a miss, never on an absorption), so
+// a recording lane skips the band filter, the power and the splat; it
+// still steps the draw counter past the filter's draw, because the
+// bounce direction is draws 2 and 3 of the stream.  The wrapper fills the
+// banks with the miss values first.  Bound: 12 bytes per (bounce, sample)
+// slot and pixel, written once (201 MB = 0.06 ms at 3.35 TB/s at the
+// train launch, 1024^2 pixels x 4 samples x 4 bounces); the operations
+// (the map evaluations the plain version's `work` counts) bind: 0.24 ms,
+// against 18.5 ms measured (PERF.md; NVIDIA H100 80GB HBM3, 700 W), so it
+// is latency-bound like the render.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -47,6 +70,21 @@ constexpr int kWait = 1;
 constexpr int kRegen = 2;
 constexpr int kExh = 7;
 constexpr int kWaitMiss = -1;
+
+// The render: no banks.
+struct NoBanks {
+  static constexpr bool kOn = false;
+};
+
+// The record banks of one recording launch, at this lane's pixel.
+struct Banks {
+  static constexpr bool kOn = true;
+  float* t;
+  int* mid;
+  int* hit;
+  size_t plane;  // ph * pw
+  size_t pix;    // the lane's pixel in the patch
+};
 
 }  // namespace
 
@@ -160,10 +198,10 @@ __device__ __forceinline__ void reset_segment(const Ctx& c, Lane& L) {
   }
 }
 
+template <class R>
 __device__ void regen(const Ctx& c, Lane& L) {
   if (L.state != kRegen) return;
-  const V3 col = scale(wavelength_to_rgb(L.wl), L.power);
-  L.acc = add(L.acc, col);
+  if constexpr (!R::kOn) L.acc = add(L.acc, scale(wavelength_to_rgb(L.wl), L.power));
   L.s_idx += 1;
   if (L.s_idx >= c.a.n_samples) {
     L.state = kExh;
@@ -178,18 +216,32 @@ __device__ void regen(const Ctx& c, Lane& L) {
   reset_segment(c, L);
 }
 
-__device__ void shade(const Ctx& c, Lane& L) {
+template <class R>
+__device__ void shade(const Ctx& c, Lane& L, const R& r) {
   if (L.state != kWait && L.state != kWaitMiss) return;
   const SpecArgs& a = c.a;
   const bool hit = L.state == kWait;
   Rng rng = rng_make(a.seed, c.px, c.py, a.sample0 + (uint32_t)L.s_idx, (uint32_t)L.bounce);
-  const float u = rng_next(rng);
+  // draw 1 is the band filter's; a recording skips the filter but keeps
+  // the bounce direction on draws 2 and 3
+  float u = 0.0f;
+  if constexpr (R::kOn) {
+    rng.ctr = 1u;
+  } else {
+    u = rng_next(rng);
+  }
   float mn = 390.0f, mx = 830.0f, pw = a.sky_power;
   int kind = 0;
   V3 hitp = L.o, normal = splat(0.0f);
   if (hit) {
     hitp = add(L.o, scale(L.d, L.t));
     int mid = map_mid(c.s, a.max_dist, hitp);
+    if constexpr (R::kOn) {
+      const size_t k = (size_t)(L.bounce * a.n_samples + L.s_idx) * r.plane + r.pix;
+      r.t[k] = L.t;
+      r.mid[k] = mid;
+      r.hit[k] = 1;
+    }
     normal = get_normal(c.s, a.max_dist, a.normal_eps, a.normal_taps, hitp);
     // the band table tail: ints [n_mats, kind * n_mats], floats
     // [min_wave * n_mats, max_wave * n_mats, power * n_mats]
@@ -202,7 +254,10 @@ __device__ void shade(const Ctx& c, Lane& L) {
     pw = band[2 * n_mats + mid];
     kind = tail[1 + mid];
   }
-  const bool absorbed = apply_band(L.wl, L.power, u, mn, mx, pw);
+  // a recording path continues through an absorption: the soft band
+  // filter of the replay attenuates instead
+  bool absorbed = false;
+  if constexpr (!R::kOn) absorbed = apply_band(L.wl, L.power, u, mn, mx, pw);
   const bool term = !hit || kind == 1 || absorbed;
   L.bounce += 1;
   const bool done = term || L.bounce >= a.max_bounces;
@@ -217,19 +272,23 @@ __device__ void shade(const Ctx& c, Lane& L) {
   reset_segment(c, L);
 }
 
+template <class R>
 __device__ void miss_pass(const Ctx& c, Lane& L) {
   if (L.state == kWaitMiss) {
-    Rng rng = rng_make(c.a.seed, c.px, c.py, c.a.sample0 + (uint32_t)L.s_idx,
-                       (uint32_t)L.bounce);
-    const float u = rng_next(rng);
-    apply_band(L.wl, L.power, u, 390.0f, 830.0f, c.a.sky_power);
+    if constexpr (!R::kOn) {
+      Rng rng = rng_make(c.a.seed, c.px, c.py, c.a.sample0 + (uint32_t)L.s_idx,
+                         (uint32_t)L.bounce);
+      const float u = rng_next(rng);
+      apply_band(L.wl, L.power, u, 390.0f, 830.0f, c.a.sky_power);
+    }
     L.bounce += 1;
     L.state = kRegen;
   }
-  regen(c, L);
+  regen<R>(c, L);
 }
 
-__device__ void body(const Ctx& c, Lane& L) {
+template <class R>
+__device__ void body(const Ctx& c, Lane& L, const R& r) {
   const SpecArgs& a = c.a;
   if (a.regen_cadence > 0 && a.regen_cadence < a.march_unroll) {
     const int n_sub = a.march_unroll / a.regen_cadence;
@@ -237,19 +296,21 @@ __device__ void body(const Ctx& c, Lane& L) {
       for (int k = 0; k < a.regen_cadence; ++k) march_step(c, L);
       if (sub < n_sub - 1) {
         if (a.lazy_miss) mark_misses(c, L);
-        miss_pass(c, L);
+        miss_pass<R>(c, L);
       }
     }
   } else {
     for (int k = 0; k < a.march_unroll; ++k) march_step(c, L);
   }
   if (a.lazy_miss) mark_misses(c, L);
-  shade(c, L);
-  regen(c, L);
+  shade(c, L, r);
+  regen<R>(c, L);
 }
 
-// The whole per-pixel program: the sum over n_samples of the splat.
-__device__ V3 trace_pixel(const Ctx& c) {
+// The whole per-pixel program: the sum over n_samples of the splat (a
+// recording lane returns zero and leaves its banks).
+template <class R>
+__device__ V3 trace_pixel(const Ctx& c, const R& r) {
   Lane L;
   L.o = c.cam.eye;
   L.d = primary(c, 0);
@@ -266,7 +327,7 @@ __device__ V3 trace_pixel(const Ctx& c) {
   L.steps = 0;
   L.gstep = 0;
   march_step(c, L);  // the peeled first step
-  while (L.state < kExh) body(c, L);
+  while (L.state < kExh) body(c, L, r);
   return L.acc;
 }
 
@@ -285,7 +346,7 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_spectral_kerne
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
-  const V3 acc = trace_pixel(c);
+  const V3 acc = trace_pixel(c, NoBanks());
   float* o = out + 3 * ((size_t)ly * a.pw + lx);
   o[0] = acc.x * a.inv_n;
   o[1] = acc.y * a.inv_n;
@@ -304,5 +365,45 @@ extern "C" int rmr_mega_spectral(const SpecArgs* args, const float* corners, con
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
   mega_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  return (int)cudaGetLastError();
+}
+
+// The recording kernel: the same lane machine with banks.
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
+    record_spectral_kernel(SpecArgs a, const float* __restrict__ corners,
+                           const float* __restrict__ fdata, const int* __restrict__ prog,
+                           Banks banks) {
+  const int lx = blockIdx.x * blockDim.x + threadIdx.x;
+  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
+  if (lx >= a.pw || ly >= a.ph) return;
+  Ctx c;
+  c.a = a;
+  c.s.prog = prog;
+  c.s.f = fdata;
+  c.px = (uint32_t)(a.ox + lx);
+  c.py = (uint32_t)(a.oy + ly);
+  c.cam = load_camera(corners);
+  banks.pix = (size_t)ly * a.pw + lx;
+  trace_pixel(c, banks);
+}
+
+// The recording entry: as rmr_mega_spectral, but the lanes bank their
+// march residuals into `t` (float32), `mid` and `hit` (int32), each
+// (max_bounces * n_samples, ph, pw), slot bounce * n_samples + sample; the
+// caller fills them with the miss values first.  No image is written.
+extern "C" int rmr_record_spectral(const SpecArgs* args, const float* corners, const float* fdata,
+                                   const int* prog, float* t, int* mid, int* hit,
+                                   cudaStream_t stream, int device) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  Banks banks;
+  banks.t = t;
+  banks.mid = mid;
+  banks.hit = hit;
+  banks.plane = (size_t)args->ph * args->pw;
+  banks.pix = 0;
+  const dim3 block(16, kBlockThreads / 16);
+  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
+  record_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, banks);
   return (int)cudaGetLastError();
 }

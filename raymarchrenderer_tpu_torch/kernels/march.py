@@ -13,15 +13,16 @@ plane of rays.
     the port of the TPU kernel of that name: CUDA kernel
     `csrc/march_fused.cu`, plain version `render/integrator.py::march`.
 
-The recording megakernel (`RECORD_PATHS`, a second entry of
-`csrc/mega_paths.cu`) is wrapped by `kernels/record.py`.  The megakernels
+The recorders (`RECORD_PATHS` and `RECORD_WAVEFRONT`, entries of
+`csrc/mega_paths.cu`; `RECORD_SPECTRAL`, an entry of
+`csrc/mega_spectral.cu`) are wrapped by `kernels/record.py`.  The megakernels
 run one thread per pixel through the lane-state machine.  The device of
 the input tensors (`corners`, or the ray planes) picks the route: a CUDA
 tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
 runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`).
 There is no other route and no fallback between the two.  Env-map and SH
-skies, `normal_taps=0` and the TPU kernel's wavefront mode are not ported;
-they raise on both routes.
+skies, `normal_taps=0` and the RGB kernel's wavefront mode are not
+ported; they raise on both routes.
 """
 from __future__ import annotations
 
@@ -100,6 +101,17 @@ RECORD_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_record_paths",
     [ctypes.POINTER(PathArgs), _P, _P, _P, _P, _P, _P, _P, _P,
      ctypes.c_int])
+# the recording entry of mega_spectral.cu: args, corners, data, program,
+# then the t, mid and hit banks
+RECORD_SPECTRAL = CudaKernel(
+    "mega_spectral.cu", "rmr_record_spectral",
+    [ctypes.POINTER(SpecArgs), _P, _P, _P, _P, _P, _P, _P, ctypes.c_int])
+# the wavefront recording entry of mega_paths.cu: args, the ray count,
+# data, program, the nine ray planes, the t, mid, hit and sd banks
+RECORD_WAVEFRONT = CudaKernel(
+    "mega_paths.cu", "rmr_record_wavefront",
+    [ctypes.POINTER(PathArgs), ctypes.c_int] + [_P] * 15 + [_P,
+                                                            ctypes.c_int])
 # args, program, data, the nine input planes, the three outputs
 MARCH_FUSED = CudaKernel(
     "march_fused.cu", "rmr_march_fused",
@@ -351,9 +363,9 @@ def render_progressive_fused_spectral(scene: Scene, params, mats,
 
 def prepare(device, *kernels: CudaKernel):
     """Build and load `kernels` (`MEGA_PATHS`, `MEGA_SPECTRAL`,
-    `RECORD_PATHS`, `MARCH_FUSED`), when they run on `device`, ahead of
-    their first launch; returns the seconds this took, or None on the
-    CPU."""
+    `RECORD_PATHS`, `RECORD_SPECTRAL`, `RECORD_WAVEFRONT`, `MARCH_FUSED`),
+    when they run on `device`, ahead of their first launch; returns the
+    seconds this took, or None on the CPU."""
     if torch.device(device).type != "cuda":
         return None
     t0 = time.perf_counter()

@@ -34,7 +34,9 @@ same loop (`_SHADOW` -> `_SH_LIT` / `_SH_OCC`, banked by `resolve`).
 With `record_banks` it is the plain version of the recording megakernel:
 it banks every shaded hit's march residuals (t, material, hit) and every
 resolved shadow ray's visibility, the planes the differentiable replay
-reads in place of its marches (`kernels/record.py`).
+reads in place of its marches (`kernels/record.py`);
+`trace_mega_spectral(record_banks=True)` is the spectral recorder's plain
+version in the same way.
 """
 from __future__ import annotations
 
@@ -103,7 +105,8 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
                         cfg: RenderConfig, corners, px, py, sample0,
                         n_samples: int = 1, march_unroll: int = 1,
                         lazy_miss: bool = False,
-                        regen_cadence: int = 0, work: dict = None) -> Vec3:
+                        regen_cadence: int = 0, record_banks: bool = False,
+                        work: dict = None) -> Vec3:
     """Sum over `n_samples` paths per pixel of `wavelength_to_rgb(wl) *
     power`, for int32 pixel coordinates `px`, `py` (any shape, absolute
     frame coordinates) and `corners` the (5, 3) camera tensor.
@@ -111,7 +114,15 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     `work`, when given, is a dict that gains the counts of the map
     evaluations a one-lane-per-thread kernel makes on these inputs:
     "march" (one per marching lane and step) and "shade" (hits shaded,
-    one material lookup plus `normal_taps` evaluations each)."""
+    one material lookup plus `normal_taps` evaluations each).
+
+    `record_banks`: returns (sum, banks), the plain version of the
+    spectral recorder: t float32, mid int32 and hit int32, each
+    (max_bounces * n_samples, *shape), written at each shaded hit's slot
+    bounce * n_samples + sample; unreached slots keep the march's miss
+    values (t = max_dist, mid = -1, hit = 0).  A recording path ends only
+    on an emitter hit or a miss, not on an absorption, because the soft
+    band filter of the replay (`_apply_band_soft`) never absorbs."""
     check_knobs(march_unroll, regen_cadence)
     shape = px.shape
     device = px.device
@@ -122,6 +133,14 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     sky_p = float(np.float32(cfg.sky_power))
     relax = cfg.relax_omega > 1.0
     one_minus_omega = float(np.float32(1.0) - np.float32(cfg.relax_omega))
+    banks = ()
+    if record_banks:
+        bs = cfg.max_bounces * n_samples
+        banks = (torch.full((bs, *shape), cfg.max_dist, dtype=torch.float32,
+                            device=device),
+                 torch.full((bs, *shape), -1, dtype=torch.int32,
+                            device=device),
+                 torch.zeros((bs, *shape), dtype=torch.int32, device=device))
 
     def primary(s_idx):
         rng = RNGStream(cfg.seed, px, py, s0 + s_idx.long(), 1 << 20)
@@ -184,6 +203,11 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
         rng = RNGStream(cfg.seed, px, py, s0 + st.s_idx.long(), st.bounce)
         u = rng.next()
         m_min, m_max, m_pow, m_kind = _lookup(mats, mid)
+        if record_banks:
+            slot = st.bounce * n_samples + st.s_idx
+            _bank_write(banks[0], slot, hit_b, st.t)
+            _bank_write(banks[1], slot, hit_b, mid)
+            _bank_write(banks[2], slot, hit_b, torch.ones_like(mid))
         # one band evaluation over hit_b-selected band parameters
         b_min = torch.where(hit_b, m_min, sky_min)
         b_max = torch.where(hit_b, m_max, sky_max)
@@ -192,6 +216,8 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
                                            b_min, b_max, b_pow)
         st.wl = torch.where(waiting, wl_n, st.wl)
         st.power = torch.where(waiting, pw_n, st.power)
+        if record_banks:
+            absorbed = torch.zeros_like(absorbed)
         term = (hit_b & ((m_kind == 1) | absorbed)) | ~hit_b
         st.bounce = torch.where(waiting, st.bounce + 1, st.bounce)
         done_now = term | (st.bounce >= cfg.max_bounces)
@@ -271,7 +297,7 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     march_step(st)                      # the peeled first step
     while bool((st.state < _EXH).any()):
         body(st)
-    return st.acc
+    return (st.acc, banks) if record_banks else st.acc
 
 
 class _PathLanes:

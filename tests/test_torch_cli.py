@@ -115,6 +115,7 @@ def test_port_imports_no_jax():
             "raymarchrenderer_tpu_torch.render.integrator, "
             "raymarchrenderer_tpu_torch.io.image, "
             "raymarchrenderer_tpu_torch.render.mega, "
+            "raymarchrenderer_tpu_torch.render.spectral_integrator, "
             "raymarchrenderer_tpu_torch.scene.nodes, "
             "raymarchrenderer_tpu_torch.scene.graph, "
             "raymarchrenderer_tpu_torch.core.sampling; "

@@ -17,7 +17,12 @@ a direction an ulp apart between the kernel and torch's CUDA build
 largest: a grazing ray that starts an ulp away stops at another point of
 the surface (measured on csg_demo with NEE: 1.25% and 0.22).  Gradients
 from kernel banks against plain banks (the same replay): loss to rtol
-1e-5, every leaf to atol 1e-3 * max|g|.
+1e-5, every leaf to atol 1e-3 * max|g|.  The spectral recorder and the
+wavefront recorder are held to the banks' bar; the wavefront recorder
+also against the mega recorder (kernel #5) on the same rays, with the
+bar of tests/test_diff.py:481-497 (decisions and visibility off on fewer
+than 5e-3 of the entries, t on both-hit entries within 5e-3 on all but
+5% of the later bounces' entries).
 """
 import numpy as np
 import pytest
@@ -31,9 +36,11 @@ from _torch_parity import (ALL_MATERIALS_SCENE, ALL_NODES_SCENE,  # noqa: F401
 from raymarchrenderer_tpu_torch.core.camera import Camera
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3
 from raymarchrenderer_tpu_torch.kernels import march
-from raymarchrenderer_tpu_torch.kernels.record import (record_plain,
-                                                       trace_record_fused)
-from raymarchrenderer_tpu_torch.parallel.sharding import train_grads_sharded
+from raymarchrenderer_tpu_torch.kernels.record import (
+    record_plain, record_spectral_plain, record_wavefront_plain,
+    trace_record_fused, trace_record_fused_spectral, trace_record_wavefront)
+from raymarchrenderer_tpu_torch.parallel.sharding import (
+    train_grads_sharded, train_grads_spectral_sharded)
 from raymarchrenderer_tpu_torch.render import integrator
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.mega import (trace_mega_paths,
@@ -302,4 +309,107 @@ def test_train_grads_kernel_banks_match_plain_banks(cuda_device, name, nee):
         for g, w in zip(param_leaves(grads), param_leaves(want_grads)):
             if w.numel():
                 tol = (2e-2 if nee else 1e-3) * max(1e-6, float(w.abs().max()))
+                assert float((g - w).abs().max()) <= tol, (g, w)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("scene_name", ["demo", "all_nodes"])
+def test_record_spectral_kernel_matches_plain(cuda_device, scene_name):
+    """The spectral recorder against its plain version with the card's
+    knobs (unroll 32, cadence 16, lazy miss) on the same CUDA tensors: a
+    patch at a non-zero origin, 3 samples from sample 2; one launch."""
+    scene = _scene(scene_name)
+    params = scene.init_params(cuda_device)
+    mats = band_table(scene, cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_bounces=4, relax_omega=1.9,
+                       normal_taps=4)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    launches = march.RECORD_SPECTRAL.launches
+    got = trace_record_fused_spectral(scene, params, mats, cfg, corners,
+                                      (8, 4), (48, 80), 2, n_samples=3)
+    torch.cuda.synchronize()
+    assert march.RECORD_SPECTRAL.launches == launches + 1
+    want = record_spectral_plain(scene, params, mats, cfg, corners, (8, 4),
+                                 (48, 80), 2, n_samples=3)
+    assert got["t"].shape == (4, 3 * 48, 80)
+    assert int(got["hit"][1:].sum()) > 0
+    _assert_banks_match(got, want, 0)
+
+
+_WAVEFRONT_CASES = {
+    "sphere_on_floor": ("demo", False, {}),
+    "csg_nee_rr": ("csg", True, dict(rr_start_bounce=1)),
+    "all_materials_nee_rr": ("all_materials", True, dict(rr_start_bounce=1)),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(_WAVEFRONT_CASES))
+def test_record_wavefront_kernel_matches_plain(cuda_device, case):
+    """The wavefront recorder against its plain version on the sample-
+    folded planes of a patch (2 samples), one launch; then against the
+    mega recorder (kernel #5) on the rays of one sample."""
+    name, nee, extra = _WAVEFRONT_CASES[case]
+    scene = _paths_scene(name)
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_bounces=4, relax_omega=1.9,
+                       normal_taps=4, **extra)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    px, py, sample, eye, d = integrator.spp_rays(cfg, corners, (8, 4),
+                                                 (48, 80), 2, 2)
+    launches = march.RECORD_WAVEFRONT.launches
+    got = trace_record_wavefront(scene, params, cfg, eye, d, px, py, sample,
+                                 direct_light=nee)
+    torch.cuda.synchronize()
+    assert march.RECORD_WAVEFRONT.launches == launches + 1
+    want = record_wavefront_plain(scene, params, cfg, eye, d, px, py, sample,
+                                  direct_light=nee)
+    assert int(got["hit"].sum()) > 0
+    _assert_banks_match(got, want, 0)
+    px, py, sample, eye, d = integrator.spp_rays(cfg, corners, (8, 4),
+                                                 (48, 80), 2, 1)
+    wave = trace_record_wavefront(scene, params, cfg, eye, d, px, py, sample,
+                                  direct_light=nee)
+    mega = trace_record_fused(scene, params, cfg, corners, (8, 4), (48, 80),
+                              2, n_samples=1, direct_light=nee)
+    p = bank_parity(wave, mega, 0)
+    hit = (wave["hit"] > 0) & (mega["hit"] > 0)
+    assert p["decisions"] < 5e-3 and p.get("sd", 0.0) < 5e-3, p
+    assert p["t"] < MAX_FRAC_OFF and p["t_later"] < LATER_FRAC_OFF, p
+    assert float(torch.where(hit, (wave["t"] - mega["t"]).abs(), 0.0)[0]
+                 .max()) < 5e-3
+
+
+@pytest.mark.requires_cuda
+def test_train_spectral_grads_kernel_banks_match_plain_banks(cuda_device):
+    """One spectral step's loss and gradients (scene leaves and band rows)
+    replayed over the spectral recorder's banks and over its plain
+    version's, and with `march_fused` against the plain march."""
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    scene, params, mats = spectral_demo(cuda_device)
+    cfg = RenderConfig(width=64, height=48, max_bounces=3, relax_omega=1.9,
+                       normal_taps=4)
+    corners = Camera(aspect=64 / 48).corner_rays_flat(cuda_device)
+    target = torch.full((48, 64, 3), 0.1, device=cuda_device)
+    kw = dict(spp=2, sample0=4)
+    banks = [f(scene, params, mats, cfg, corners, (0, 0), (48, 64), 4,
+               n_samples=2)
+             for f in (trace_record_fused_spectral, record_spectral_plain)]
+    pairs = [[train_grads_spectral_sharded(
+                scene, params, mats, cfg, corners, target,
+                march_impl="recorded", recorded=b, **kw) for b in banks],
+             [train_grads_spectral_sharded(scene, params, mats, cfg, corners,
+                                           target, march_impl=m, **kw)
+              for m in ("fused", "oracle")]]
+    for (loss, grads, bands), (want_loss, want_grads, want_bands) in pairs:
+        assert bool(torch.isfinite(loss))
+        np.testing.assert_allclose(float(loss), float(want_loss), rtol=1e-5)
+        assert all(float(b.abs().sum()) > 0.0 for b in want_bands)
+        for g, w in zip(param_leaves(grads) + list(bands),
+                        param_leaves(want_grads) + list(want_bands)):
+            if w.numel():
+                tol = 1e-3 * max(1e-6, float(w.abs().max()))
                 assert float((g - w).abs().max()) <= tol, (g, w)

@@ -116,8 +116,11 @@ def test_banks_dispersion():
 
 
 def test_wavefront_mode_refused():
+    """The wavefront mode records given ray planes, which this entry point
+    does not take: it raises and names the entry point that does
+    (tests/test_torch_record_wavefront.py)."""
     _, ts = scene_pair("csg_demo")
-    with pytest.raises(NotImplementedError, match="wavefront"):
+    with pytest.raises(ValueError, match="trace_record_wavefront"):
         trace_record_fused(ts, ts.init_params("cpu"),
                            TCfg(width=8, height=8, max_bounces=2),
                            corners_to_torch(JCamera().corner_rays_flat()),

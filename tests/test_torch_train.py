@@ -1,7 +1,7 @@
 """Port parity, the train step and the `train` verb: one port
 `train_step_sharded` against the JAX package's on a 1 x 1 CPU mesh, the
 CLI end to end at a tiny size, what the slice refuses, the library's
-device defaults, and the build of two kernels that share a source.
+device defaults, and the build of kernels that share a source.
 
 Bars: the loss to rtol 1e-5 and every updated leaf to atol 1e-6 (lr 1e-2
 times the gradient bars of tests/test_torch_diff.py).
@@ -96,11 +96,16 @@ def test_train_cli_writes_jax_leaf_order(tmp_path, capsys):
 
 
 def test_train_spectral_refused(tmp_path):
+    """`train --spectral` is ported (tests/test_torch_cli_spectral.py);
+    what it still refuses, out loud, is the exact normal (`--normal-taps
+    0`, not ported)."""
     target = tmp_path / "t.npy"
     np.save(target, np.zeros((8, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="spectral"):
+    with pytest.raises(NotImplementedError, match="normal_taps=0"):
         tcli.main(["train", "--spectral", "--device", "cpu", "--width", "8",
-                   "--height", "8", "--target", str(target)])
+                   "--height", "8", "--normal-taps", "0", "--max-steps",
+                   "16", "--max-bounces", "2", "--spp", "1", "--steps", "1",
+                   "--target", str(target)])
 
 
 def test_other_layouts_refused():
@@ -137,6 +142,11 @@ def test_kernels_of_one_source_build_once(tmp_path, monkeypatch):
             == tmarch.RECORD_PATHS.library_path())
     assert (tmarch.MARCH_FUSED.library_path()
             != tmarch.MEGA_PATHS.library_path())
+    # the other recorders: entries of the render sources
+    assert (tmarch.RECORD_WAVEFRONT.library_path()
+            == tmarch.MEGA_PATHS.library_path())
+    assert (tmarch.RECORD_SPECTRAL.library_path()
+            == tmarch.MEGA_SPECTRAL.library_path())
     calls = []
 
     def fake_run(cmd, capture_output, text):
