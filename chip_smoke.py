@@ -5,9 +5,11 @@
 Phases (any failure raises and the script exits non-zero):
 
   1. device — a CUDA card must be present; print its name and power limit;
-  2. build  — compile csrc/mega_paths.cu (the render, the recording and
-     the wavefront recording entries), csrc/mega_spectral.cu (the render
-     and the recording entries) and csrc/march_fused.cu with nvcc
+  2. build  — compile csrc/mega_paths.cu (the render with the constant
+     and the SH sky, the deferred-sky render, the recording and the
+     wavefront recording entries), csrc/wavefront_paths.cu,
+     csrc/mega_spectral.cu (the render and the recording entries),
+     csrc/wavefront_spectral.cu and csrc/march_fused.cu with nvcc
      (sm_90a), one process per source, started together; time each and
      print every kernel's registers and spills (ptxas);
   3. parity — each kernel's wrapper on CUDA tensors against its plain
@@ -45,13 +47,30 @@ Phases (any failure raises and the script exits non-zero):
          more than 1e-5 on fewer than 1e-3 of the both-hit entries);
        * spectral gradients: one spectral train step at 256^2, 2 samples,
          replayed over the spectral recorder's banks and over its plain
-         version's (scene leaves and band rows).
+         version's (scene leaves and band rows);
+       * the deferred sky (`_launch_mega_defer` vs `_mega_defer_plain`):
+         the env main path's own launch (default.scene under bench.py's
+         512 x 1024 gradient sky, 1024^2, 32 paths: raw sum, banks,
+         composite image; the composite timed alone), a two-sphere NEE
+         scene under a random 64 x 128 image on a 256^2 patch with the
+         exact and the "mxu" composite, and dispersion + NEE + roulette
+         on a 128^2 patch, 11 samples (a chunk and a tail launch,
+         against the same chunks on the plain version);
+       * the SH sky in the RGB kernel on a 256^2 patch, 16 samples;
+       * the RGB wavefront entry on 256^2 patches at 4 bounces, 3 samples
+         (timed, with its bound), with NEE, dispersion and roulette, and
+         under the gradient sky at 11 samples (8 slots, then n_valid 3
+         of 8);
+       * the spectral wavefront entry on a 128^2 patch, 3 samples at 4
+         bounces.
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
      planes: fewer than 1e-3 of the entries with another material, hit or
      visibility, and fewer than 1e-3 of those where both hit with t off by
-     more than 1e-5.  Gradients: loss to rtol 1e-5, each leaf to atol
+     more than 1e-5.  Packed (u, v) banks: equal on all but 1e-3 of the
+     live slots, at most one bin apart; env composites: the JAX package's
+     env bar, fewer than 1e-3 of the values off by more than 1e-3.  Gradients: loss to rtol 1e-5, each leaf to atol
      1e-3 * max|g|.  The main launches are timed (CUDA events), and a
      second run of the plain version there counts the map evaluations
      these inputs need, for the kernel's operation bound;
@@ -60,6 +79,8 @@ Phases (any failure raises and the script exits non-zero):
        render --spectral --scene data/scenes/spectral.scene ...
        render --scene sphere_on_floor ...
        render --scene csg --direct-light ...
+       render --scene data/scenes/default.scene --env-map SKY.hdr ...
+       render --scene SH.scene ...    (default.scene with environment.sh)
      all at --width 1024 --height 1024 --spp 128 --chunk 128 --relax 2.0
      --normal-taps 4; the counter must have risen, the image be finite and
      non-zero and the PNG written; then `train` (RGB inverse rendering),
@@ -81,14 +102,26 @@ Phases (any failure raises and the script exits non-zero):
      the spectral recorder must launch once per step (or march_fused) and
      the spectral kernel for the final render, the band rows' gradients be
      non-zero, the rows stay in [380, 830] nm and the npz hold the JAX
-     keys; and the wavefront recorder through its entry point (no CLI
+     keys; the wavefront recorder through its entry point (no CLI
      verb reaches it) on the train launch's primary planes, one launch;
+     `render --env-map` must make 4 launches of the deferred-sky kernel
+     and none of the constant-sky one (kernel and composite times by
+     CUDA events around each call, one `env perf:` JSON line); then
+       train --env-map SKY.hdr --scene data/scenes/default.scene
+             --width 256 --height 256 ...
+     toward the scene with its sphere's albedo x 1.5: 3 recorder
+     launches, the deferred kernel for the final render, the env image's
+     gradient non-zero and the printed loss falling; and the wavefront
+     modes through the library API at 1024^2, 8 samples (RGB constant
+     sky, RGB under the gradient sky, spectral), one launch each;
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
      launch (the CLI's default chunk), and the RGB kernel at 128, one
      `perf:` JSON line; then the train step at the full configuration
      (recorder, replay forward, the whole step, its rate, peak memory with
-     and without remat), one `train perf:` JSON line, and the spectral
-     train step likewise, one `spectral train perf:` JSON line.
+     and without remat), one `train perf:` JSON line, the spectral
+     train step likewise, one `spectral train perf:` JSON line, and the
+     `train --env-map` step at 256^2 and 1024^2 beside the same scene
+     under its constant sky, one `env train perf:` JSON line.
 
 The line before the last is a JSON object with one entry per kernel of the
 paths; the last line is {"ok": true, "device": {...}}.  Imports nothing of
@@ -135,6 +168,11 @@ TRAIN_SPECTRAL_FUSED_ARGV = ["train", "--spectral", "--scene",
                              "sphere_on_floor", "--impl", "fused", "--width",
                              "256", "--height", "256", *_TRAIN]
 TRAIN_SPP = 4
+ENV_ARGV = ["render", "--scene", os.path.join(_ROOT, "data", "scenes",
+                                              "default.scene"), *_SIZE]
+ENV_TRAIN_ARGV = ["train", "--scene", os.path.join(_ROOT, "data", "scenes",
+                                                   "default.scene"),
+                  "--width", "256", "--height", "256", *_TRAIN]
 
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 PEAK_FP32 = 67e12             # FLOP/s outside the tensor cores
@@ -1052,6 +1090,523 @@ def perf(dev, card):
     print("perf: " + json.dumps(res), flush=True)
 
 
+# ---- env-map and SH skies, wavefront modes --------------------------------
+
+ENV_SCENE = os.path.join(_ROOT, "data", "scenes", "default.scene")
+_ENV_PATCH = (320, 384)       # (x, y) of the 256^2 csg NEE env patch
+_WAVE_PATCH = (384, 384)      # (x, y) of the 256^2 wavefront patches
+_WAVE_SPP = 3                 # prime samples of the wavefront patches
+_WAVE_ENV_SPP = 11            # env wavefront: 8 slots, then 3 of 8 valid
+_WAVE_BOUNCES = 4             # the wavefront patches' bounce budget: their
+#                               plain versions march sample by sample
+_PRIME_SPP = 11               # dispersion env patch: 30 + 3 paths
+
+
+def gradient_env():
+    """bench.py:92-96's 512 x 1024 equirect sky: a vertical gradient from
+    (0.3, 0.5, 1.0) at the top to (1.0, 0.6, 0.2) at the bottom."""
+    v = np.linspace(0.0, 1.0, 512)[:, None, None]
+    img = np.array([0.3, 0.5, 1.0]) * (1 - v) + np.array([1.0, 0.6, 0.2]) * v
+    return np.broadcast_to(img, (512, 1024, 3)).astype(np.float32)
+
+
+def _env_scene(env_gather="exact", image=None, name=None):
+    """default.scene (or the builtin `name`, rebuilt as JSON) under an env
+    image (the gradient sky by default)."""
+    from raymarchrenderer_tpu_torch.scene import builtin, load_scene
+    img = gradient_env() if image is None else image
+    if name is None:
+        return load_scene(ENV_SCENE, env_image=img, env_gather=env_gather)
+    b = builtin.SceneBuilder()
+    m = b.diffuse([0.6, 0.5, 0.4])
+    g = b.glossy([0.9, 0.9, 0.9], 0.1)
+    b.sphere(m, [0.0, 1.0, 0.0], 1.0)
+    b.sphere(g, [2.2, 0.7, 0.5], 0.7)
+    b.box(m, [0.0, -0.05, 0.0], [8.0, 0.05, 8.0])
+    b.light([3, 7, -3], 60.0, 0.8)
+    return b.build(env_image=img, env_gather=env_gather)
+
+
+def _uv_compare(label, got, want):
+    """The packed (u, v) banks of the kernel against the plain version's
+    on the live slots (thr > 0 in the plain banks): equal on all but 1e-3
+    and never more than one bin apart."""
+    live = (want[0] + want[1] + want[2]) > 0
+    du = ((want[3] >> 16) - (got[3] >> 16)).abs()
+    dv = ((want[3] & 0xFFFF) - (got[3] & 0xFFFF)).abs()
+    off = float((((du > 0) | (dv > 0)) & live).sum()) / max(
+        int(live.sum()), 1)
+    bins = int(torch.where(live, torch.maximum(du, dv), 0).max())
+    print(f"parity, {label}: {int(live.sum())} live slots, (u, v) off "
+          f"{off:.3e} (bar {MAX_FRAC_OFF:g}), largest {bins} bin(s) (bar 1)",
+          flush=True)
+    if not (int(live.sum()) > 0 and off < MAX_FRAC_OFF and bins <= 1):
+        raise AssertionError(f"the (u, v) banks disagree ({label})")
+
+
+def _env_compare(label, got, want):
+    """An env image's composite, kernel against plain: fewer than 1e-3 of
+    the values off by more than 1e-3 (the JAX package's env bar,
+    tests/test_kernels.py:109-123); returns the max abs error."""
+    torch.cuda.synchronize()
+    diff = (got - want).abs()
+    frac3 = float((diff > 1e-3).float().mean())
+    max_err = float(diff.max())
+    print(f"parity, {label}: fraction off by > 1e-3 {frac3:.3e} (env bar "
+          f"{MAX_FRAC_OFF:g}), max abs err {max_err:.3e}, kernel mean "
+          f"{float(got.mean()):.6f}, plain mean {float(want.mean()):.6f}",
+          flush=True)
+    if not (bool(torch.isfinite(got).all()) and frac3 < MAX_FRAC_OFF
+            and tuple(got.shape) == tuple(want.shape)):
+        raise AssertionError(f"kernel disagrees with its plain version "
+                             f"({label})")
+    return max_err
+
+
+def _with_plain_launches(fn):
+    """fn() with the deferred and wavefront entries' launches replaced by
+    their plain versions (the chunking and the composite unchanged)."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    saved = march._launch_mega_defer, march._launch_wavefront_paths
+    march._launch_mega_defer = march._mega_defer_plain
+    march._launch_wavefront_paths = march.wavefront_paths_plain
+    try:
+        return fn()
+    finally:
+        march._launch_mega_defer, march._launch_wavefront_paths = saved
+
+
+def parity_defer(dev, card):
+    """The deferred-sky megakernel: the env main path's own launch
+    (default.scene under the gradient sky, 1024^2, 32 paths): the raw sum,
+    the banks and the composite image; then csg with NEE under a random
+    env image on a 256^2 patch at a non-zero origin, with the exact and
+    the "mxu" composite; then dispersion, NEE and roulette on a 128^2
+    patch, 11 samples (a chunk of 30 paths and a tail launch of 3).
+    Returns (max err, ms, plain ms, bound)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        paths_buffers)
+    from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
+    from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
+
+    scene = _env_scene()
+    params = scene.init_params(dev)
+    cfg = _main_cfg()
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    args = (scene, params, cfg, corners, (0, 0), 1024, 1024, 0, 32, False)
+
+    def kernel():
+        return march._launch_mega_defer(*args, **_knobs())
+
+    def plain(work=None):
+        if work is None:
+            return march._mega_defer_plain(*args, **_knobs())
+        px, py = pixel_grid(1024, 1024, dev, (0, 0))
+        return trace_mega_paths(scene, params, cfg, corners, px, py, 0,
+                                n_samples=32, defer_sky=True, work=work,
+                                **_knobs())
+
+    def compare(label, got, want):
+        err = _compare(label + ", raw sum", got[0], want[0])
+        for j, c in enumerate("rgb"):
+            err = max(err, _compare(f"{label}, thr_{c} bank", got[1][j],
+                                    want[1][j]))
+        _uv_compare(label, got[1], want[1])
+        return max(err, _env_compare(
+            label + ", composite image",
+            march.composite_uv(scene, params, *got),
+            march.composite_uv(scene, params, *want)))
+
+    max_err, ms, plain_ms, work = _main_launch(
+        "RGB deferred sky, default.scene + gradient env 1024x1024, 32 "
+        "paths (the env main path's launch)", kernel, plain, card, compare)
+    out = kernel()
+    comp_ms = _cuda_ms(lambda: march.composite_uv(scene, params, *out),
+                       reps=3)
+    del out
+    print(f"composite (exact, 32 x 1024^2 lookups): {comp_ms:.3f} ms "
+          f"[{card}]", flush=True)
+    prog, data = paths_buffers(scene, params, dev)
+    bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
+                   1024 * 1024 * (12 + 16 * 32))
+
+    img = np.random.RandomState(5).uniform(0.0, 2.0, (64, 128, 3)).astype(
+        np.float32)
+    for gather in ("exact", "mxu"):
+        nscene = _env_scene(gather, img, name="csg")
+        nparams = nscene.init_params(dev)
+        ncfg = _main_cfg()
+        nargs = (nscene, nparams, ncfg, corners, _ENV_PATCH, 256, 256, 0, 8,
+                 True)
+        got = march._launch_mega_defer(*nargs, **_knobs())
+        want = march._mega_defer_plain(*nargs, **_knobs())
+        label = (f"RGB deferred sky + NEE, two-sphere scene 256x256 patch at "
+                 f"{_ENV_PATCH}, 8 spp, {gather} composite")
+        max_err = max(max_err, _compare(label + ", raw sum", got[0], want[0],
+                                        nee=True))
+        _uv_compare(label, got[1], want[1])
+        max_err = max(max_err, _env_compare(
+            label, march.composite_uv(nscene, nparams, *got),
+            march.composite_uv(nscene, nparams, *want)))
+    dscene = _env_scene("exact", img, name="csg")
+    dparams = dscene.init_params(dev)
+    dcfg = _main_cfg(separate_channels=True, rr_start_bounce=1)
+
+    def render():
+        return march.render_fused_patch(
+            dscene, dparams, dcfg, corners, _DISP_PATCH, (128, 128), 0,
+            n_samples=_PRIME_SPP, direct_light=True, **_knobs())
+
+    launches = march.MEGA_PATHS_DEFER.launches
+    got = render()
+    torch.cuda.synchronize()
+    n_launch = march.MEGA_PATHS_DEFER.launches - launches
+    if n_launch != 2:
+        raise AssertionError(f"{_PRIME_SPP} samples with dispersion: "
+                             f"{n_launch} launches, expected 2")
+    max_err = max(max_err, _env_compare(
+        f"RGB deferred sky + dispersion + NEE + RR, 128x128 patch at "
+        f"{_DISP_PATCH}, {_PRIME_SPP} spp (a chunk of 30 paths and a tail "
+        f"of 3)", got, _with_plain_launches(render)))
+    return max_err, ms, plain_ms, bound
+
+
+def parity_sh(dev, card, sh_scene_path):
+    """The SH sky in the RGB megakernel: a 256^2 patch of the SH scene,
+    16 samples, against trace_mega_paths."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
+    from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
+    from raymarchrenderer_tpu_torch.scene import load_scene
+
+    scene = load_scene(sh_scene_path)
+    params = scene.init_params(dev)
+    cfg = _main_cfg()
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    got = march.render_fused_patch(scene, params, cfg, corners, _WAVE_PATCH,
+                                   (256, 256), 0, n_samples=16, **_knobs())
+    px, py = pixel_grid(256, 256, dev, _WAVE_PATCH)
+    want = _mean(trace_mega_paths(scene, params, cfg, corners, px, py, 0,
+                                  n_samples=16, **_knobs()), 16)
+    return _compare(f"RGB SH sky, 256x256 patch at {_WAVE_PATCH}, 16 spp",
+                    got, want)
+
+
+def parity_wavefront_paths(dev, card):
+    """The RGB wavefront entry on 256^2 patches at 4 bounces, 3 samples
+    (prime): the sphere_on_floor without an env image (timed, with its
+    bound), csg with NEE, dispersion and roulette; then default.scene
+    under the gradient sky, 11 samples (a chunk of 8 path slots and one
+    with n_valid 3 of 8), through render_fused_patch against the same
+    chunks on the plain version.  Returns (max err, ms, plain ms,
+    bound)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        paths_buffers)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    cfg = _main_cfg(max_bounces=_WAVE_BOUNCES)
+    args = (scene, params, cfg, corners, _WAVE_PATCH, 256, 256, 0,
+            _WAVE_SPP, False)
+    max_err, ms, plain_ms, work = _main_launch(
+        f"RGB wavefront, sphere_on_floor 256x256 patch at {_WAVE_PATCH}, "
+        f"{_WAVE_SPP} spp", lambda: march._launch_wavefront_paths(*args),
+        lambda work=None: march.wavefront_paths_plain(*args, work=work),
+        card)
+    prog, data = paths_buffers(scene, params, dev)
+    bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
+                   256 * 256 * 12, lookups=0)
+    nscene = builtin.csg_demo()
+    nparams = nscene.init_params(dev)
+    ncfg = _main_cfg(max_bounces=_WAVE_BOUNCES, separate_channels=True,
+                     rr_start_bounce=1)
+    nargs = (nscene, nparams, ncfg, corners, _WAVE_PATCH, 256, 256, 0,
+             _WAVE_SPP, True)
+    max_err = max(max_err, _compare(
+        f"RGB wavefront + NEE + dispersion + RR, csg_demo 256x256 patch, "
+        f"{_WAVE_SPP} spp", march._launch_wavefront_paths(*nargs),
+        march.wavefront_paths_plain(*nargs), nee=True))
+    escene = _env_scene()
+    eparams = escene.init_params(dev)
+
+    def render():
+        return march.render_fused_patch(escene, eparams, cfg, corners,
+                                        _WAVE_PATCH, (256, 256), 0,
+                                        n_samples=_WAVE_ENV_SPP,
+                                        mode="wavefront")
+
+    launches = march.WAVEFRONT_PATHS.launches
+    got = render()
+    torch.cuda.synchronize()
+    if march.WAVEFRONT_PATHS.launches != launches + 2:
+        raise AssertionError("the env wavefront render is not two launches")
+    max_err = max(max_err, _env_compare(
+        f"RGB wavefront, deferred sky, default.scene 256x256 patch, "
+        f"{_WAVE_ENV_SPP} spp (8 slots, then n_valid 3 of 8)", got,
+        _with_plain_launches(render)))
+    return max_err, ms, plain_ms, bound
+
+
+def parity_wavefront_spectral(dev, card):
+    """The spectral wavefront entry on a 128^2 patch at a non-zero origin,
+    3 samples at 4 bounces, against wavefront_spectral_plain.  Returns
+    (max err, ms, plain ms, bound)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        spectral_buffers)
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+
+    scene, params, mats = spectral_demo(dev)
+    cfg = _main_cfg(max_bounces=_WAVE_BOUNCES)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    max_err, ms, plain_ms, work = _main_launch(
+        f"spectral wavefront, 128x128 patch at {_SPEC_PATCH}, {_WAVE_SPP} "
+        f"spp, {_WAVE_BOUNCES} bounces",
+        lambda: march.render_fused_spectral(
+            scene, params, mats, cfg, corners, 0, n_samples=_WAVE_SPP,
+            origin_xy=_SPEC_PATCH, patch_shape=(128, 128), mode="wavefront"),
+        lambda work=None: march.wavefront_spectral_plain(
+            scene, params, mats, cfg, corners, 0, _WAVE_SPP, _SPEC_PATCH, 128,
+            128, work=work), card)
+    prog, data = spectral_buffers(scene, params, mats, dev)
+    bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
+                   128 * 128 * 12, lookups=0)
+    return max_err, ms, plain_ms, bound
+
+
+def env_main_path(dev, card, sky_path):
+    """render --env-map at the full configuration through the CLI: 4
+    launches of the deferred-sky kernel and none of the constant-sky one;
+    the kernel's and the composite's time by CUDA events around each
+    call, and the rate.  Returns the deferred kernel's launches."""
+    from raymarchrenderer_tpu_torch.app import cli
+    from raymarchrenderer_tpu_torch.kernels import march
+
+    timed = {"kernel": [], "composite": []}
+
+    def timer(name, fn):
+        def wrapped(*a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a, **kw)
+            end.record()
+            timed[name].append((start, end))
+            return out
+        return wrapped
+
+    saved = march._launch_mega_defer, march.composite_uv
+    march._launch_mega_defer = timer("kernel", saved[0])
+    march.composite_uv = timer("composite", saved[1])
+    march.MEGA_PATHS.launches = 0
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            out = os.path.join(tmp, "env.png")
+            args = cli.build_parser().parse_args(ENV_ARGV + [
+                "--env-map", sky_path, "--out", out])
+            march.MEGA_PATHS_DEFER.launches = 0
+            img, n, render_s = cli.cmd_render(args)
+            launches = march.MEGA_PATHS_DEFER.launches
+            const = march.MEGA_PATHS.launches
+            if not os.path.getsize(out):
+                raise AssertionError("env main path: no PNG written")
+    finally:
+        march._launch_mega_defer, march.composite_uv = saved
+    torch.cuda.synchronize()
+    if launches != 4 or const != 0:
+        raise AssertionError(f"env main path: {launches} deferred and "
+                             f"{const} constant-sky launches, expected 4, 0")
+    if tuple(img.shape) != (1024, 1024, 3) or not bool(
+            torch.isfinite(img).all()) or not float(img.mean()) > 0.0:
+        raise AssertionError("env main path: the image is wrong")
+    k_ms = sum(s.elapsed_time(e) for s, e in timed["kernel"])
+    c_ms = sum(s.elapsed_time(e) for s, e in timed["composite"])
+    rate = 1024 * 1024 * n / 1e6 / render_s
+    print(f"main path, rgb --env-map default.scene: 1024x1024 @ {n:.0f} spp, "
+          f"render {render_s:.3f} s ({rate:.2f} Mpix*spp/s), {launches} "
+          f"deferred launches ({k_ms:.3f} ms of kernel), {len(timed['composite'])} "
+          f"composites ({c_ms:.3f} ms), {const} constant-sky launches, "
+          f"image mean {float(img.mean()):.6f} [{card}]", flush=True)
+    print("env perf: " + json.dumps({
+        "card": card, "render_s": render_s, "mpix_spp_per_s": rate,
+        "kernel_ms": k_ms, "composite_ms": c_ms,
+        "kernel_ms_each": [s.elapsed_time(e) for s, e in timed["kernel"]],
+        "composite_ms_each": [s.elapsed_time(e)
+                              for s, e in timed["composite"]]}), flush=True)
+    return launches
+
+
+def write_sh_scene(path):
+    """default.scene with an `environment.sh` sky: a DC term of 0.3 and
+    seeded band-1..3 coefficients."""
+    from raymarchrenderer_tpu_torch.core.sh import constant_coeffs
+    sh = constant_coeffs(0.3)
+    sh[1:] = np.random.RandomState(2).uniform(-0.1, 0.1, (15, 3))
+    with open(ENV_SCENE) as f:
+        doc = json.load(f)
+    doc.setdefault("environment", {})["sh"] = sh.tolist()
+    with open(path, "w") as f:
+        json.dump(doc, f)
+
+
+def _write_env_target(path, dev, size):
+    """The port's render of default.scene under the gradient sky with the
+    sphere's albedo scaled by 1.5, 64 samples, saved as .npy."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.march import render_fused
+
+    scene = _env_scene()
+    params = scene.init_params(dev)
+    params["materials"][2][0].mul_(1.5)
+    img = render_fused(scene, params, _train_cfg(size),
+                       Camera(aspect=1.0).corner_rays_flat(dev), 0,
+                       n_samples=64)
+    np.save(path, img.cpu().numpy())
+
+
+def env_train_path(dev, card, sky_path):
+    """train --env-map at 256^2 through the CLI: 3 recorder launches, the
+    deferred kernel for the final render, the env image's gradient
+    non-zero, and the printed loss falling from step 0 to step 2."""
+    import contextlib
+    import io
+    import re
+    from raymarchrenderer_tpu_torch.kernels import march
+    buf = io.StringIO()
+
+    class Tee(io.TextIOBase):
+        def write(self, text):
+            sys.__stdout__.write(text)
+            return buf.write(text)
+
+    with contextlib.redirect_stdout(Tee()):
+        launches = train_path(
+            "train --env-map default.scene 256x256 (recorded)",
+            ENV_TRAIN_ARGV + ["--env-map", sky_path], dev, card,
+            lambda p: _write_env_target(p, dev, 256),
+            lambda tree: tree["env"]["image"],
+            {march.RECORD_PATHS: 3, march.MEGA_PATHS_DEFER: None,
+             march.MEGA_PATHS: 0})
+    losses = [float(x) for x in re.findall(r"step +\d+ loss ([0-9.e+-]+)",
+                                           buf.getvalue())]
+    if len(losses) != 3 or not losses[-1] < losses[0]:
+        raise AssertionError(f"train --env-map: losses {losses} do not fall")
+    print(f"main path, train --env-map: losses {losses} [{card}]", flush=True)
+    return launches[march.RECORD_PATHS]
+
+
+def env_train_perf(dev, card):
+    """The train --env-map step at its main path's size (256^2, 3
+    repetitions) and at the RGB train path's (1024^2, 1), beside the same
+    step on default.scene under its constant sky: the recorder, the
+    replay's forward, the whole step (record, replay, backward, SGD), host
+    clock around synchronised work.  The backward of the env scene less
+    the constant sky's is what the env image's gradient costs (its
+    gather's backward is a scatter-add into the texels)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.record import trace_record_fused
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        sgd, train_grads_sharded, train_loss_sharded)
+    from raymarchrenderer_tpu_torch.scene import load_scene
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t0) * 1e3
+
+    res = {"card": card, "config": "default.scene, 4 spp, 4 bounces, relax "
+           "1.9, 4 taps, recorded, remat"}
+    for size, reps in ((256, 3), (1024, 1)):
+        for sky, scene in (("env", _env_scene()),
+                           ("constant", load_scene(ENV_SCENE))):
+            params = scene.init_params(dev)
+            cfg = _train_cfg(size)
+            corners = Camera(aspect=1.0).corner_rays_flat(dev)
+            target = torch.full((size, size, 3), 0.3, device=dev)
+            args = (scene, params, cfg, corners, target, TRAIN_SPP)
+            record, forward, step = [], [], []
+            for _ in range(reps):
+                banks, ms = timed(lambda: trace_record_fused(
+                    scene, params, cfg, corners, (0, 0), (size, size), 0,
+                    n_samples=TRAIN_SPP))
+                record.append(ms)
+                forward.append(timed(lambda: train_loss_sharded(
+                    *args, march_impl="recorded", recorded=banks))[1])
+                del banks
+                step.append(timed(lambda: sgd(params, train_grads_sharded(
+                    *args, march_impl="recorded")[1], 1e-2))[1])
+            res[f"{sky}_{size}"] = {
+                "record_ms": _mean_spread(record),
+                "replay_forward_ms": _mean_spread(forward),
+                "step_ms": _mean_spread(step),
+                "backward_update_ms_derived": (sum(step) - sum(record)
+                                               - sum(forward)) / len(step)}
+    print("env train perf: " + json.dumps(res), flush=True)
+
+
+def wavefront_paths_path(dev, card):
+    """The wavefront modes through the library API (no CLI verb picks
+    them; "auto" is always mega, as in the JAX package): the RGB entry at
+    1024^2, 8 samples, constant sky and then the gradient env (one launch,
+    8 slots, and its composite), and the spectral entry at 1024^2, 8
+    samples, each counter zeroed just before and read just after.
+    Returns (RGB launches, spectral launches)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    cfg = _main_cfg()
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    rgb = 0
+    for label, scene in (("sphere_on_floor", builtin.sphere_on_floor()),
+                         ("default.scene + gradient env", _env_scene())):
+        params = scene.init_params(dev)
+        march.WAVEFRONT_PATHS.launches = 0
+        t0 = time.perf_counter()
+        img = march.render_fused(scene, params, cfg, corners, 0,
+                                 n_samples=8, mode="wavefront")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = march.WAVEFRONT_PATHS.launches
+        if launches != 1 or not bool(torch.isfinite(img).all()) or not \
+                float(img.mean()) > 0.0:
+            raise AssertionError(f"wavefront path ({label}): {launches} "
+                                 "launches or a bad image")
+        rgb += launches
+        print(f"main path, RGB wavefront (render_fused mode=\"wavefront\", "
+              f"{label}, 1024x1024, 8 spp): {launches} launch, {wall:.3f} s "
+              f"with the composite, image mean {float(img.mean()):.6f} "
+              f"[{card}]", flush=True)
+    scene, params, mats = spectral_demo(dev)
+    march.WAVEFRONT_SPECTRAL.launches = 0
+    t0 = time.perf_counter()
+    img = march.render_fused_spectral(scene, params, mats, cfg, corners, 0,
+                                      n_samples=8, mode="wavefront")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    spec = march.WAVEFRONT_SPECTRAL.launches
+    if spec != 1 or not float(img.mean()) > 0.0:
+        raise AssertionError(f"spectral wavefront path: {spec} launches")
+    print(f"main path, spectral wavefront (render_fused_spectral mode="
+          f"\"wavefront\", 1024x1024, 8 spp): {spec} launch, {wall:.3f} s, "
+          f"image mean {float(img.mean()):.6f} [{card}]", flush=True)
+    return rgb, spec
+
+
+
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound):
     return {"name": name, "route": "cuda",
             "source": f"raymarchrenderer_tpu_torch/csrc/{source}",
@@ -1071,16 +1626,18 @@ def main() -> int:
     print(card, flush=True)     # nvidia-smi's name, power.limit
     print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
 
-    # 2. build, one nvcc per source, all started together (the render and
-    # the recording entries share mega_paths.cu: one builds, one waits)
+    # 2. build, one nvcc per source, all started together (the entries of
+    # one source share its library: one builds, the others wait)
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     t0 = time.perf_counter()
-    kernels = (march.MEGA_PATHS, march.RECORD_PATHS, march.RECORD_WAVEFRONT,
-               march.MEGA_SPECTRAL, march.RECORD_SPECTRAL, march.MARCH_FUSED)
+    kernels = (march.MEGA_PATHS, march.MEGA_PATHS_DEFER, march.RECORD_PATHS,
+               march.RECORD_WAVEFRONT, march.WAVEFRONT_PATHS,
+               march.MEGA_SPECTRAL, march.RECORD_SPECTRAL,
+               march.WAVEFRONT_SPECTRAL, march.MARCH_FUSED)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels))
-    print(f"build: {len(kernels)} kernels of 3 sources in "
+    print(f"build: {len(kernels)} kernels of 5 sources in "
           f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
               f"{k.source.name} {k.build_seconds:.2f} s" for k in kernels
               if k.build_log) + f") [{card}]", flush=True)
@@ -1100,6 +1657,16 @@ def main() -> int:
     rs_err, rs_ms, rs_plain, rs_bound = parity_record_spectral(dev, card)
     w_err, w_ms, w_plain, w_bound = parity_wavefront(dev, card)
     parity_spectral_grads(dev, card)
+    d_err, d_ms, d_plain, d_bound = parity_defer(dev, card)
+    tmp_dir = tempfile.TemporaryDirectory()
+    sh_scene = os.path.join(tmp_dir.name, "sh.scene")
+    write_sh_scene(sh_scene)
+    sky_path = os.path.join(tmp_dir.name, "sky.hdr")
+    from raymarchrenderer_tpu_torch.io import save_hdr
+    save_hdr(sky_path, gradient_env())
+    p_err = max(p_err, parity_sh(dev, card, sh_scene))
+    wp_err, wp_ms, wp_plain, wp_bound = parity_wavefront_paths(dev, card)
+    ws_err, ws_ms, ws_plain, ws_bound = parity_wavefront_spectral(dev, card)
 
     # 4. main paths
     s_launches = main_path("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL,
@@ -1107,6 +1674,10 @@ def main() -> int:
     p_launches = main_path("rgb sphere_on_floor", RGB_ARGV, march.MEGA_PATHS,
                            card)
     main_path("rgb csg --direct-light", NEE_ARGV, march.MEGA_PATHS, card)
+    d_launches = env_main_path(dev, card, sky_path)
+    main_path("rgb SH sky (default.scene with environment.sh)",
+              ["render", "--scene", sh_scene, *_SIZE], march.MEGA_PATHS,
+              card)
     steps = int(TRAIN_ARGV[TRAIN_ARGV.index("--steps") + 1])
 
     def radius(tree):            # sphere_on_floor's ball radius
@@ -1154,11 +1725,15 @@ def main() -> int:
                {march.MARCH_FUSED: None, march.MEGA_SPECTRAL: None,
                 march.RECORD_SPECTRAL: 0})
     w_launches = wavefront_path(dev, card)
+    env_train_path(dev, card, sky_path)
+    wp_launches, ws_launches = wavefront_paths_path(dev, card)
+    tmp_dir.cleanup()
 
     # 5. perf
     perf(dev, card)
     train_perf(dev, card)
     spectral_train_perf(dev, card)
+    env_train_perf(dev, card)
 
     print(json.dumps({"kernels": [
         _entry("mega_paths", "mega_paths.cu",
@@ -1178,7 +1753,16 @@ def main() -> int:
                rs_err, rs_ms, rs_plain, rs_bound),
         _entry("record_wavefront", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/record.py:274", w_launches,
-               w_err, w_ms, w_plain, w_bound)]}))
+               w_err, w_ms, w_plain, w_bound),
+        _entry("mega_paths_defer", "mega_paths.cu",
+               "raymarchrenderer_tpu/kernels/march.py:395 mega+defer_sky",
+               d_launches, d_err, d_ms, d_plain, d_bound),
+        _entry("wavefront_paths", "wavefront_paths.cu",
+               "raymarchrenderer_tpu/kernels/march.py:395 wavefront",
+               wp_launches, wp_err, wp_ms, wp_plain, wp_bound),
+        _entry("wavefront_spectral", "wavefront_spectral.cu",
+               "raymarchrenderer_tpu/kernels/march.py:782 wavefront",
+               ws_launches, ws_err, ws_ms, ws_plain, ws_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -4,6 +4,10 @@
     python -m raymarchrenderer_tpu_torch render --scene csg --direct-light \\
         --width 1024 --height 1024 --spp 128 --chunk 128 --relax 2.0 \\
         --normal-taps 4 --out out.png
+    python -m raymarchrenderer_tpu_torch render \\
+        --scene data/scenes/default.scene --env-map sky.hdr --width 1024 \\
+        --height 1024 --spp 128 --chunk 128 --relax 2.0 --normal-taps 4 \\
+        --out env.png
     python -m raymarchrenderer_tpu_torch render --spectral \\
         --scene data/scenes/spectral.scene --width 1024 --height 1024 \\
         --spp 128 --chunk 8 --relax 2.0 --normal-taps 4 --out out.png
@@ -18,8 +22,12 @@
 The same flags as the JAX package's `render` and `train` subcommands that
 these paths read, plus `--device` (default `cuda`; `--device cpu` runs the
 plain PyTorch versions of the kernels).  On `cuda` with no card it fails.
-Env maps (`--env-map`), checkpoints and the other subcommands are not
-ported yet.
+`--env-map` (.hdr, .npy or .png) is the sky of a scene *file*, as in the
+JAX package (a builtin scene name keeps its constant sky), for `render`
+and `train`; under `--spectral` it is accepted and unused (the spectral
+sky is a constant band in both packages).  A scene whose `environment`
+holds an `sh` array renders with that SH sky.  Checkpoints (`--checkpoint`
+/ `--resume`) and the other subcommands are not ported yet.
 """
 from __future__ import annotations
 
@@ -31,8 +39,12 @@ import time
 
 def _build_scene(args):
     from raymarchrenderer_tpu_torch.scene import builtin, load_scene
+    env = None
+    if getattr(args, "env_map", None):
+        from raymarchrenderer_tpu_torch.io import load_env_map
+        env = load_env_map(args.env_map)
     if args.scene and os.path.exists(args.scene):
-        return load_scene(args.scene)
+        return load_scene(args.scene, env_image=env)
     builtins_ = {
         "sphere_on_floor": builtin.sphere_on_floor,
         "single_sphere": builtin.single_sphere,
@@ -90,6 +102,10 @@ def _add_render_flags(p):
     p.add_argument("--eye", type=float, nargs=3, default=None)
     p.add_argument("--look-at", type=float, nargs=3, default=None)
     p.add_argument("--fov", type=float, default=None)
+    p.add_argument("--env-map", default=None,
+                   help="equirect environment map (.hdr/.npy/.png) of a "
+                        "scene file: the reference's veranda_1k.hdr slot "
+                        "(Graphics.cpp:287)")
     p.add_argument("--direct-light", action="store_true",
                    help="next-event estimation / soft shadows")
     p.add_argument("--spectral", action="store_true",
@@ -118,8 +134,8 @@ def cmd_render(args):
 
     from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
     from raymarchrenderer_tpu_torch.kernels.march import (
-        MEGA_PATHS, MEGA_SPECTRAL, prepare, render_progressive_fused,
-        render_progressive_fused_spectral)
+        MEGA_PATHS, MEGA_PATHS_DEFER, MEGA_SPECTRAL, prepare,
+        render_progressive_fused, render_progressive_fused_spectral)
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         band_table)
 
@@ -129,11 +145,12 @@ def cmd_render(args):
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
     # nvcc stays out of the render time
-    build_s = prepare(device,
-                      MEGA_SPECTRAL if args.spectral else MEGA_PATHS)
+    build_s = prepare(device, MEGA_SPECTRAL if args.spectral else (
+        MEGA_PATHS_DEFER if scene.has_env_map else MEGA_PATHS))
     if build_s is not None:
         print(f"kernel built and loaded in {build_s:.3f}s")
-    kind = "spectral" if args.spectral else "rgb"
+    kind = "spectral" if args.spectral else (
+        "rgb, env map" if scene.has_env_map else "rgb")
     print(f"rendering {cfg.width}x{cfg.height} @ {cfg.spp} spp "
           f"({kind}, {device})")
 
@@ -199,7 +216,7 @@ def cmd_train(args):
 
     from raymarchrenderer_tpu_torch.io.image import save_image
     from raymarchrenderer_tpu_torch.kernels.march import (
-        MARCH_FUSED, MEGA_PATHS, RECORD_PATHS, prepare)
+        MARCH_FUSED, MEGA_PATHS, MEGA_PATHS_DEFER, RECORD_PATHS, prepare)
     from raymarchrenderer_tpu_torch.parallel.sharding import (
         render_sharded, sgd, train_grads_sharded)
     from raymarchrenderer_tpu_torch.scene.graph import params_to_numpy
@@ -223,8 +240,9 @@ def cmd_train(args):
         return _train_spectral(args, device, scene, params, cfg, corners,
                                target, march_impl)
     impl = "oracle" if args.impl == "oracle" else "fused"
+    render_kernel = MEGA_PATHS_DEFER if scene.has_env_map else MEGA_PATHS
     kernels = {"recorded": (RECORD_PATHS,), "fused": (MARCH_FUSED,),
-               "oracle": ()}[march_impl] + ((MEGA_PATHS,)
+               "oracle": ()}[march_impl] + ((render_kernel,)
                                             if impl == "fused" else ())
     build_s = prepare(device, *kernels)
     if build_s is not None:

@@ -130,3 +130,24 @@ def make_onb(n: Vec3) -> tuple[Vec3, Vec3, Vec3]:
     x = vselect(degenerate, c2, c1).normalized()
     y = n.cross(x).normalized()
     return x, y, n
+
+
+def atan2_poly(y, x):
+    """Polynomial atan2 (max error ~1e-6 rad) of float32 tensors, op for op
+    the JAX package's `vecmath.atan2_poly` (an odd minimax polynomial of
+    atan on [0, 1] and quadrant folding), which the deferred-sky
+    megakernel uses to pack a miss direction's equirect (u, v); the CUDA
+    kernel repeats it op for op (`csrc/mega_paths.cu` `atan2_poly`)."""
+    pi = 3.14159265358979
+    half_pi = 1.5707963267949
+    ax = torch.abs(x)
+    ay = torch.abs(y)
+    hi = torch.maximum(ax, ay)
+    lo = torch.minimum(ax, ay)
+    r = lo / torch.clamp(hi, min=1e-30)
+    s = r * r
+    a = (((((-0.0117212 * s + 0.05265332) * s - 0.11643287) * s
+           + 0.19354346) * s - 0.33262347) * s + 0.99997726) * r
+    a = torch.where(ay > ax, half_pi - a, a)
+    a = torch.where(x < 0, pi - a, a)
+    return torch.where(y < 0, -a, a)

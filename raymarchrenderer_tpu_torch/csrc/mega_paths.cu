@@ -33,6 +33,22 @@
 //    shared memory, kMaxLights entries.
 //  * Russian roulette (`rr_start_bounce >= 0`) and dispersion (the path
 //    counter over (sample, channel) pairs) as in the plain version.
+//  * The sky is a policy of the lane machine (a template argument, like
+//    the recorder's banks below, so each instantiation keeps only its own
+//    code): `NoBanks` multiplies a miss by the constant sky, `ShSky` by
+//    the SH sky evaluated in-kernel (`sh_eval`, the 48 coefficients in
+//    shared memory), and `DeferSky` (entry `rmr_mega_paths_defer`, the
+//    TPU kernel's mega + defer_sky branch, raymarchrenderer_tpu/kernels/
+//    march.py:130-165) parks a miss as kWaitMiss; the next regeneration
+//    banks the path's throughput and its packed equirect (u, v) (the JAX
+//    package's 16-bit quantisation through `atan2_poly`, op for op) into
+//    slot s_idx of four global-memory planes, which the wrapper zero-fills
+//    and composites after the launch (`composite_uv`).  A lane's slots
+//    have one writer each, so no atomics.  On the TPU the banks were
+//    K-deep register carries, a Mosaic constraint this kernel does not
+//    have.  Bound: at the env main path's launch (1024^2, 32 paths) the
+//    banks are 16 bytes per path and pixel, 512 MiB = 0.16 ms at
+//    3.35 TB/s, against the operations' bound (PERF.md).
 //
 // Bound on the H100: FP32 issue and warp divergence, not bytes: a launch
 // reads a few hundred bytes of scene and writes 12 bytes per pixel, and
@@ -86,7 +102,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "march_ray.cuh"
+#include "paths_shade.cuh"
 
 using namespace rmr;
 
@@ -100,26 +116,45 @@ constexpr int kShadow = 4;
 constexpr int kShLit = 5;
 constexpr int kShOcc = 6;
 constexpr int kExh = 7;
+constexpr int kWaitMiss = -1;  // a parked miss of the deferred sky
 
-// material program layout (kernels/scene_program.py must agree)
-constexpr int kMaxMatRegs = 32;
-constexpr int kMaxLights = 8;
-constexpr int kMatWords = 7;    // first word, n_instr, rng_base, color, dir, inside, hit
-constexpr int kInstrWords = 12;  // opcode, 4 outputs, 7 inputs
+// The lane machine's policies: what a lane banks and which sky a missed
+// bounce ray meets.  `kOn` turns on the recording (banks of march
+// residuals, no sky, no image); `kSky` is the sky of a render.  Each is a
+// template argument, so every instantiation compiles only its own code.
 
-enum MatOp {
-  M_DIFFUSE = 0, M_GLOSSY, M_REFRACTION, M_VOLUME, M_EMISSION, M_MIX, M_FACING, M_INSIDE,
-  M_FRESNEL, M_ADD, M_SUB, M_MUL, M_DIV, M_SIN, M_COS, M_DIFFUSE2, M_GLOSSY2, M_MIX2
-};
-
-// The render: no banks.
+// The render with the constant sky: no banks.
 struct NoBanks {
   static constexpr bool kOn = false;
+  static constexpr int kSky = kSkyConst;
+};
+
+// The render with the SH sky, its coefficients in shared memory
+// (`s_sky_sh`).
+struct ShSky {
+  static constexpr bool kOn = false;
+  static constexpr int kSky = kSkySh;
+};
+
+// The render with an env image (the deferred sky): a missed bounce ray
+// parks as kWaitMiss, and the next regeneration banks the path's
+// throughput and packed (u, v) at slot s_idx of four global-memory
+// planes, at this lane's pixel.
+struct DeferSky {
+  static constexpr bool kOn = false;
+  static constexpr int kSky = kSkyDefer;
+  float* thr_r;
+  float* thr_g;
+  float* thr_b;
+  int* uv;
+  size_t plane;  // ph * pw
+  size_t pix;    // the lane's pixel in the patch
 };
 
 // The record banks of one recording launch, at this lane's pixel.
 struct Banks {
   static constexpr bool kOn = true;
+  static constexpr int kSky = kSkyConst;  // unread: a recording meets no sky
   float* t;
   int* mid;
   int* hit;
@@ -129,239 +164,10 @@ struct Banks {
   int paths;     // P: samples, or (sample, channel) pairs with dispersion
 };
 
+// the SH sky's coefficients, loaded once per block by the ShSky kernel
+__shared__ float s_sky_sh[kShFloats];
+
 }  // namespace
-
-// Scalars of one launch; the ctypes structure in kernels/march.py mirrors
-// this field for field.
-struct PathArgs {
-  int width, height;            // full frame (the raygen divisor)
-  int ox, oy, pw, ph;           // patch origin and shape
-  uint32_t sample0, seed;
-  int n_samples, max_steps, max_bounces;
-  int march_unroll, regen_cadence, lazy_miss, relax, normal_taps;
-  int dispersion, nee, n_lights, rr_start_bounce;
-  float max_dist, hit_eps, step_multiply, relax_omega, one_minus_omega;
-  float omega0, normal_eps, surface_offset, exit_offset, inside_offset;
-  float rr_min_prob, inv_n;
-};
-
-// ---- materials (scene/nodes.py, scene/graph.py _eval_material) -----------
-
-struct ShadeIn {
-  V3 origin, dir, hit, normal, channels;
-  float t, inside;
-};
-
-struct ShadeOut {
-  V3 color, dir, inside, hit;
-};
-
-// ShadeCtx.grayscale(c * channels)
-__device__ __forceinline__ float grayscale(V3 c, V3 ch) {
-  return dot(c, ch) / (ch.x + ch.y + ch.z);
-}
-
-__device__ __forceinline__ V3 lerp3(V3 a, V3 b, float t) {
-  return add(scale(a, 1.0f - t), scale(b, t));
-}
-
-__device__ __forceinline__ V3 reflect(V3 d, V3 n) { return sub(d, scale(n, 2.0f * dot(d, n))); }
-
-__device__ V3 refract(V3 d, V3 n, float eta) {
-  const float cosi = -dot(d, n);
-  float k = 1.0f - eta * eta * (1.0f - cosi * cosi);
-  const bool tir = k < 0.0f;
-  k = fmaxf(k, 1e-12f);
-  const V3 out = add(scale(d, eta), scale(n, eta * cosi - sqrtf(k)));
-  return tir ? splat(0.0f) : out;
-}
-
-// normalized(v) * (dot(v, v) > 0)
-__device__ __forceinline__ V3 unit_or_zero(V3 v) {
-  return scale(normalized(v), dot(v, v) > 0.0f ? 1.0f : 0.0f);
-}
-
-// makeTBN applied to a y-up local sample
-__device__ V3 tbn_apply(V3 n, V3 local) {
-  // (0,1,0) x n written out as in the plain version
-  const V3 crossed = mk(1.0f * n.z - 0.0f * n.y, 0.0f * n.x - 0.0f * n.z, 0.0f * n.y - 1.0f * n.x);
-  const V3 tangent = n.x == 0.0f ? mk(1.0f, 0.0f, 0.0f) : normalized(crossed);
-  const V3 bitangent = normalized(cross(tangent, n));
-  return add(add(scale(bitangent, local.x), scale(n, local.y)), scale(tangent, local.z));
-}
-
-__device__ V3 cosine_hemisphere(float u1, float u2) {
-  const float cos_t = sqrtf(fmaxf(1.0f - u1, 0.0f));
-  const float sin_t = sqrtf(u1);
-  const float o = u2 * 2.0f * kPi;
-  return normalized(mk(sin_t * cosf(o), cos_t, sin_t * sinf(o)));
-}
-
-__device__ V3 ggx_lobe(float u1, float u2, float roughness) {
-  const float a = roughness * roughness;
-  const float o = u1 * 2.0f * kPi;
-  const float denom = (a * a - 1.0f) * u2 + 1.0f;
-  const float cos_t = sqrtf(fminf(fmaxf((1.0f - u2) / fmaxf(denom, 1e-12f), 1e-12f), 1.0f));
-  const float sin_t = sqrtf(fmaxf(1.0f - cos_t * cos_t, 1e-12f));
-  return normalized(mk(sin_t * cosf(o), cos_t, sin_t * sinf(o)));
-}
-
-// The hit's material graph; all zeros for a miss of every object (mid -1).
-__device__ ShadeOut eval_material(const SceneRef& s, int mid, const ShadeIn& in, Rng& rng) {
-  const V3 zero = splat(0.0f);
-  ShadeOut out;
-  out.color = out.dir = out.inside = out.hit = zero;
-  const int* tail = s.prog + s.prog[1];
-  if (mid < 0 || mid >= tail[0]) return out;
-  const int* md = tail + 2 + kMatWords * mid;
-  rng.ctr = (uint32_t)md[2];
-  V3 regs[kMaxMatRegs];
-  for (int r = 0; r < kMaxMatRegs; ++r) regs[r] = zero;
-  for (int k = 0; k < md[1]; ++k) {
-    const int* w = s.prog + md[0] + kInstrWords * k;
-    const int* ins = w + 5;
-    auto arg = [&](int j) -> V3 {
-      const int code = ins[j];
-      if (code >= 0) return regs[code];
-      if (code == -1) return zero;
-      const float* q = s.f + (-code - 2);
-      return mk(q[0], q[1], q[2]);
-    };
-    V3 o[4] = {zero, zero, zero, zero};
-    switch (w[0]) {
-      case M_DIFFUSE: {
-        const float u1 = rng_next(rng);
-        const float u2 = rng_next(rng);
-        o[0] = arg(0);
-        o[1] = uniform_sphere_or_hemisphere(u1, u2, in.normal);
-        break;
-      }
-      case M_GLOSSY: {
-        const float u1 = rng_next(rng);
-        const float u2 = rng_next(rng);
-        const V3 hemi = uniform_sphere_or_hemisphere(u1, u2, in.normal);
-        const V3 n_f = scale(in.normal, -(in.inside * 2.0f - 1.0f));
-        const V3 mirror = reflect(in.dir, n_f);
-        const float wgt = 1.0f - grayscale(arg(1), in.channels);
-        o[0] = arg(0);
-        o[1] = lerp3(hemi, mirror, wgt);
-        break;
-      }
-      case M_REFRACTION: {
-        const float gs_ior = grayscale(arg(1), in.channels);
-        const V3 enter_dir = unit_or_zero(refract(in.dir, in.normal, 1.0f / gs_ior));
-        const V3 r_dir = unit_or_zero(refract(in.dir, neg(in.normal), gs_ior));
-        const float u1 = rng_next(rng);
-        const float u2 = rng_next(rng);
-        const V3 d_dir = uniform_sphere_or_hemisphere(u1, u2, in.normal);
-        const V3 exit_dir = lerp3(d_dir, r_dir, 1.0f - grayscale(arg(2), in.channels));
-        const bool is_in = in.inside > 0.5f;
-        o[0] = is_in ? arg(0) : splat(1.0f);
-        o[1] = is_in ? exit_dir : enter_dir;
-        o[2] = splat(1.0f - in.inside);
-        break;
-      }
-      case M_VOLUME: {
-        const bool is_in = in.inside > 0.5f;
-        const float den = grayscale(arg(1), in.channels) / 20.0f;
-        const float num_points = floorf(in.t * 100.0f);
-        const float p_scatter = 1.0f - powf(fmaxf(1.0f - den, 0.0f), num_points);
-        const float u_evt = rng_next(rng);
-        const float u_pos = rng_next(rng);
-        const bool scatters = is_in && u_evt < p_scatter;
-        const V3 hit_pos = add(in.origin, scale(in.dir, u_pos * in.t));
-        const float u3 = rng_next(rng);
-        const float u4 = rng_next(rng);
-        const V3 scat_dir = uniform_sphere_or_hemisphere(u3, u4, zero);
-        const float inside_f = scatters ? 1.0f : (is_in ? 0.0f : 1.0f);
-        o[0] = scatters ? arg(0) : splat(1.0f);
-        o[1] = scatters ? scat_dir : in.dir;
-        o[2] = splat(inside_f);
-        o[3] = scatters ? hit_pos : zero;
-        break;
-      }
-      case M_EMISSION:
-        o[0] = scale(arg(0), grayscale(arg(1), in.channels));
-        break;
-      case M_MIX: {
-        const float f = clamp01(grayscale(arg(6), in.channels));
-        const bool take2 = rng_next(rng) < f;
-        o[0] = take2 ? arg(3) : arg(0);
-        o[1] = take2 ? arg(4) : arg(1);
-        o[2] = take2 ? arg(5) : arg(2);
-        break;
-      }
-      case M_FACING: {
-        const float sgn = in.inside * 2.0f - 1.0f;
-        o[0] = splat(clamp01(dot(scale(in.dir, sgn), in.normal)));
-        break;
-      }
-      case M_INSIDE:
-        o[0] = splat(in.inside);
-        break;
-      case M_FRESNEL: {
-        const float c = clamp01(dot(in.normal, neg(in.dir)));
-        o[0] = splat(powf(1.0f - c, 5.0f) * 0.96f + 0.04f);
-        break;
-      }
-      case M_ADD:
-        o[0] = add(arg(0), arg(1));
-        break;
-      case M_SUB:
-        o[0] = sub(arg(0), arg(1));
-        break;
-      case M_MUL:
-        o[0] = mul(arg(0), arg(1));
-        break;
-      case M_DIV: {
-        const V3 a = arg(0), b = arg(1);
-        o[0] = mk(a.x / b.x, a.y / b.y, a.z / b.z);
-        break;
-      }
-      case M_SIN: {
-        const V3 a = arg(0);
-        o[0] = mk(sinf(a.x), sinf(a.y), sinf(a.z));
-        break;
-      }
-      case M_COS: {
-        const V3 a = arg(0);
-        o[0] = mk(cosf(a.x), cosf(a.y), cosf(a.z));
-        break;
-      }
-      case M_DIFFUSE2: {
-        const float u1 = rng_next(rng);
-        const float u2 = rng_next(rng);
-        o[0] = arg(0);
-        o[1] = tbn_apply(in.normal, cosine_hemisphere(u1, u2));
-        break;
-      }
-      case M_GLOSSY2: {
-        const float r = grayscale(arg(1), in.channels);
-        const float u1 = rng_next(rng);
-        const float u2 = rng_next(rng);
-        const V3 rough_dir = tbn_apply(in.normal, ggx_lobe(u1, u2, r));
-        o[0] = arg(0);
-        o[1] = r == 0.0f ? reflect(in.dir, in.normal) : rough_dir;
-        break;
-      }
-      default: {  // M_MIX2: bundles at registers ins[0] and ins[1], r <= f takes b
-        const float f = clamp01(grayscale(arg(2), in.channels));
-        const bool take_b = rng_next(rng) <= f;
-        const int src = take_b ? ins[1] : ins[0];
-        for (int j = 0; j < 4; ++j) o[j] = regs[src + j];
-        break;
-      }
-    }
-    for (int j = 0; j < 4; ++j)
-      if (w[1 + j] >= 0) regs[w[1 + j]] = o[j];
-  }
-  // the color, dir, inside and hit bindings; an unbound one reads zero
-  out.color = md[3] >= 0 ? regs[md[3]] : zero;
-  out.dir = md[4] >= 0 ? regs[md[4]] : zero;
-  out.inside = md[5] >= 0 ? regs[md[5]] : zero;
-  out.hit = md[6] >= 0 ? regs[md[6]] : zero;
-  return out;
-}
 
 // ---- the lane-state machine (render/mega.py trace_mega_paths) -------------
 
@@ -401,6 +207,18 @@ __device__ __forceinline__ V3 lane_channels(const Ctx& c, int s_idx) {
   return mk(ci == 0 ? 1.0f : 0.0f, ci == 1 ? 1.0f : 0.0f, ci == 2 ? 1.0f : 0.0f);
 }
 
+// A missed bounce ray's throughput times the sky (the constant or the SH
+// sky; a recording and the deferred sky leave it).
+template <class R>
+__device__ __forceinline__ void sky_miss(const Ctx& c, Lane& L) {
+  if constexpr (!R::kOn && R::kSky == kSkyConst) L.thr = scale(L.thr, c.sky);
+  if constexpr (!R::kOn && R::kSky == kSkySh) L.thr = mul(L.thr, sh_eval(s_sky_sh, L.d));
+}
+
+// The state a missed bounce ray parks in.
+template <class R>
+constexpr int kMissState = (!R::kOn && R::kSky == kSkyDefer) ? kWaitMiss : kRegen;
+
 __device__ __forceinline__ void reset_segment(const Ctx& c, Lane& L) {
   L.t = 0.0f;
   L.steps = c.a.lazy_miss ? L.gstep : 0;
@@ -437,8 +255,8 @@ __device__ void march_step(const Ctx& c, Lane& L) {
   }
   if (hit) L.state = shadow ? kShOcc : kWait;
   if (miss) {
-    if (!shadow && !R::kOn) L.thr = scale(L.thr, c.sky);
-    L.state = shadow ? kShLit : kRegen;  // an exhausted shadow ray is lit
+    if (!shadow) sky_miss<R>(c, L);
+    L.state = shadow ? kShLit : kMissState<R>;  // an exhausted shadow ray is lit
   }
   const bool still = !hit && !miss;
   if (a.relax) {
@@ -459,8 +277,8 @@ __device__ __forceinline__ void mark_misses(const Ctx& c, Lane& L) {
   const bool shadow = L.state == kShadow;
   if ((L.state == kMarch || shadow) &&
       (L.t >= L.seg_tmax || L.gstep - L.steps >= c.a.max_steps)) {
-    if (!shadow && !R::kOn) L.thr = scale(L.thr, c.sky);
-    L.state = shadow ? kShLit : kRegen;
+    if (!shadow) sky_miss<R>(c, L);
+    L.state = shadow ? kShLit : kMissState<R>;
   }
 }
 
@@ -570,10 +388,47 @@ __device__ void resolve(const Ctx& c, Lane& L, const R& r) {
   reset_segment(c, L);
 }
 
+// The deferred sky: a parked miss banks its throughput and its
+// direction's equirect (u, v), the JAX package's quantisation op for op
+// (atan2_poly, phi wrapped to [0, 2 pi), u = phi / 2 pi, v = 1 - (y * 0.5 +
+// 0.5), truncated to int32 after * 65536, clipped to [0, 65535], packed
+// (u << 16) | v), at slot s_idx of its pixel.
+template <class R>
+__device__ __forceinline__ void bank_miss(const Lane& L, const R& r) {
+  if constexpr (!R::kOn && R::kSky == kSkyDefer) {
+    if (L.state != kWaitMiss) return;
+    float phi = atan2_poly(L.d.z, L.d.x);
+    if (phi < 0.0f) phi = phi + kTwoPi;
+    const float uu = phi / kTwoPi;
+    const float vv = 1.0f - (L.d.y * 0.5f + 0.5f);
+    int ui = (int)(uu * 65536.0f);
+    int vi = (int)(vv * 65536.0f);
+    ui = ui < 0 ? 0 : (ui > 65535 ? 65535 : ui);
+    vi = vi < 0 ? 0 : (vi > 65535 ? 65535 : vi);
+    const size_t k = (size_t)L.s_idx * r.plane + r.pix;
+    r.thr_r[k] = L.thr.x;
+    r.thr_g[k] = L.thr.y;
+    r.thr_b[k] = L.thr.z;
+    r.uv[k] = (int)(((uint32_t)ui << 16) | (uint32_t)vi);
+  }
+}
+
 template <class R>
 __device__ void regen(const Ctx& c, Lane& L) {
-  if (L.state != kRegen) return;
-  if constexpr (!R::kOn) L.acc = add(L.acc, c.a.nee ? add(L.thr, L.extra) : L.thr);
+  // a parked miss of the deferred sky (banked by bank_miss) respawns too;
+  // only its NEE radiance joins the sum, the sky term is the composite's
+  constexpr bool kDefer = !R::kOn && R::kSky == kSkyDefer;
+  const bool parked_miss = kDefer && L.state == kWaitMiss;
+  if (L.state != kRegen && !parked_miss) return;
+  if constexpr (kDefer) {
+    if (parked_miss) {
+      if (c.a.nee) L.acc = add(L.acc, L.extra);
+    } else {
+      L.acc = add(L.acc, c.a.nee ? add(L.thr, L.extra) : L.thr);
+    }
+  } else if constexpr (!R::kOn) {
+    L.acc = add(L.acc, c.a.nee ? add(L.thr, L.extra) : L.thr);
+  }
   L.s_idx += 1;
   const int n_paths = c.a.dispersion ? 3 * c.a.n_samples : c.a.n_samples;
   if (L.s_idx >= n_paths) {
@@ -595,6 +450,7 @@ template <class R>
 __device__ void cheap_pass(const Ctx& c, Lane& L, const R& r) {
   if (c.a.lazy_miss) mark_misses<R>(c, L);
   if (c.a.nee) resolve(c, L, r);
+  bank_miss(L, r);
   regen<R>(c, L);
 }
 
@@ -613,6 +469,7 @@ __device__ void body(const Ctx& c, Lane& L, const R& r) {
   if (a.lazy_miss) mark_misses<R>(c, L);
   shade(c, L, r);
   if (a.nee) resolve(c, L, r);
+  bank_miss(L, r);
   regen<R>(c, L);
 }
 
@@ -648,8 +505,9 @@ __device__ V3 trace_pixel(const Ctx& c, const R& r) {
 
 // ---- launch ----------------------------------------------------------------
 
-// One kernel for both entries: R = NoBanks renders into `out`, R = Banks
-// records into its banks.
+// One kernel for every entry: R = NoBanks or ShSky renders into `out`,
+// DeferSky renders the raw sum without the sky into `out` and banks the
+// misses, Banks records into its banks.
 template <class R>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(PathArgs a, const float* __restrict__ corners,
                                   const float* __restrict__ fdata, const int* __restrict__ prog,
@@ -660,6 +518,11 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(P
   const int n_tail = 1 + 5 * a.n_lights;
   const int tid = threadIdx.y * blockDim.x + threadIdx.x;
   for (int i = tid; i < n_tail; i += blockDim.x * blockDim.y) s_tail[i] = ftail[i];
+  if constexpr (!R::kOn && R::kSky == kSkySh) {
+    // the coefficients follow the scene's whole light table
+    const float* sh = ftail + 1 + 5 * prog[prog[1] + 1];
+    for (int i = tid; i < kShFloats; i += blockDim.x * blockDim.y) s_sky_sh[i] = sh[i];
+  }
   __syncthreads();
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
@@ -677,6 +540,14 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(P
     R r = banks;
     r.pix = (size_t)ly * a.pw + lx;
     trace_pixel(c, r);
+  } else if constexpr (R::kSky == kSkyDefer) {
+    R r = banks;
+    r.pix = (size_t)ly * a.pw + lx;
+    const V3 acc = trace_pixel(c, r);
+    float* o = out + 3 * r.pix;
+    o[0] = acc.x * a.inv_n;
+    o[1] = acc.y * a.inv_n;
+    o[2] = acc.z * a.inv_n;
   } else {
     const V3 acc = trace_pixel(c, banks);
     float* o = out + 3 * ((size_t)ly * a.pw + lx);
@@ -691,15 +562,52 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(P
 // float32.  The library carries its own (static) CUDA runtime, so it
 // selects the device itself before launching on `stream`.  Returns the
 // first CUDA error (0 on success), and cudaErrorInvalidValue for more
-// lights than the shared light table holds.
+// lights than the shared light table holds.  `sky_kind` picks the
+// constant or the SH sky; an env image (kSkyDefer) takes
+// rmr_mega_paths_defer and is refused here.
 extern "C" int rmr_mega_paths(const PathArgs* args, const float* corners, const float* fdata,
-                              const int* prog, float* out, cudaStream_t stream, int device) {
+                              const int* prog, float* out, int sky_kind, cudaStream_t stream,
+                              int device) {
   if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+  if (sky_kind != kSkyConst && sky_kind != kSkySh) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, NoBanks());
+  if (sky_kind == kSkySh) {
+    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, ShSky());
+  } else {
+    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, NoBanks());
+  }
+  return (int)cudaGetLastError();
+}
+
+// The deferred-sky entry (replaces the TPU kernel's mega + defer_sky
+// branch, raymarchrenderer_tpu/kernels/march.py:130-165): as
+// rmr_mega_paths for an env-image scene, but
+// `out` gets the raw per-pixel sum without the sky (times inv_n, which the
+// wrapper sets to 1), and each path that misses banks its throughput into
+// `thr_r`, `thr_g`, `thr_b` (float32) and its packed (u, v) into `uv`
+// (int32), each (P, ph, pw), P = n_samples (3 * n_samples with
+// dispersion), at its path's slot; the caller zero-fills them first, so
+// thr = 0 marks a slot whose path ended on a hit.
+extern "C" int rmr_mega_paths_defer(const PathArgs* args, const float* corners,
+                                    const float* fdata, const int* prog, float* out,
+                                    float* thr_r, float* thr_g, float* thr_b, int* uv,
+                                    cudaStream_t stream, int device) {
+  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  DeferSky banks;
+  banks.thr_r = thr_r;
+  banks.thr_g = thr_g;
+  banks.thr_b = thr_b;
+  banks.uv = uv;
+  banks.plane = (size_t)args->ph * args->pw;
+  banks.pix = 0;
+  const dim3 block(16, kBlockThreads / 16);
+  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
+  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, banks);
   return (int)cudaGetLastError();
 }
 
@@ -731,25 +639,6 @@ extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, cons
 
 // ---- the wavefront recorder (kernels/record.py trace_record_wavefront) ----
 
-// The ray from p toward a jittered point of light li of the table `lights`
-// ([pos * 3n, power * n, radius * n]) on the NEE stream `nee_rng`, as
-// light_segment draws it: returns its length and the unit direction
-// through `ldir`.  (light_segment keeps its own copy: built on this
-// helper, the recording kernel's spill loads rose from 72 to 88 bytes.)
-__device__ __forceinline__ float light_ray(const float* lights, int n, int li, const Rng& nee_rng,
-                                           V3 p, V3& ldir) {
-  Rng lrng = rng_fork(nee_rng, 101u + (uint32_t)li);
-  const V3 lpos = mk(lights[3 * li], lights[3 * li + 1], lights[3 * li + 2]);
-  const float lradius = lights[4 * n + li];
-  const float u1 = rng_next(lrng);
-  const float u2 = rng_next(lrng);
-  const V3 target = add(lpos, scale(uniform_sphere(u1, u2), lradius));
-  const V3 delta = sub(target, p);
-  const float dist_l = length(delta);
-  const float dd = fmaxf(dist_l, 1e-8f);
-  ldir = mk(delta.x / dd, delta.y / dd, delta.z / dd);
-  return dist_l;
-}
 
 // One thread per ray of the given planes, looping over the bounces as the
 // plain version loops over them for all lanes: march (dist_mult 1 - 2 *

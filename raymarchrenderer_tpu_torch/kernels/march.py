@@ -2,13 +2,26 @@
 plane of rays.
 
   * `render_fused_patch` / `render_fused` — the RGB path tracer, the port
-    of the JAX package's TPU kernel `render_fused_patch` in mega mode
+    of the JAX package's TPU kernel `render_fused_patch`
     (`raymarchrenderer_tpu/kernels/march.py`, the `pl.pallas_call` whose
-    body is `render/mega.py::trace_mega_paths`), with NEE, Russian
-    roulette and dispersion: CUDA kernel `csrc/mega_paths.cu`;
+    body `_tile_kernel` runs `render/mega.py::trace_mega_paths` or, in
+    wavefront mode, `render/integrator.py::trace_rgb` per sample), with
+    NEE, Russian roulette, dispersion and every sky:
+      - mega mode, constant or SH sky: CUDA kernel `csrc/mega_paths.cu`
+        (`MEGA_PATHS`; the SH sky evaluated in-kernel);
+      - mega mode, env-image sky (`defer_sky`): `MEGA_PATHS_DEFER`, an
+        entry of the same source whose lanes bank each path's miss event
+        (throughput, packed equirect (u, v)) instead of evaluating the
+        sky, then the composite `color + sum_k thr_k * sky_uv(u_k, v_k)`
+        in plain PyTorch (it is plain XLA in the JAX package);
+      - wavefront mode (`mode="wavefront"`): `csrc/wavefront_paths.cu`
+        (`WAVEFRONT_PATHS`), one thread per pixel looping `trace_rgb`
+        over the samples; with an env image it banks (throughput,
+        direction) per path slot and the composite evaluates `Scene.sky`;
   * `render_fused_spectral` — the gen-3 spectral transport, the port of
-    the TPU kernel of that name (body `trace_mega_spectral`): CUDA kernel
-    `csrc/mega_spectral.cu`;
+    the TPU kernel of that name: mega mode (body `trace_mega_spectral`)
+    is `csrc/mega_spectral.cu`, wavefront mode (`trace_spectral` per
+    sample) `csrc/wavefront_spectral.cu`;
   * `march_fused` — the per-ray sphere trace of the differentiable path,
     the port of the TPU kernel of that name: CUDA kernel
     `csrc/march_fused.cu`, plain version `render/integrator.py::march`.
@@ -19,10 +32,10 @@ The recorders (`RECORD_PATHS` and `RECORD_WAVEFRONT`, entries of
 run one thread per pixel through the lane-state machine.  The device of
 the input tensors (`corners`, or the ray planes) picks the route: a CUDA
 tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
-runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`).
-There is no other route and no fallback between the two.  Env-map and SH
-skies, `normal_taps=0` and the RGB kernel's wavefront mode are not
-ported; they raise on both routes.
+runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`,
+`wavefront_paths_plain`, `wavefront_spectral_plain`).  There is no other
+route and no fallback between the two.  `normal_taps=0` is not ported and
+raises on both routes.
 """
 from __future__ import annotations
 
@@ -35,9 +48,11 @@ import torch
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3
 from raymarchrenderer_tpu_torch.kernels.build import CudaKernel
 from raymarchrenderer_tpu_torch.kernels.scene_program import (
-    MAX_LIGHTS, object_buffers, paths_buffers, spectral_buffers)
+    MAX_LIGHTS, SKY_DEFER, object_buffers, paths_buffers, sky_kind,
+    spectral_buffers)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
-from raymarchrenderer_tpu_torch.render.integrator import march
+from raymarchrenderer_tpu_torch.render.integrator import (march, spp_rays,
+                                                          trace_rgb)
 from raymarchrenderer_tpu_torch.render.mega import (check_knobs,
                                                     check_paths_supported,
                                                     trace_mega_paths,
@@ -92,9 +107,28 @@ _P = ctypes.c_void_p
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
     [ctypes.POINTER(SpecArgs), _P, _P, _P, _P, _P, ctypes.c_int])
+# args, corners, data, program, the output, the sky kind
+# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy)
 MEGA_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_mega_paths",
-    [ctypes.POINTER(PathArgs), _P, _P, _P, _P, _P, ctypes.c_int])
+    [ctypes.POINTER(PathArgs), _P, _P, _P, _P, ctypes.c_int, _P,
+     ctypes.c_int])
+# the deferred-sky entry of mega_paths.cu: args, corners, data, program,
+# the raw-sum output, then the thr_r, thr_g, thr_b and packed-uv banks
+MEGA_PATHS_DEFER = CudaKernel(
+    "mega_paths.cu", "rmr_mega_paths_defer",
+    [ctypes.POINTER(PathArgs)] + [_P] * 8 + [_P, ctypes.c_int])
+# the RGB wavefront kernel: args, the sky kind, corners, data, program,
+# the output, then the thr_r, thr_g, thr_b, dir_x, dir_y, dir_z banks
+# (null without an env image)
+WAVEFRONT_PATHS = CudaKernel(
+    "wavefront_paths.cu", "rmr_wavefront_paths",
+    [ctypes.POINTER(PathArgs), ctypes.c_int] + [_P] * 10 + [_P,
+                                                            ctypes.c_int])
+# the spectral wavefront kernel: args, corners, data, program, the output
+WAVEFRONT_SPECTRAL = CudaKernel(
+    "wavefront_spectral.cu", "rmr_wavefront_spectral",
+    [ctypes.POINTER(SpecArgs), _P, _P, _P, _P, _P, ctypes.c_int])
 # the recording entry of the same source (one library with MEGA_PATHS):
 # args, corners, data, program, then the t, mid, hit and sd banks
 RECORD_PATHS = CudaKernel(
@@ -197,29 +231,77 @@ def _launch_mega_spectral(scene, params, mats, cfg, corners, sample0,
     return _launch(MEGA_SPECTRAL, args, corners, prog, data, ph, pw)
 
 
+def _launch_wavefront_spectral(scene, params, mats, cfg, corners, sample0,
+                               n_samples, origin_xy, ph, pw, normalize):
+    _check_launch(corners, cfg, params["objects"], list(mats))
+    prog, data = spectral_buffers(scene, params, mats, corners.device)
+    args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
+        cfg, origin_xy, ph, pw, sample0, n_samples, normalize, 1, 0, False))
+    return _launch(WAVEFRONT_SPECTRAL, args, corners, prog, data, ph, pw)
+
+
+def wavefront_spectral_plain(scene: Scene, params, mats, cfg: RenderConfig,
+                             corners, sample0, n_samples, origin_xy, ph, pw,
+                             normalize: bool = True, work: dict = None):
+    """The plain version of the spectral wavefront kernel: for each sample
+    the primary ray, `trace_spectral`'s bounce loop and the splat
+    `wavelength_to_rgb(wl) * power`, summed sample by sample (the JAX
+    kernel's `mode="wavefront"` body); (ph, pw, 3).  `work` counts the map
+    evaluations as `trace_spectral` does."""
+    from raymarchrenderer_tpu_torch.core.spectral import wavelength_to_rgb
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        trace_spectral)
+    acc = Vec3(*(torch.zeros((ph, pw), dtype=torch.float32,
+                             device=corners.device) for _ in range(3)))
+    with torch.no_grad():
+        for k in range(n_samples):
+            px, py, samp, eye, d = spp_rays(cfg, corners, origin_xy,
+                                            (ph, pw), int(sample0) + k, 1)
+            wl, power = trace_spectral(scene, params, mats, cfg, eye, d, px,
+                                       py, samp, work=work)
+            acc = acc + wavelength_to_rgb(wl) * power
+    inv = _inv(n_samples, normalize)
+    return torch.stack([acc.x * inv, acc.y * inv, acc.z * inv], dim=-1)
+
+
 def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
                           corners, sample0, n_samples: int = 1,
                           march_unroll: int = DEFAULT_MARCH_UNROLL,
                           origin_xy=(0, 0), patch_shape=None,
                           normalize: bool = True,
                           lazy_miss: bool = DEFAULT_LAZY_MISS,
-                          regen_cadence: int = DEFAULT_REGEN_CADENCE):
+                          regen_cadence: int = DEFAULT_REGEN_CADENCE,
+                          mode: str = "mega"):
     """Gen-3 spectral render of a patch: (ph, pw, 3) float32, the mean over
     `n_samples` samples starting at `sample0` (or the sum with
     `normalize=False`).  `origin_xy` = (x, y) of the patch's top-left pixel
     in the `cfg.width` x `cfg.height` frame; `patch_shape` = (ph, pw),
-    default the whole frame."""
+    default the whole frame.  `mode="mega"` runs the spectral megakernel
+    (per-lane bounces with in-loop sample regeneration);
+    `mode="wavefront"` loops `trace_spectral` over the samples (the
+    schedule knobs do not apply)."""
     check_knobs(march_unroll, regen_cadence)
     if n_samples < 1:
         raise ValueError("n_samples must be >= 1")
+    if mode not in ("mega", "wavefront"):
+        raise ValueError(f"mode must be 'mega' or 'wavefront', not {mode!r}")
     ph, pw = patch_shape if patch_shape is not None else (cfg.height,
                                                           cfg.width)
-    if corners.device.type == "cuda":
+    if corners.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no route for device {corners.device}")
+    cuda = corners.device.type == "cuda"
+    if mode == "wavefront":
+        if cuda:
+            return _launch_wavefront_spectral(
+                scene, params, mats, cfg, corners, sample0, n_samples,
+                origin_xy, ph, pw, normalize)
+        return wavefront_spectral_plain(scene, params, mats, cfg, corners,
+                                        sample0, n_samples, origin_xy, ph,
+                                        pw, normalize)
+    if cuda:
         return _launch_mega_spectral(
             scene, params, mats, cfg, corners, sample0, n_samples, origin_xy,
             ph, pw, normalize, lazy_miss, regen_cadence, march_unroll)
-    if corners.device.type != "cpu":
-        raise ValueError(f"no route for device {corners.device}")
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c = trace_mega_spectral(scene, params, mats, cfg, corners, px, py,
                             sample0, n_samples=n_samples,
@@ -258,12 +340,201 @@ def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
     args, prog, data = paths_launch(
         scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_samples,
         direct_light, march_unroll, normalize, lazy_miss, regen_cadence)
-    return _launch(MEGA_PATHS, args, corners, prog, data, ph, pw)
+    device = corners.device
+    out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
+    MEGA_PATHS.launch(ctypes.byref(args), corners.contiguous().data_ptr(),
+                      data.data_ptr(), prog.data_ptr(), out.data_ptr(),
+                      sky_kind(scene), *stream_args(device))
+    return out
+
+
+def _banks(dtypes, k, ph, pw, device):
+    """Zero-filled (k, ph, pw) banks, one of each dtype in `dtypes`."""
+    return [torch.zeros((k, ph, pw), dtype=dt, device=device)
+            for dt in dtypes]
+
+
+def _launch_mega_defer(scene, params, cfg, corners, origin_xy, ph, pw,
+                       sample0, n_samples, direct_light, march_unroll,
+                       lazy_miss, regen_cadence):
+    """One launch of the deferred-sky megakernel: the raw (ph, pw, 3) sum
+    without the sky, and the (thr_r, thr_g, thr_b, uv) banks, each
+    (n_paths, ph, pw), zero-filled first (thr = 0 marks a slot whose path
+    ended on a hit)."""
+    args, prog, data = paths_launch(
+        scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_samples,
+        direct_light, march_unroll, False, lazy_miss, regen_cadence)
+    device = corners.device
+    n_paths = n_samples * (3 if cfg.separate_channels else 1)
+    banks = _banks((torch.float32,) * 3 + (torch.int32,), n_paths, ph, pw,
+                   device)
+    out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
+    MEGA_PATHS_DEFER.launch(ctypes.byref(args),
+                            corners.contiguous().data_ptr(), data.data_ptr(),
+                            prog.data_ptr(), out.data_ptr(),
+                            *(b.data_ptr() for b in banks),
+                            *stream_args(device))
+    return out, banks
+
+
+def _mega_defer_plain(scene, params, cfg, corners, origin_xy, ph, pw,
+                      sample0, n_samples, direct_light, march_unroll,
+                      lazy_miss, regen_cadence):
+    """The plain version of `_launch_mega_defer` (the same returns)."""
+    px, py = pixel_grid(pw, ph, corners.device, origin_xy)
+    c, banks = trace_mega_paths(
+        scene, params, cfg, corners, px, py, sample0, n_samples=n_samples,
+        march_unroll=march_unroll, dispersion=cfg.separate_channels,
+        direct_light=direct_light, defer_sky=True, lazy_miss=lazy_miss,
+        regen_cadence=regen_cadence)
+    return c.stack(-1), list(banks)
+
+
+def _composite(color, thr, sky: Vec3):
+    """color (ph, pw, 3) + the sum over the K slots of thr_k * sky_k."""
+    return torch.stack([color[..., j] + (t * c).sum(0)
+                        for j, (t, c) in enumerate(zip(thr, sky))], dim=-1)
+
+
+def composite_uv(scene: Scene, params, color, banks):
+    """The mega deferred sky's composite: color (ph, pw, 3) + the sum over
+    the K slots of thr_k * sky_uv(u_k, v_k), (u, v) unpacked at the
+    centres of their 16-bit bins, (x + 0.5) / 65536 (the JAX package's
+    composite, plain XLA there)."""
+    uvp = banks[3]
+    u = (((uvp >> 16) & 0xFFFF).to(torch.float32) + 0.5) / 65536.0
+    v = ((uvp & 0xFFFF).to(torch.float32) + 0.5) / 65536.0
+    return _composite(color, banks[:3], scene.sky_uv(params, u, v))
+
+
+def composite_dir(scene: Scene, params, color, banks):
+    """The wavefront deferred sky's composite: color + the sum over the K
+    slots of thr_k * Scene.sky(dir_k) (the exact atan2)."""
+    return _composite(color, banks[:3], scene.sky(params, Vec3(*banks[3:])))
+
+
+def _launch_wavefront_paths(scene, params, cfg, corners, origin_xy, ph, pw,
+                            sample0, n_slots, direct_light=False,
+                            normalize=True, defer_k=0):
+    """One launch of the RGB wavefront kernel.  Without an env image:
+    the (ph, pw, 3) mean (sum) over `n_slots` samples.  With one
+    (`defer_k` > 0, the bank depth): `n_slots` = n_valid path slots are
+    traced from path `sample0`, and the return is (raw sum, the six
+    (defer_k, ph, pw) banks thr_r, thr_g, thr_b, dir_x, dir_y, dir_z,
+    zero-filled first)."""
+    args, prog, data = paths_launch(
+        scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_slots,
+        direct_light, 1, normalize and not defer_k, False, 0)
+    device = corners.device
+    banks = _banks((torch.float32,) * 6, defer_k, ph, pw, device) \
+        if defer_k else []
+    ptrs = [b.data_ptr() for b in banks] or [None] * 6
+    out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
+    WAVEFRONT_PATHS.launch(ctypes.byref(args), sky_kind(scene),
+                           corners.contiguous().data_ptr(), data.data_ptr(),
+                           prog.data_ptr(), out.data_ptr(), *ptrs,
+                           *stream_args(device))
+    return (out, banks) if defer_k else out
+
+
+def wavefront_paths_plain(scene: Scene, params, cfg: RenderConfig, corners,
+                          origin_xy, ph, pw, sample0, n_slots,
+                          direct_light=False, normalize=True, defer_k=0,
+                          work: dict = None):
+    """The plain version of `_launch_wavefront_paths` (the same returns):
+    the JAX kernel's `mode="wavefront"` body, `trace_rgb` sample by sample
+    (as `render_patch`; with dispersion its three channel paths), summed
+    in order.  With an env image each path slot k < n_slots is one path
+    of the (sample, channel) counter from `sample0` (channel ci of sample
+    s shares s's primary ray and draws stream s * 4 + ci + 1), traced by
+    `trace_rgb(defer_sky=True)`; its miss event goes to bank slot k and
+    the slots from n_slots on stay zero.  `work` counts the map
+    evaluations as `trace_rgb` does."""
+    device = corners.device
+    z = torch.zeros((ph, pw), dtype=torch.float32, device=device)
+    acc = Vec3(z, z, z)
+    banks = _banks((torch.float32,) * 6, defer_k, ph, pw, device)
+    disp = cfg.separate_channels
+
+    def trace(samp, sid, ci, defer):
+        px, py, _, eye, d = spp_rays(cfg, corners, origin_xy, (ph, pw), samp,
+                                     1)
+        ch = [torch.full((ph, pw), 1.0 if ci is None else float(ci == j),
+                         dtype=torch.float32, device=device)
+              for j in range(3)]
+        return trace_rgb(scene, params, cfg, eye, d, px, py, sid, Vec3(*ch),
+                         direct_light, defer_sky=defer, work=work)
+
+    with torch.no_grad():
+        for k in range(n_slots):
+            s = int(sample0) + k
+            if not defer_k:
+                if disp:
+                    c = Vec3(z, z, z)
+                    for ci in range(3):
+                        c = c + trace(s, s * 4 + ci + 1, ci, False)
+                else:
+                    c = trace(s, s, None, False)
+                acc = acc + c
+                continue
+            samp, ci = divmod(s, 3) if disp else (s, None)
+            c, mt, md = trace(samp, samp * 4 + ci + 1 if disp else s, ci,
+                              True)
+            acc = acc + c
+            for bank, v in zip(banks, (*mt, *md)):
+                bank[k] = v
+    if defer_k:
+        return acc.stack(-1), banks
+    inv = _inv(n_slots, normalize)
+    return torch.stack([acc.x * inv, acc.y * inv, acc.z * inv], dim=-1)
+
+
+def _render_deferred(scene, params, cfg, corners, origin_xy, ph, pw,
+                     sample0, n_samples, direct_light, mode, march_unroll,
+                     normalize, lazy_miss, regen_cadence):
+    """An env-image render: bank-depth chunks of launches, each followed by
+    its composite, summed, then divided once by `n_samples` (unless
+    `normalize=False`).  The chunk counter runs over paths, 3 per sample
+    with dispersion.  Mega mode: K = min(32 // unit, n) * unit paths (whole
+    samples), with one tail launch at its own depth for the remainder;
+    wavefront mode: K = min(8, n_paths) slots, the last chunk's trailing
+    slots masked by n_valid."""
+    unit = 3 if cfg.separate_channels else 1
+    n_paths = n_samples * unit
+    s0 = int(sample0) * unit
+    cuda = corners.device.type == "cuda"
+    if mode == "mega":
+        k_bank = min(32 // unit, n_samples) * unit
+        n_full, rem = divmod(n_paths, k_bank)
+        chunks = [(s0 + c * k_bank, k_bank) for c in range(n_full)]
+        if rem:
+            chunks.append((s0 + n_full * k_bank, rem))
+        launch = _launch_mega_defer if cuda else _mega_defer_plain
+        total = None
+        for start, k in chunks:
+            color, banks = launch(scene, params, cfg, corners, origin_xy,
+                                  ph, pw, start // unit, k // unit,
+                                  direct_light, march_unroll, lazy_miss,
+                                  regen_cadence)
+            part = composite_uv(scene, params, color, banks)
+            total = part if total is None else total + part
+    else:
+        k_bank = min(8, n_paths)
+        launch = _launch_wavefront_paths if cuda else wavefront_paths_plain
+        total = None
+        for c in range(-(-n_paths // k_bank)):
+            n_valid = min(k_bank, n_paths - c * k_bank)
+            color, banks = launch(scene, params, cfg, corners, origin_xy,
+                                  ph, pw, s0 + c * k_bank, n_valid,
+                                  direct_light, False, k_bank)
+            part = composite_dir(scene, params, color, banks)
+            total = part if total is None else total + part
+    return total / float(n_samples) if normalize else total
 
 
 def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
                        origin_xy, patch_shape, sample0, n_samples: int = 1,
-                       direct_light: bool = False,
+                       direct_light: bool = False, mode: str = "auto",
                        march_unroll: int = DEFAULT_MARCH_UNROLL,
                        normalize: bool = True,
                        lazy_miss: bool = DEFAULT_LAZY_MISS,
@@ -274,19 +545,40 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
     `normalize=False`).  `direct_light` adds next-event estimation toward
     the scene's lights; `cfg.separate_channels` traces R, G and B as
     separate paths (dispersion); `cfg.rr_start_bounce >= 0` turns on
-    Russian roulette."""
+    Russian roulette.  The sky is the scene's: constant, SH (evaluated in
+    the kernel) or an env image (`scene.has_env_map`: the deferred sky,
+    chunked and composited by `_render_deferred`).
+
+    `mode`: "mega" (and "auto", as in the JAX package) is the megakernel
+    schedule; "wavefront" traces each sample's path to its end, sample
+    after sample (the schedule knobs do not apply)."""
     check_knobs(march_unroll, regen_cadence)
     check_paths_supported(scene, cfg)
     if n_samples < 1:
         raise ValueError("n_samples must be >= 1")
+    if mode == "auto":
+        mode = "mega"
+    if mode not in ("mega", "wavefront"):
+        raise ValueError(f"mode must be 'auto', 'mega' or 'wavefront', not "
+                         f"{mode!r}")
+    if corners.device.type not in ("cuda", "cpu"):
+        raise ValueError(f"no route for device {corners.device}")
+    cuda = corners.device.type == "cuda"
     ph, pw = patch_shape
-    if corners.device.type == "cuda":
+    if sky_kind(scene) == SKY_DEFER:
+        return _render_deferred(scene, params, cfg, corners, origin_xy, ph,
+                                pw, sample0, n_samples, direct_light, mode,
+                                march_unroll, normalize, lazy_miss,
+                                regen_cadence)
+    if mode == "wavefront":
+        fn = _launch_wavefront_paths if cuda else wavefront_paths_plain
+        return fn(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
+                  n_samples, direct_light, normalize)
+    if cuda:
         return _launch_mega_paths(
             scene, params, cfg, corners, origin_xy, ph, pw, sample0,
             n_samples, direct_light, march_unroll, normalize, lazy_miss,
             regen_cadence)
-    if corners.device.type != "cpu":
-        raise ValueError(f"no route for device {corners.device}")
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c = trace_mega_paths(scene, params, cfg, corners, px, py, sample0,
                          n_samples=n_samples, march_unroll=march_unroll,
@@ -299,13 +591,14 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
 
 def render_fused(scene: Scene, params, cfg: RenderConfig, corners, sample0,
                  n_samples: int = 1, direct_light: bool = False,
+                 mode: str = "auto",
                  march_unroll: int = DEFAULT_MARCH_UNROLL,
                  lazy_miss: bool = DEFAULT_LAZY_MISS,
                  regen_cadence: int = DEFAULT_REGEN_CADENCE):
     """Full-frame RGB render (the patch at origin (0, 0))."""
     return render_fused_patch(
         scene, params, cfg, corners, (0, 0), (cfg.height, cfg.width),
-        sample0, n_samples=n_samples, direct_light=direct_light,
+        sample0, n_samples=n_samples, direct_light=direct_light, mode=mode,
         march_unroll=march_unroll, lazy_miss=lazy_miss,
         regen_cadence=regen_cadence)
 
@@ -362,7 +655,8 @@ def render_progressive_fused_spectral(scene: Scene, params, mats,
 
 
 def prepare(device, *kernels: CudaKernel):
-    """Build and load `kernels` (`MEGA_PATHS`, `MEGA_SPECTRAL`,
+    """Build and load `kernels` (`MEGA_PATHS`, `MEGA_PATHS_DEFER`,
+    `WAVEFRONT_PATHS`, `MEGA_SPECTRAL`, `WAVEFRONT_SPECTRAL`,
     `RECORD_PATHS`, `RECORD_SPECTRAL`, `RECORD_WAVEFRONT`, `MARCH_FUSED`),
     when they run on `device`, ahead of their first launch; returns the
     seconds this took, or None on the CPU."""

@@ -28,7 +28,10 @@ CUDA entry `rmr_record_spectral` of `csrc/mega_spectral.cu`
 (`RECORD_SPECTRAL`), plain version `record_spectral_plain` over
 `render.mega.trace_mega_spectral(record_banks=True)`.
 
-Everything is detached: gradients come from the replay.
+Everything is detached: gradients come from the replay.  The recorders
+read no sky: a missed path ends there, so env-image and SH scenes record
+their geometry as any other (the env image never enters a kernel), and
+the replay evaluates `Scene.sky` differentiably.
 """
 from __future__ import annotations
 

@@ -22,7 +22,12 @@ floats [min_wave * n_mats, max_wave * n_mats, power * n_mats].
 RGB tail (`csrc/mega_paths.cu`): ints [n_mats, n_lights, then per material
 (first_word, n_instr, rng_base, color, dir, inside, hit), then the material
 instructions, 12 words each: [opcode, out0..out3, in0..in6]]; floats
-[sky_power, light pos * 3L, power * L, radius * L, material parameters].
+[sky_power, light pos * 3L, power * L, radius * L, the SH sky's 48
+coefficients (k-major, (16, 3); SH scenes only), material parameters].
+The kind of sky (constant, SH, or deferred for an env image, `sky_kind`)
+is an argument of the entry points, which pick the kernel's sky policy
+from it; the env image itself never enters the kernel (the recorder reads
+no sky either).
 A material input word is a register (>= 0), zero (-1) or a parameter vec3
 (`-word - 2`, absolute in the float buffer); an output word is a register
 or -1 (not bound); a binding is a register or -1 (zero).  `rng_base` is the
@@ -311,10 +316,23 @@ def rng_bases(scene: Scene):
     return material_program(scene, 0)[3]
 
 
+SKY_CONST, SKY_SH, SKY_DEFER = 0, 1, 2   # the kernels' kSky* (paths_shade.cuh)
+N_SH_FLOATS = 48
+
+
+def sky_kind(scene: Scene) -> int:
+    """The RGB kernels' sky policy of `scene`."""
+    if scene.has_env_map:
+        return SKY_DEFER
+    return SKY_SH if scene.has_sh_env else SKY_CONST
+
+
 def paths_buffers(scene: Scene, params, device):
-    """(int32 program, float32 data) of `csrc/mega_paths.cu`: the material
-    program, the light table and the sky power as the tail (the kernel
-    reads the lights only with NEE, at most `MAX_LIGHTS` of them)."""
+    """(int32 program, float32 data) of `csrc/mega_paths.cu` and
+    `csrc/wavefront_paths.cu`: the material program, the light table, the
+    sky power and, for an SH sky, its coefficients as the tail (the
+    kernels read the lights only with NEE, at most `MAX_LIGHTS` of
+    them)."""
     program = compile_program(scene)
     n_lights = scene.n_lights
     lights = params["lights"]
@@ -327,7 +345,12 @@ def paths_buffers(scene: Scene, params, device):
         head += [pos.reshape(-1)] + [
             lights[k].to(device=device, dtype=torch.float32).reshape(-1)
             for k in ("power", "radius")]
-    base = 3 * len(program[1]) + 1 + 5 * n_lights
+    if sky_kind(scene) == SKY_SH:
+        sh = params["env"]["sh"].to(device=device, dtype=torch.float32)
+        if tuple(sh.shape) != (16, 3):
+            raise ValueError(f"SH coefficients have shape {tuple(sh.shape)}")
+        head.append(sh.reshape(-1))
+    base = 3 * len(program[1]) + sum(int(h.numel()) for h in head)
     table, instrs, slots, _ = material_program(scene, base)
     n_mats = len(scene.materials)
     instr0 = len(program[0]) + 2 + len(table)     # absolute first word

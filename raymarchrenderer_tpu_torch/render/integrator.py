@@ -18,8 +18,10 @@ CUDA tensors, `march` for CPU tensors); "recorded" replays the banks of
 the recording megakernel (`kernels.record.trace_record_fused`), and is
 the differentiable forward only.  The JAX package's choice between an
 unrolled and a scanned replay is a compile-time matter with no
-counterpart here.  Env-map skies (`defer_sky`) and `march(with_steps=True)`
-are not ported.
+counterpart here.  `trace_rgb(defer_sky=True)` leaves the sky out and
+returns each path's miss event (throughput and direction) for a
+composite outside, as the env-map kernels do; `march(with_steps=True)`
+is not ported.
 """
 from __future__ import annotations
 
@@ -158,14 +160,16 @@ def _zeros3(shape, device) -> Vec3:
 
 def _direct_light(scene: Scene, params, cfg: RenderConfig, hitp: Vec3,
                   normal: Vec3, throughput: Vec3, albedo: Vec3,
-                  rng: RNGStream, mask, shadow_march=None) -> Vec3:
+                  rng: RNGStream, mask, shadow_march=None,
+                  work: dict = None) -> Vec3:
     """Next-event estimation toward every sphere light (the gen-2 pattern,
     `RayMarch2.glsl:480-501`): throughput * albedo * cos+ * power / dist^2
     / pi, where a shadow march toward a jittered point of the light
     reaches it.  The shadow march is detached (visibility is binary) and
     capped at the light's distance; `shadow_march(o, d, dist_mult,
     active, t_max, light)` replaces `march` (the fused kernel, or the
-    recorded visibility)."""
+    recorded visibility).  `work` counts the plain march's steps as
+    `march` does."""
     shape = hitp.x.shape
     total = _zeros3(shape, hitp.x.device)
     ones = torch.ones(shape, dtype=torch.float32, device=hitp.x.device)
@@ -181,7 +185,7 @@ def _direct_light(scene: Scene, params, cfg: RenderConfig, hitp: Vec3,
             with torch.no_grad():
                 sd, _, _ = march(scene, params, cfg, _detach(o_sh),
                                  _detach(ldir), ones, mask,
-                                 t_max=dist_l.detach())
+                                 t_max=dist_l.detach(), work=work)
         else:
             sd, _, _ = shadow_march(_detach(o_sh), _detach(ldir), ones, mask,
                                     dist_l.detach(), li)
@@ -194,9 +198,10 @@ def _direct_light(scene: Scene, params, cfg: RenderConfig, hitp: Vec3,
     return total
 
 
-def _march_fns(scene, params, cfg, march_impl, differentiable):
+def _march_fns(scene, params, cfg, march_impl, differentiable, work=None):
     """(march_fn(o, d, dist_mult, active, rec_b), shadow_march or None) of
-    one `march_impl`."""
+    one `march_impl`; `work` counts the plain march's steps (oracle, not
+    differentiable)."""
     from raymarchrenderer_tpu_torch.diff import march as dmarch
     from raymarchrenderer_tpu_torch.kernels.march import march_fused
     if march_impl not in MARCH_IMPLS:
@@ -227,16 +232,22 @@ def _march_fns(scene, params, cfg, march_impl, differentiable):
     else:
         def march_fn(o, d, dist_mult, active, _rec_b):
             with torch.no_grad():
-                return march(scene, params, cfg, o, d, dist_mult, active)
+                return march(scene, params, cfg, o, d, dist_mult, active,
+                             work=work)
     return march_fn, shadow
 
 
 def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
               px, py, sample, channels: Vec3, direct_light: bool = False,
               differentiable: bool = False, defer_sky: bool = False,
-              march_impl: str = "oracle", recorded=None) -> Vec3:
+              march_impl: str = "oracle", recorded=None,
+              work: dict = None) -> Vec3:
     """Gen-1 `trace` over planes of rays: the colour of each lane's path
-    (throughput times the sky on a miss, plus the NEE radiance).
+    (throughput times the sky on a miss, plus the NEE radiance).  With
+    `defer_sky=True` a miss multiplies by zero instead, and the return is
+    (colour, miss throughput, miss direction): a path misses at most once,
+    so `colour + miss_thr * sky(miss_dir)` is the path's colour (the miss
+    Vec3s are zero for a path that never missed).
 
     Paths end on an emitter (dir == 0), a sky miss or after
     `cfg.max_bounces` bounces (then the bare throughput is returned, as
@@ -245,14 +256,15 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
     scalar); `channels` the path's colour mask.  `differentiable=True`
     attaches implicit-function gradients to every hit distance
     (`diff.march`); `march_impl="recorded"` replays `recorded`, the banks
-    of `kernels.record.trace_record_fused` for these planes."""
-    if defer_sky:
-        raise NotImplementedError("defer_sky (env-map skies) is not ported "
-                                  "yet")
+    of `kernels.record.trace_record_fused` for these planes.  `work`, with
+    the oracle march, gains the map evaluations a one-thread-per-path
+    kernel makes: "march" (steps of live lanes, shadow rays included) and
+    "shade" (hits shaded: `normal_taps` evaluations each; the march
+    returns the material)."""
     if march_impl == "recorded" and recorded is None:
         raise ValueError("march_impl='recorded' needs recorded planes")
     march_fn, shadow_march = _march_fns(scene, params, cfg, march_impl,
-                                        differentiable)
+                                        differentiable, work)
     shape = d0.x.shape
     dev = d0.x.device
     ones = torch.ones(shape, dtype=torch.float32, device=dev)
@@ -260,6 +272,7 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
     zeros3 = _zeros3(shape, dev)
     n_l = scene.n_lights
     o, d, color, extra = eye, d0, channels, zeros3
+    miss_thr, miss_dir = zeros3, zeros3
     inside = torch.zeros(shape, dtype=torch.float32, device=dev)
     active = torch.ones(shape, dtype=torch.bool, device=dev)
     for b in range(cfg.max_bounces):
@@ -280,7 +293,15 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
                                          channels, rng), mid)
         hit_active = active & hitm
         miss_active = active & ~hitm
-        sky = scene.sky(params, d)
+        if work is not None:
+            work["shade"] = work.get("shade", 0) + hit_active.sum()
+        if defer_sky:
+            # bank the miss event; the caller composites its sky
+            miss_thr = vselect(miss_active, color, miss_thr)
+            miss_dir = vselect(miss_active, d, miss_dir)
+            sky = zeros3
+        else:
+            sky = scene.sky(params, d)
         throughput = color
         color = color * vselect(hit_active, s.color,
                                 vselect(miss_active, sky, ones3))
@@ -292,7 +313,7 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
         if direct_light and n_l:
             extra = extra + _direct_light(
                 scene, params, cfg, hitp, normal, throughput, s.color,
-                rng.fork(7), active, shadow_march=shadow_march)
+                rng.fork(7), active, shadow_march=shadow_march, work=work)
         if cfg.rr_start_bounce >= 0:
             p = torch.clamp(color.max_component(), cfg.rr_min_prob, 1.0)
             u = rng.fork(13).next()
@@ -306,6 +327,8 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
         o_next = vselect(override, s.hit, hitp + normal * off)
         o = vselect(active, o_next, o)
         d = vselect(active, s.dir, d)
+    if defer_sky:
+        return color + extra, miss_thr, miss_dir
     return color + extra
 
 
@@ -368,14 +391,43 @@ def spp_rays(cfg: RenderConfig, corners, origin_xy, patch_shape, sample0,
 def render_patch(scene: Scene, params, cfg: RenderConfig, corners,
                  origin_xy, patch_shape, sample, direct_light: bool = False,
                  differentiable: bool = False,
-                 march_impl: str = "oracle") -> Vec3:
+                 march_impl: str = "oracle", defer_sky: bool = False):
     """One sample of the (ph, pw) patch at `origin_xy` = (x, y) of the
     frame, as a Vec3 of (ph, pw) planes on the corners' device.  The RNG
     is keyed on absolute pixel coordinates, so any patching of the frame
-    gives the same pixels."""
-    return render_patch_spp(scene, params, cfg, corners, origin_xy,
-                            patch_shape, sample, 1, direct_light,
-                            differentiable, march_impl)
+    gives the same pixels.
+
+    `defer_sky=True` returns (colour, miss throughput, miss direction) as
+    `trace_rgb(defer_sky=True)` does; with `cfg.separate_channels` the
+    colour sums the three channel paths and the miss Vec3s hold each
+    path's event on a leading axis of 3 (channel R, G, B)."""
+    if not defer_sky:
+        return render_patch_spp(scene, params, cfg, corners, origin_xy,
+                                patch_shape, sample, 1, direct_light,
+                                differentiable, march_impl)
+    if march_impl == "recorded":
+        raise ValueError("defer_sky renders; the recorded replay evaluates "
+                         "its sky in place")
+    px, py, samp, eye, d = spp_rays(cfg, corners, origin_xy, patch_shape,
+                                    sample, 1)
+    shape = d.x.shape
+    if not cfg.separate_channels:
+        return trace_rgb(scene, params, cfg, eye, d, px, py, samp,
+                         _full3(shape, d.x.device, (1.0, 1.0, 1.0)),
+                         direct_light, differentiable, defer_sky=True,
+                         march_impl=march_impl)
+    total, thr, mdir = _zeros3(shape, d.x.device), [], []
+    for ci, mask in enumerate(_CHANNELS):
+        c, t, md = trace_rgb(scene, params, cfg, eye, d, px, py,
+                             samp * 4 + (ci + 1),
+                             _full3(shape, d.x.device, mask), direct_light,
+                             differentiable, defer_sky=True,
+                             march_impl=march_impl)
+        total = total + c
+        thr.append(t)
+        mdir.append(md)
+    return (total, Vec3(*(torch.stack(v) for v in zip(*thr))),
+            Vec3(*(torch.stack(v) for v in zip(*mdir))))
 
 
 def render_patch_spp(scene: Scene, params, cfg: RenderConfig, corners,

@@ -24,8 +24,8 @@ lanes overshoot `max_dist`, so the peel is part of the semantics.  Every
 random draw is keyed on (seed, px, py, sample, bounce, slot), so a lane's
 paths do not depend on the batch it runs in.  Forward only;
 `shade_gate` is fixed at 0 (an unconditional pass per body; the gate is
-bitwise-invariant in the JAX package), and the occupancy counters and the
-deferred sky are not ported yet.
+bitwise-invariant in the JAX package), and the occupancy counters are not
+ported.
 
 `trace_mega_paths` runs the gen-1 RGB transport the same way, with the
 scene's material graphs (`Scene.shade`), Russian roulette, dispersion and
@@ -36,7 +36,11 @@ it banks every shaded hit's march residuals (t, material, hit) and every
 resolved shadow ray's visibility, the planes the differentiable replay
 reads in place of its marches (`kernels/record.py`);
 `trace_mega_spectral(record_banks=True)` is the spectral recorder's plain
-version in the same way.
+version in the same way.  The RGB schedule's sky is the scene's
+(`Scene.sky`: constant or SH) at each miss, or, with `defer_sky` (env-map
+scenes), a miss parks as `_WAIT_MISS` and the regeneration banks its
+throughput and packed equirect (u, v) at the path's slot for the
+composite outside (`kernels/march.py`).
 """
 from __future__ import annotations
 
@@ -47,7 +51,7 @@ from raymarchrenderer_tpu_torch.core.rng import RNGStream
 from raymarchrenderer_tpu_torch.core.sampling import (
     uniform_sphere, uniform_sphere_or_hemisphere)
 from raymarchrenderer_tpu_torch.core.spectral import wavelength_to_rgb
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3, atan2_poly, vselect
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import get_normal
 from raymarchrenderer_tpu_torch.render.raygen import eye_vec, primary_rays
@@ -66,7 +70,8 @@ _SHADOW = 4      # NEE: marching the shadow ray toward the current light
 _SH_LIT = 5      # NEE: shadow ray reached the light (or its budget)
 _SH_OCC = 6      # NEE: shadow ray hit something first
 _EXH = 7         # all samples done (the largest state)
-_WAIT_MISS = -1  # parked miss: the sky is an emitter band, so misses shade
+_WAIT_MISS = -1  # parked miss: spectral, the sky is an emitter band, so
+#                 misses shade; RGB with defer_sky, banked at regen
 
 
 def _bank_write(bank, slot, mask, value) -> None:
@@ -310,10 +315,25 @@ class _PathLanes:
                  "li", "sh_store")
 
 
+def pack_uv(d: Vec3) -> torch.Tensor:
+    """The deferred sky's bank value of a miss direction `d`: its equirect
+    (u, v) quantised to 16 bits each and packed (u << 16) | v (int32), the
+    JAX package's quantisation op for op: atan2_poly, phi wrapped to
+    [0, 2 pi), u = phi / 2 pi, v = 1 - (y * 0.5 + 0.5), truncated to int32
+    after * 65536, clipped to [0, 65535].  The composite reads it back at
+    the bin centres (`kernels.march.composite_uv`)."""
+    two_pi = 6.283185307179586
+    phi = atan2_poly(d.z, d.x)
+    phi = torch.where(phi < 0, phi + two_pi, phi)
+    uu = phi / two_pi
+    vv = 1.0 - (d.y * 0.5 + 0.5)
+    ui = torch.clamp((uu * 65536.0).to(torch.int32), 0, 65535)
+    vi = torch.clamp((vv * 65536.0).to(torch.int32), 0, 65535)
+    return (ui << 16) | vi
+
+
 def check_paths_supported(scene: Scene, cfg: RenderConfig) -> None:
     """Refuse, out loud, what the RGB path does not port yet."""
-    if scene.has_sh_env:
-        raise NotImplementedError("the SH sky is not ported yet")
     if cfg.normal_taps not in (4, 6):
         raise NotImplementedError(
             f"normal_taps={cfg.normal_taps} is not ported yet (4 or 6)")
@@ -338,8 +358,15 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     toward every light of the scene, the shadow rays marching as segments
     of the same loop.  `cfg.rr_start_bounce >= 0` turns on Russian
     roulette, drawn from `rng.fork(13)` at the lane's bounce.  `work` is
-    as for `trace_mega_spectral` (shadow-ray steps count as "march").  The
-    deferred (env-map) sky is not ported yet.
+    as for `trace_mega_spectral` (shadow-ray steps count as "march").
+
+    `defer_sky` (env-map scenes): returns (sum, banks) with the sky left
+    out of the sum.  A missed path parks as `_WAIT_MISS`; the next
+    regeneration banks its throughput and its direction's equirect (u, v),
+    quantised to 16 bits each and packed (u << 16) | v, at the path's
+    slot of the banks (thr_r, thr_g, thr_b float32 and uv int32, each
+    (P, *shape), P = n_paths), and, with NEE, adds the path's NEE
+    radiance to the sum.  A slot whose path ended on a hit keeps thr = 0.
 
     `record_banks`: returns (sum, banks), the banks stacked over slots,
     P = n_paths paths per bounce: t float32, mid int32 and hit int32, each
@@ -349,9 +376,8 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     lit and 0 when occluded.  Unreached slots keep the march's miss values
     (t = max_dist, mid = -1, hit = 0, sd lit).  A recording run evaluates
     no sky (a miss ends the path, so no banked value depends on it)."""
-    if defer_sky:
-        raise NotImplementedError("defer_sky (env-map skies) is not ported "
-                                  "yet")
+    if record_banks and defer_sky:
+        raise ValueError("record_banks and defer_sky are exclusive modes")
     check_knobs(march_unroll, regen_cadence)
     check_paths_supported(scene, cfg)
     shape = px.shape
@@ -381,6 +407,13 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         if n_l:
             banks += (torch.full((bp * n_l, *shape), 3.4e38,
                                  dtype=torch.float32, device=device),)
+    if defer_sky:
+        banks = tuple(torch.zeros((n_paths, *shape), dtype=torch.float32,
+                                  device=device) for _ in range(3)) + (
+            torch.zeros((n_paths, *shape), dtype=torch.int32,
+                        device=device),)
+    # a missed bounce ray parks here (a shadow ray's miss is _SH_LIT)
+    miss_state = _WAIT_MISS if defer_sky else _REGEN
 
     if dispersion:
         def lane_streams(s_idx):
@@ -451,18 +484,18 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
             st.steps = st.steps + 1
             is_miss = seg & not_fail & ~is_hit & (
                 (st.t >= tmax) | (st.steps >= cfg.max_steps))
-            if not record_banks:    # a recording evaluates no sky
-                sky_miss(st, is_miss & ~shadow if nee else is_miss)
+            sky_miss(st, is_miss & ~shadow if nee else is_miss)
             if nee:
                 # an exhausted shadow ray counts as lit
                 st.state = torch.where(
                     is_hit, torch.where(shadow, _SH_OCC, _WAIT),
                     torch.where(is_miss,
-                                torch.where(shadow, _SH_LIT, _REGEN),
+                                torch.where(shadow, _SH_LIT, miss_state),
                                 st.state))
             else:
                 st.state = torch.where(
-                    is_hit, _WAIT, torch.where(is_miss, _REGEN, st.state))
+                    is_hit, _WAIT, torch.where(is_miss, miss_state,
+                                               st.state))
             still = seg & ~is_hit & ~is_miss
         if relax:
             new_len = torch.where(fail, st.step_len * one_minus_omega,
@@ -475,9 +508,11 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
             st.t = torch.where(still, st.t + dist * cfg.step_multiply, st.t)
 
     def sky_miss(st, bounce_miss):
-        """A missed bounce ray's throughput times the sky."""
-        st.thr = vselect(bounce_miss, st.thr * scene.sky(params, st.d),
-                         st.thr)
+        """A missed bounce ray's throughput times the sky (not for a
+        recording, whose banks no sky reaches, nor with `defer_sky`)."""
+        if not (record_banks or defer_sky):
+            st.thr = vselect(bounce_miss, st.thr * scene.sky(params, st.d),
+                             st.thr)
 
     def mark_misses(st):
         """The lazy miss test at a pass boundary, with the miss-time sky
@@ -491,13 +526,12 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
             tmax = cfg.max_dist
         is_miss = seg & ((st.t >= tmax)
                          | (st.gstep - st.steps >= cfg.max_steps))
-        if not record_banks:
-            sky_miss(st, is_miss & ~shadow if nee else is_miss)
+        sky_miss(st, is_miss & ~shadow if nee else is_miss)
         if nee:
             st.state = torch.where(
-                is_miss, torch.where(shadow, _SH_LIT, _REGEN), st.state)
+                is_miss, torch.where(shadow, _SH_LIT, miss_state), st.state)
         else:
-            st.state = torch.where(is_miss, _REGEN, st.state)
+            st.state = torch.where(is_miss, miss_state, st.state)
 
     def light_segment(lix, nrng, hitp, normal, thr):
         """(direction, distance, contribution) of the shadow ray toward a
@@ -612,12 +646,27 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         if relax:
             reset_relax(st, parked)
 
+    def bank_miss(st, miss_pending):
+        """Bank each parked miss's (throughput, packed (u, v)) at its
+        path's slot."""
+        for bank, v in zip(banks, (*st.thr, pack_uv(st.d))):
+            _bank_write(bank, st.s_idx, miss_pending, v)
+
     def regen(st):
         """Bank finished paths and respawn the lane on its next path."""
         pending = st.state == _REGEN
         val = st.thr + st.extra if nee else st.thr
         st.acc = Vec3(*(a + torch.where(pending, v, 0.0)
                         for a, v in zip(st.acc, val)))
+        if defer_sky:
+            # a parked miss banks its event; only its NEE radiance joins
+            # the sum (the sky term is the composite's)
+            miss_pending = st.state == _WAIT_MISS
+            bank_miss(st, miss_pending)
+            if nee:
+                st.acc = Vec3(*(a + torch.where(miss_pending, e, 0.0)
+                                for a, e in zip(st.acc, st.extra)))
+            pending = pending | miss_pending
         st.s_idx = torch.where(pending, st.s_idx + 1, st.s_idx)
         exhausted = st.s_idx >= n_paths
         st.state = torch.where(
@@ -680,4 +729,4 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     march_step(st)                      # the peeled first step
     while bool((st.state < _EXH).any()):
         body(st)
-    return (st.acc, banks) if record_banks else st.acc
+    return (st.acc, banks) if record_banks or defer_sky else st.acc

@@ -113,7 +113,7 @@ def _apply_band_soft(wl, power, u, min_w, max_w, mat_p, edge):
 def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
                    cfg: RenderConfig, eye: Vec3, d0: Vec3, px, py, sample,
                    differentiable: bool = False, march_impl: str = "oracle",
-                   soft_edge: float = 8.0, recorded=None):
+                   soft_edge: float = 8.0, recorded=None, work: dict = None):
     """Gen-3 `trace` (`RayMarch3.glsl:347-444`) over planes of rays, one
     Python loop over bounces: returns (wavelength, power) per lane.
 
@@ -129,10 +129,13 @@ def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
     scene parameters and the band rows.  `march_impl` as for
     `integrator.trace_rgb`: "oracle", "fused" (`march_fused`) or
     "recorded" (replay `recorded`, the banks of
-    `kernels.record.trace_record_fused_spectral`; differentiable only)."""
+    `kernels.record.trace_record_fused_spectral`; differentiable only).
+    `work` counts the oracle march's steps and the hits shaded, as
+    `integrator.trace_rgb` does."""
     if march_impl == "recorded" and recorded is None:
         raise ValueError("march_impl='recorded' needs recorded planes")
-    march_fn, _ = _march_fns(scene, params, cfg, march_impl, differentiable)
+    march_fn, _ = _march_fns(scene, params, cfg, march_impl, differentiable,
+                             work)
     if differentiable:
         def band(*a):
             return _apply_band_soft(*a, edge=soft_edge)
@@ -158,6 +161,8 @@ def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
         u = rng.next()
         hit_active = active & hitm
         miss_active = active & ~hitm
+        if work is not None:
+            work["shade"] = work.get("shade", 0) + hit_active.sum()
         wl_h, pw_h, absorbed = band(wl, power, u, m_min, m_max, m_pow)
         wl_s, pw_s, _ = band(wl, power, u, sky_min, sky_max, sky_p)
         new_wl = torch.where(hit_active, wl_h,

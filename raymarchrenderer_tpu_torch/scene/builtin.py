@@ -159,8 +159,12 @@ class SceneBuilder:
                            "lights": self._lights,
                            "environment": self._env})
 
-    def build(self) -> Scene:
-        return loads_scene(self.to_json())
+    def build(self, env_image=None, env_filter: str = "linear",
+              env_gather: str = "exact") -> Scene:
+        """The scene, with an equirect env image as its sky when given
+        (`loads_scene`)."""
+        return loads_scene(self.to_json(), env_image,
+                           env_filter=env_filter, env_gather=env_gather)
 
 
 # -----------------------------------------------------------------------------

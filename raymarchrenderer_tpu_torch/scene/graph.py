@@ -7,7 +7,8 @@ dict (`Scene.init_params`) of float32 tensors, with the same nesting and
 leaf order as the JAX package's pytree:
 
     {"materials": [[leaf, ...], ...], "objects": [[leaf, ...], ...],
-     "lights": {"pos", "power", "radius"}, "env": {"power"[, "sh"]}}
+     "lights": {"pos", "power", "radius"},
+     "env": {"power"[, "image" | "sh"]}}
 
 `Scene.map` / `Scene.map_dist` evaluate the object graphs and
 `Scene.shade` the material graphs eagerly over a batch of points; the CUDA
@@ -17,15 +18,20 @@ kernels run the same graphs from the compiled programs of
 Both reference scene-format generations parse and shade
 (`Graphics.cpp:412-463` new format with the gen-2 BRDF nodes, the old
 register format with the gen-1 nodes), including the gen-3 `spectral`
-blocks.  The sky is the constant `env.power`; env-image and SH skies are
-not supported by this package yet (an SH sky parses, and the renderers
-refuse it).
+blocks.  The sky (`Scene.sky`, `skyColor` of `RayMarch.glsl:78-113`) is
+the constant `env.power`, an equirect env image (`env_image`, the
+reference's `veranda_1k.hdr` slot, `Graphics.cpp:287`) read by
+`Scene.sky_uv` ("exact": the bilinear GL_LINEAR footprint as one gather
+from a quad table; "mxu": the bilinear read of the solid-angle
+prefiltered table `prefilter_env`; either with `env_filter="nearest"`),
+or an l <= 3 spherical-harmonic sky (`env_sh` or the scene's
+`environment.sh`, `core/sh.py`).
 """
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import Any, Dict, List, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -198,6 +204,17 @@ class Scene:
     materials: Tuple[MaterialDef, ...]
     objects: Tuple[ObjectDef, ...]
     n_lights: int = 0
+    has_env_map: bool = False
+    # the env image's sampler: "linear" (GL_LINEAR, the reference's
+    # sampler state) or "nearest"
+    env_filter: str = "linear"
+    # the env lookup: "exact" reads the full-resolution texture; "mxu"
+    # reads the solid-angle prefiltered `env_mxu_res` table (the JAX
+    # package contracts tent weights on the TPU's matrix unit; here the
+    # same bilinear read of the table is four taps)
+    env_gather: str = "exact"
+    env_mxu_res: Tuple[int, int] = (32, 64)
+    # SH sky: params["env"]["sh"] is a (16, 3) coefficient array
     has_sh_env: bool = False
     # gen-3 band-filter rows (min_wave, max_wave, power, kind) aligned with
     # `materials`, from each material's optional `spectral` block; empty =
@@ -268,18 +285,102 @@ class Scene:
         return out
 
     def sky(self, params: dict, direction: Vec3) -> Vec3:
-        """`skyColor` (`RayMarch.glsl:101`) with no env map: the constant
-        vec3(power)."""
+        """`skyColor` (`RayMarch.glsl:78-113`): the equirect env image
+        when present (u = atan2(z, x) / 2 pi wrapped to [0, 1), v = 1 -
+        (y * 0.5 + 0.5), read by `sky_uv`), else the SH sky, else the
+        constant vec3(power)."""
+        if self.has_env_map:
+            two_pi = 2.0 * np.pi
+            phi = torch.atan2(direction.z, direction.x)
+            phi = torch.where(phi < 0, phi + two_pi, phi)
+            u = phi / two_pi
+            v = 1.0 - (direction.y * 0.5 + 0.5)
+            return self.sky_uv(params, u, v)
         if self.has_sh_env:
-            raise NotImplementedError("the SH sky is not ported yet")
+            from raymarchrenderer_tpu_torch.core.sh import sh_eval
+            return sh_eval(params["env"]["sh"], direction)
         c = params["env"]["power"].to(torch.float32).expand(
             direction.x.shape)
         return Vec3(c, c, c)
+
+    def sky_uv(self, params: dict, u, v) -> Vec3:
+        """The equirect lookup at (u, v), the GL_LINEAR footprint of the
+        reference's sampler: u wraps (phi is periodic), v clamps (the
+        poles), texel centres at half-integers.  "exact" reads the
+        full-resolution image with one gather per lookup from a quad table
+        whose row (y, x) holds the 2 x 2 footprint (the wrap and the clamp
+        baked into its padding), weighted in the JAX package's order;
+        `env_gather="mxu"` reads the prefiltered table (`_sky_uv_table`).
+        `env_filter="nearest"` takes the one texel under (u, v)."""
+        img = params["env"]["image"]          # (H, W, 3) linear float32
+        if self.env_gather == "mxu":
+            kh, kw = self.env_mxu_res
+            return _sky_uv_image(prefilter_env(img, kh, kw), u, v,
+                                 self.env_filter)
+        return _sky_uv_image(img, u, v, self.env_filter)
 
     def light(self, params: dict, i: int):
         """(position, power, radius) of sphere light i."""
         lp = params["lights"]
         return _param_to_vec3(lp["pos"][i]), lp["power"][i], lp["radius"][i]
+
+
+def _sky_uv_image(img, u, v, env_filter: str) -> Vec3:
+    """GL_LINEAR (or GL_NEAREST) read of the (h, w, 3) equirect `img` at
+    (u, v), as `Scene.sky_uv` describes.  On the prefiltered table this is
+    the JAX package's "mxu" lookup: its (N, K) tent-weight contraction has
+    at most four non-zero weights per row, the same bilinear kernel with
+    the same wrap and clamp, so four taps give what the contraction gives
+    without the (N, K) matrix (to 6e-8 in the JAX package's own probe)."""
+    h, w = img.shape[0], img.shape[1]
+    if env_filter == "nearest":
+        x0 = torch.remainder(torch.floor(u * w).to(torch.int32), w)
+        y0 = torch.clamp(torch.floor(v * h).to(torch.int32), 0, h - 1)
+        texel = img.reshape(h * w, 3)[(y0 * w + x0).long()]
+        return Vec3(texel[..., 0], texel[..., 1], texel[..., 2])
+    x = u * w - 0.5
+    y = torch.clamp(v * h - 0.5, 0.0, h - 1.0)
+    x0f = torch.floor(x)
+    y0f = torch.floor(y)
+    fx = (x - x0f)[..., None]
+    fy = (y - y0f)[..., None]
+    x0 = torch.remainder(x0f.to(torch.int32), w)       # wrap in phi
+    y0 = torch.clamp(y0f.to(torch.int32), 0, h - 1)    # clamp at the poles
+    img_pad = torch.cat([img, img[:, :1]], dim=1)
+    img_pad = torch.cat([img_pad, img_pad[-1:]], dim=0)
+    quad = torch.cat([img_pad[:-1, :-1], img_pad[:-1, 1:],
+                      img_pad[1:, :-1], img_pad[1:, 1:]], dim=-1)
+    r = quad.reshape(h * w, 12)[(y0 * w + x0).long()]
+    t00, t10 = r[..., 0:3], r[..., 3:6]
+    t01, t11 = r[..., 6:9], r[..., 9:12]
+    texel = ((t00 * (1 - fx) + t10 * fx) * (1 - fy)
+             + (t01 * (1 - fx) + t11 * fx) * fy)
+    return Vec3(texel[..., 0], texel[..., 1], texel[..., 2])
+
+
+def prefilter_env(img, kh: int, kw: int):
+    """Solid-angle box prefilter of an equirect (h, w, 3) map to at most
+    (kh, kw, 3): each block averages its texels with sin(theta_row)
+    weights, normalised per block, so a table texel is the mean radiance
+    over the solid angle it covers.  The target shrinks to the largest
+    divisors of (h, w) not above (kh, kw); an image already that small is
+    returned as it is."""
+    h, w = img.shape[0], img.shape[1]
+    kh = min(kh, h)
+    kw = min(kw, w)
+    while h % kh:
+        kh -= 1
+    while w % kw:
+        kw -= 1
+    if (kh, kw) == (h, w):
+        return img
+    by, bx = h // kh, w // kw
+    theta = (torch.arange(h, dtype=torch.float32, device=img.device)
+             + 0.5) * (np.pi / h)
+    wgt = torch.sin(theta)[:, None, None]                      # (h, 1, 1)
+    num = (img * wgt).reshape(kh, by, kw, bx, 3).sum((1, 3))
+    den = wgt.expand(h, w, 1).reshape(kh, by, kw, bx, 1).sum((1, 3))
+    return num / den
 
 
 def _resolve(desc, params, vars_, point):
@@ -353,8 +454,18 @@ def _eval_object(obj: ObjectDef, params, p: Vec3):
     return d.expand(p.x.shape) if d.shape != p.x.shape else d
 
 
-def loads_scene(text: str) -> Scene:
-    """Parse a `.scene` JSON string (either format generation)."""
+
+
+def loads_scene(text: str, env_image: Optional[np.ndarray] = None,
+                env_sh: Optional[np.ndarray] = None,
+                env_filter: str = "linear",
+                env_gather: str = "exact") -> Scene:
+    """Parse a `.scene` JSON string (either format generation).
+
+    `env_image`: an (H, W, 3) equirect texture sky (`Graphics.cpp:287`).
+    `env_sh`: (16, 3) l <= 3 spherical-harmonic sky coefficients; an
+    `environment.sh` array in the scene does the same.  The texture wins
+    when both are given."""
     doc = json.loads(text)
     mats, mat_params = [], []
     for m in doc.get("materials", []):
@@ -379,9 +490,14 @@ def loads_scene(text: str) -> Scene:
 
     env = doc.get("environment", {})
     env_params: Dict[str, Any] = {"power": np.float32(env.get("power", 0.015))}
-    has_sh = "sh" in env
+    has_env = env_image is not None
+    if has_env:
+        env_params["image"] = np.asarray(env_image, np.float32)
+    if env_sh is None and "sh" in env:
+        env_sh = np.asarray(env["sh"], np.float32)
+    has_sh = env_sh is not None and not has_env
     if has_sh:
-        sh = np.asarray(env["sh"], np.float32)
+        sh = np.asarray(env_sh, np.float32)
         if sh.shape != (16, 3):
             raise ValueError(f"env_sh must be (16, 3), got {sh.shape}")
         env_params["sh"] = sh
@@ -400,9 +516,15 @@ def loads_scene(text: str) -> Scene:
     init = {"materials": mat_params, "objects": obj_params,
             "lights": light_params, "env": env_params}
     return Scene(tuple(mats), tuple(objs), n_lights=len(lights),
-                 has_sh_env=has_sh, spectral_rows=spec_rows, _init=init)
+                 has_env_map=has_env, has_sh_env=has_sh,
+                 env_filter=env_filter, env_gather=env_gather,
+                 spectral_rows=spec_rows, _init=init)
 
 
-def load_scene(path: str) -> Scene:
+def load_scene(path: str, env_image: Optional[np.ndarray] = None,
+               env_sh: Optional[np.ndarray] = None,
+               env_filter: str = "linear",
+               env_gather: str = "exact") -> Scene:
     with open(path) as f:
-        return loads_scene(f.read())
+        return loads_scene(f.read(), env_image, env_sh=env_sh,
+                           env_filter=env_filter, env_gather=env_gather)

@@ -82,16 +82,23 @@ def test_render_rgb_matches_jax_cli(tmp_path, capsys, nee):
 
 
 def test_render_needs_spectral(tmp_path):
-    """The RGB path no longer needs `--spectral`; what it refuses, out
-    loud, is a sky it has not ported: a scene with an SH sky raises."""
+    """The RGB path no longer needs `--spectral`, and it renders an SH sky
+    (a scene with nothing in it shows the sky itself); what it refuses,
+    out loud, is what it has not ported: `--normal-taps 0`."""
     from raymarchrenderer_tpu_torch.app import cli as tcli
     scene = tmp_path / "sh.scene"
     scene.write_text('{"materials": [], "objects": [], "environment": '
                      '{"sh": ' + str([[0.1, 0.2, 0.3]] * 16) + '}}')
-    with pytest.raises(NotImplementedError, match="SH sky"):
+    out = tmp_path / "x.npy"
+    assert tcli.main(["render", "--device", "cpu", "--scene", str(scene),
+                      "--width", "8", "--height", "8", "--spp", "1",
+                      "--out", str(out)]) == 0
+    img = np.load(out)
+    assert np.isfinite(img).all() and img.mean() > 0.0
+    with pytest.raises(NotImplementedError, match="normal_taps=0"):
         tcli.main(["render", "--device", "cpu", "--scene", str(scene),
                    "--width", "8", "--height", "8", "--spp", "1",
-                   "--out", str(tmp_path / "x.png")])
+                   "--normal-taps", "0", "--out", str(tmp_path / "y.png")])
 
 
 def test_cuda_device_without_a_card_fails(tmp_path):

@@ -22,7 +22,11 @@ wavefront recorder are held to the banks' bar; the wavefront recorder
 also against the mega recorder (kernel #5) on the same rays, with the
 bar of tests/test_diff.py:481-497 (decisions and visibility off on fewer
 than 5e-3 of the entries, t on both-hit entries within 5e-3 on all but
-5% of the later bounces' entries).
+5% of the later bounces' entries).  The deferred sky's throughput banks
+and raw sums are held to the image bars, its packed (u, v) banks as
+`test_defer_kernel_matches_plain` states, and its composites (and the
+wavefront mode's env images) to the JAX package's env bar: fewer than
+1e-3 of the values off by more than 1e-3.
 """
 import numpy as np
 import pytest
@@ -413,3 +417,221 @@ def test_train_spectral_grads_kernel_banks_match_plain_banks(cuda_device):
             if w.numel():
                 tol = 1e-3 * max(1e-6, float(w.abs().max()))
                 assert float((g - w).abs().max()) <= tol, (g, w)
+
+
+def _env_scene(kind="ball"):
+    """A ball on a box under a random 16 x 32 env image ("glass": a glass
+    ball; "nee": and a sphere light)."""
+    img = np.random.RandomState(7).uniform(0.0, 2.0, (16, 32, 3)).astype(
+        np.float32)
+    b = builtin.SceneBuilder()
+    m = b.diffuse([0.6, 0.5, 0.4])
+    if kind == "glass":
+        b.sphere(b.glass([0.9, 0.95, 1.0], ior=1.45), [0.0, 1.0, 0.0], 1.0)
+    else:
+        b.sphere(m, [0.0, 1.0, 0.0], 1.0)
+    b.box(m, [0.0, -0.05, 0.0], [8.0, 0.05, 8.0])
+    if kind == "nee":
+        b.light([3, 7, -3], 60.0, 0.8)
+    return b.build(env_image=img)
+
+
+def _uv_off(want, got, live):
+    """(fraction of live slots whose packed (u, v) differ, largest bin
+    distance there)."""
+    du = ((want >> 16) - (got >> 16)).abs()
+    dv = ((want & 0xFFFF) - (got & 0xFFFF)).abs()
+    off = ((du > 0) | (dv > 0))[live]
+    return (float(off.float().mean()) if off.numel() else 0.0,
+            int(torch.maximum(du, dv)[live].max()) if off.numel() else 0)
+
+
+# (scene kind, direct_light, config extras)
+_DEFER_CASES = {
+    "glass": ("glass", False, {}),
+    "nee": ("nee", True, {}),
+    "dispersion_rr": ("glass", False, dict(separate_channels=True,
+                                           rr_start_bounce=1)),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(_DEFER_CASES))
+def test_defer_kernel_matches_plain(cuda_device, case):
+    """The deferred-sky entry (MEGA_PATHS_DEFER) against
+    `trace_mega_paths(defer_sky=True)` on the same CUDA tensors, 3
+    samples of a patch, production knobs: the raw sum (NEE bar with NEE),
+    the throughput banks (kernel bar), the composite image at the env bar
+    (fewer than 1e-3 of the values off by more than 1e-3), and the packed
+    (u, v) on all but 2% of the live slots, at most 16 bins apart: torch's
+    CUDA sin / cos are an ulp from the kernel's `--fmad=false` build, and
+    after two or three diffuse bounces of these scenes the miss direction
+    has moved by up to 1e-4 of a turn (measured: 1.0-1.1% of the live
+    slots, up to 7 bins; thr and the raw sums equal); one launch."""
+    kind, nee, extra = _DEFER_CASES[case]
+    scene = _env_scene(kind)
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+                       max_dist=100.0, relax_omega=2.0, normal_taps=4,
+                       **extra)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    sched = {k: _PRODUCTION[k] for k in ("lazy_miss", "march_unroll",
+                                         "regen_cadence")}
+    launches = march.MEGA_PATHS_DEFER.launches
+    got = march._launch_mega_defer(scene, params, cfg, corners, (8, 4), 48,
+                                   80, 2, 3, nee, **sched)
+    torch.cuda.synchronize()
+    assert march.MEGA_PATHS_DEFER.launches == launches + 1
+    want = march._mega_defer_plain(scene, params, cfg, corners, (8, 4), 48,
+                                   80, 2, 3, nee, **sched)
+    if nee:
+        assert_nee_close(want[0].cpu().numpy(), got[0].cpu().numpy())
+    else:
+        off = frac_off(want[0].cpu().numpy(), got[0].cpu().numpy())
+        assert off < MAX_FRAC_OFF, off
+    for w, g in zip(want[1][:3], got[1][:3]):
+        off = frac_off(w.cpu().numpy(), g.cpu().numpy())
+        assert off < MAX_FRAC_OFF, off
+    live = (want[1][0] + want[1][1] + want[1][2]) > 0
+    assert float(live.float().mean()) > 0.05, float(live.float().mean())
+    frac, bins = _uv_off(want[1][3], got[1][3], live)
+    assert frac < 2e-2 and bins <= 16, (frac, bins)
+    off = frac_off(march.composite_uv(scene, params, *want).cpu().numpy(),
+                   march.composite_uv(scene, params, *got).cpu().numpy(),
+                   1e-3)
+    assert off < MAX_FRAC_OFF, off
+
+
+@pytest.mark.requires_cuda
+def test_env_render_matches_plain_chunks(cuda_device):
+    """render_fused_patch on an env scene, 37 samples (a chunk of 32 paths
+    and a tail launch of 5), against the same chunks through the plain
+    version and the same composite: the env bar (fewer than 1e-3 of the
+    values off by more than 1e-3)."""
+    scene = _env_scene()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=64, height=32, max_steps=96, max_bounces=3,
+                       max_dist=100.0, relax_omega=2.0, normal_taps=4)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=2.0).corner_rays_flat(
+        cuda_device)
+    launches = march.MEGA_PATHS_DEFER.launches
+    got = march.render_fused(scene, params, cfg, corners, 0, n_samples=37)
+    torch.cuda.synchronize()
+    assert march.MEGA_PATHS_DEFER.launches == launches + 2
+    kernel = march._launch_mega_defer
+    march._launch_mega_defer = march._mega_defer_plain
+    try:
+        want = march.render_fused(scene, params, cfg, corners, 0,
+                                  n_samples=37)
+    finally:
+        march._launch_mega_defer = kernel
+    assert frac_off(want.cpu().numpy(), got.cpu().numpy(), 1e-3) < \
+        MAX_FRAC_OFF
+
+
+@pytest.mark.requires_cuda
+def test_sh_kernel_matches_plain(cuda_device):
+    """The SH sky in-kernel (MEGA_PATHS with the ShSky policy) against
+    trace_mega_paths on the same CUDA tensors: the kernel bar."""
+    from raymarchrenderer_tpu_torch.core.sh import constant_coeffs
+    sh = constant_coeffs(0.2)
+    sh[1:] = np.random.RandomState(3).uniform(-0.1, 0.1, (15, 3))
+    b = builtin.SceneBuilder()
+    m = b.diffuse([0.6, 0.5, 0.4])
+    b.sphere(m, [0.0, 1.0, 0.0], 1.0)
+    b.box(m, [0.0, -0.05, 0.0], [8.0, 0.05, 8.0])
+    scene = loads_scene(b.to_json(), env_sh=sh)
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+                       max_dist=100.0, relax_omega=2.0, normal_taps=4)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    launches = march.MEGA_PATHS.launches
+    got = march.render_fused_patch(scene, params, cfg, corners, (8, 4),
+                                   (48, 80), 2, n_samples=3)
+    torch.cuda.synchronize()
+    assert march.MEGA_PATHS.launches == launches + 1
+    px, py = pixel_grid(80, 48, cuda_device, (8, 4))
+    sched = {k: _PRODUCTION[k] for k in ("lazy_miss", "march_unroll",
+                                         "regen_cadence")}
+    plain = trace_mega_paths(scene, params, cfg, corners, px, py, 2,
+                             n_samples=3, **sched).stack(-1)
+    plain = plain * float(np.float32(1.0 / 3.0))
+    assert frac_off(plain.cpu().numpy(), got.cpu().numpy()) < MAX_FRAC_OFF
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["sphere_on_floor", "csg_dispersion_nee_rr",
+                                  "env", "env_dispersion_nee"])
+def test_wavefront_kernel_matches_plain(cuda_device, case):
+    """The RGB wavefront entry against wavefront_paths_plain on the same
+    CUDA tensors, 5 samples (the env cases: 5 path slots of a bank of 8,
+    n_valid 5); one launch.  Images and throughput banks at the kernel
+    bar (NEE bar with NEE), the miss directions with fewer than 1e-3 of
+    their components off by more than 1e-4."""
+    extra, nee = {}, False
+    if case == "sphere_on_floor":
+        scene = builtin.sphere_on_floor()
+    elif case == "csg_dispersion_nee_rr":
+        scene, nee = builtin.csg_demo(), True
+        extra = dict(separate_channels=True, rr_start_bounce=1)
+    else:
+        scene = _env_scene("nee" if "nee" in case else "ball")
+        nee = "nee" in case
+        if "dispersion" in case:
+            extra = dict(separate_channels=True)
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+                       max_dist=100.0, relax_omega=2.0, normal_taps=4,
+                       **extra)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    k = 8 if scene.has_env_map else 0
+    args = (scene, params, cfg, corners, (8, 4), 48, 80, 2, 5, nee, k == 0,
+            k)
+    launches = march.WAVEFRONT_PATHS.launches
+    got = march._launch_wavefront_paths(*args)
+    torch.cuda.synchronize()
+    assert march.WAVEFRONT_PATHS.launches == launches + 1
+    want = march.wavefront_paths_plain(*args)
+    pairs = list(zip(want[1], got[1])) if k else []
+    img_w, img_g = (want[0], got[0]) if k else (want, got)
+    if nee:
+        assert_nee_close(img_w.cpu().numpy(), img_g.cpu().numpy())
+    else:
+        assert frac_off(img_w.cpu().numpy(), img_g.cpu().numpy()) < \
+            MAX_FRAC_OFF
+    for w, g in pairs[:3]:
+        assert frac_off(w.cpu().numpy(), g.cpu().numpy()) < MAX_FRAC_OFF
+    for w, g in pairs[3:]:
+        # a direction an ulp apart after a few bounces (sinf / cosf of the
+        # kernel against torch's CUDA build) drifts by up to 1e-3 on a few
+        # slots: measured 1 of 30720 components off by 1.04e-3
+        off = frac_off(w.cpu().numpy(), g.cpu().numpy(), 1e-4)
+        assert off < MAX_FRAC_OFF, off
+    if k:
+        assert float(got[1][0][5:].abs().max()) == 0.0   # untraced slots
+
+
+@pytest.mark.requires_cuda
+def test_wavefront_spectral_kernel_matches_plain(cuda_device):
+    """The spectral wavefront entry against wavefront_spectral_plain on
+    the same CUDA tensors, 4 samples of a patch at a non-zero origin."""
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    scene, params, mats = spectral_demo(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+                       max_dist=100.0, relax_omega=2.0, normal_taps=4)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    launches = march.WAVEFRONT_SPECTRAL.launches
+    got = march.render_fused_spectral(scene, params, mats, cfg, corners, 1,
+                                      n_samples=4, origin_xy=(8, 4),
+                                      patch_shape=(48, 80), mode="wavefront")
+    torch.cuda.synchronize()
+    assert march.WAVEFRONT_SPECTRAL.launches == launches + 1
+    want = march.wavefront_spectral_plain(scene, params, mats, cfg, corners,
+                                          1, 4, (8, 4), 48, 80)
+    assert float(got.mean()) > 0.0
+    assert frac_off(want.cpu().numpy(), got.cpu().numpy()) < MAX_FRAC_OFF

@@ -136,23 +136,24 @@ def _tiny():
 
 
 def test_unported_paths_refused():
-    """An SH sky, normal_taps=0 and the deferred sky are refused out loud
-    on the RGB path, never rendered as something else (the record banks
-    are ported: tests/test_torch_record.py)."""
+    """normal_taps=0 is refused out loud on the RGB path, never rendered
+    as something else, and so is a recording with the deferred sky (the
+    SH and env-image skies are ported: tests/test_torch_wavefront.py,
+    tests/test_torch_env_render.py; an SH sky renders here)."""
     cfg, corners = _tiny()
     sh = loads_scene('{"materials": [], "objects": [], "environment": '
                      '{"sh": ' + str([[0.1, 0.1, 0.1]] * 16) + '}}')
-    with pytest.raises(NotImplementedError, match="SH sky"):
-        tmarch.render_fused(sh, sh.init_params("cpu"), cfg, corners, 0)
+    img = tmarch.render_fused(sh, sh.init_params("cpu"), cfg, corners, 0)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
     scene = builtin.sphere_on_floor()
     params = scene.init_params("cpu")
     with pytest.raises(NotImplementedError, match="normal_taps=0"):
         tmarch.render_fused(scene, params, cfg.replace(normal_taps=0),
                             corners, 0)
     px, py = pixel_grid(8, 8, "cpu")
-    with pytest.raises(NotImplementedError, match="not ported"):
+    with pytest.raises(ValueError, match="exclusive"):
         tmega.trace_mega_paths(scene, params, cfg, corners, px, py, 0,
-                               defer_sky=True)
+                               defer_sky=True, record_banks=True)
 
 
 def test_knob_validation():
