@@ -57,12 +57,12 @@ Phases (any failure raises and the script exits non-zero):
          on a 128^2 patch, 11 samples (a chunk and a tail launch,
          against the same chunks on the plain version);
        * the SH sky in the RGB kernel on a 256^2 patch, 16 samples;
-       * the RGB wavefront entry on 256^2 patches at 4 bounces, 3 samples
-         (timed, with its bound), with NEE, dispersion and roulette, and
-         under the gradient sky at 11 samples (8 slots, then n_valid 3
-         of 8);
-       * the spectral wavefront entry on a 128^2 patch, 3 samples at 4
-         bounces.
+       * the wavefront entries at the full 16 bounces: the RGB one at its
+         main path's own launch (sphere_on_floor, 1024^2, 8 samples), on
+         128^2 patches with NEE, dispersion and roulette (3 samples) and
+         under the gradient sky (11 samples: 8 slots, then n_valid 3 of
+         8); the spectral one at its main path's launch (1024^2, 8
+         samples) and on a 128^2 patch at a non-zero origin, 3 samples.
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -1094,11 +1094,12 @@ def perf(dev, card):
 
 ENV_SCENE = os.path.join(_ROOT, "data", "scenes", "default.scene")
 _ENV_PATCH = (320, 384)       # (x, y) of the 256^2 csg NEE env patch
-_WAVE_PATCH = (384, 384)      # (x, y) of the 256^2 wavefront patches
+_WAVE_PATCH = (384, 384)      # (x, y) of the SH and wavefront patches
+_WAVE_SIZE = 128              # side of the wavefront parity patches: their
+#                               plain versions march sample by sample
 _WAVE_SPP = 3                 # prime samples of the wavefront patches
 _WAVE_ENV_SPP = 11            # env wavefront: 8 slots, then 3 of 8 valid
-_WAVE_BOUNCES = 4             # the wavefront patches' bounce budget: their
-#                               plain versions march sample by sample
+_WAVE_MAIN_SPP = 8            # samples of the wavefront main paths' launch
 _PRIME_SPP = 11               # dispersion env patch: 30 + 3 paths
 
 
@@ -1296,13 +1297,13 @@ def parity_sh(dev, card, sh_scene_path):
 
 
 def parity_wavefront_paths(dev, card):
-    """The RGB wavefront entry on 256^2 patches at 4 bounces, 3 samples
-    (prime): the sphere_on_floor without an env image (timed, with its
-    bound), csg with NEE, dispersion and roulette; then default.scene
-    under the gradient sky, 11 samples (a chunk of 8 path slots and one
-    with n_valid 3 of 8), through render_fused_patch against the same
-    chunks on the plain version.  Returns (max err, ms, plain ms,
-    bound)."""
+    """The RGB wavefront entry at the full bounce budget: the main path's
+    own launch (sphere_on_floor, 1024^2, 8 samples; timed, with its
+    bound); csg with NEE, dispersion and roulette on a 128^2 patch, 3
+    samples (prime); then default.scene under the gradient sky on a 128^2
+    patch, 11 samples (a chunk of 8 path slots and one with n_valid 3 of
+    8), through render_fused_patch against the same chunks on the plain
+    version.  Returns (max err, ms, plain ms, bound)."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
@@ -1312,33 +1313,35 @@ def parity_wavefront_paths(dev, card):
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
     scene = builtin.sphere_on_floor()
     params = scene.init_params(dev)
-    cfg = _main_cfg(max_bounces=_WAVE_BOUNCES)
-    args = (scene, params, cfg, corners, _WAVE_PATCH, 256, 256, 0,
-            _WAVE_SPP, False)
+    cfg = _main_cfg()
+    args = (scene, params, cfg, corners, (0, 0), 1024, 1024, 0,
+            _WAVE_MAIN_SPP, False)
     max_err, ms, plain_ms, work = _main_launch(
-        f"RGB wavefront, sphere_on_floor 256x256 patch at {_WAVE_PATCH}, "
-        f"{_WAVE_SPP} spp", lambda: march._launch_wavefront_paths(*args),
+        f"RGB wavefront, sphere_on_floor 1024x1024, {_WAVE_MAIN_SPP} spp, "
+        f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
+        lambda: march._launch_wavefront_paths(*args),
         lambda work=None: march.wavefront_paths_plain(*args, work=work),
         card)
     prog, data = paths_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
-                   256 * 256 * 12, lookups=0)
+                   1024 * 1024 * 12, lookups=0)
+    n = _WAVE_SIZE
     nscene = builtin.csg_demo()
     nparams = nscene.init_params(dev)
-    ncfg = _main_cfg(max_bounces=_WAVE_BOUNCES, separate_channels=True,
-                     rr_start_bounce=1)
-    nargs = (nscene, nparams, ncfg, corners, _WAVE_PATCH, 256, 256, 0,
+    ncfg = _main_cfg(separate_channels=True, rr_start_bounce=1)
+    nargs = (nscene, nparams, ncfg, corners, _WAVE_PATCH, n, n, 0,
              _WAVE_SPP, True)
     max_err = max(max_err, _compare(
-        f"RGB wavefront + NEE + dispersion + RR, csg_demo 256x256 patch, "
-        f"{_WAVE_SPP} spp", march._launch_wavefront_paths(*nargs),
+        f"RGB wavefront + NEE + dispersion + RR, csg_demo {n}x{n} patch, "
+        f"{_WAVE_SPP} spp, {ncfg.max_bounces} bounces",
+        march._launch_wavefront_paths(*nargs),
         march.wavefront_paths_plain(*nargs), nee=True))
     escene = _env_scene()
     eparams = escene.init_params(dev)
 
     def render():
         return march.render_fused_patch(escene, eparams, cfg, corners,
-                                        _WAVE_PATCH, (256, 256), 0,
+                                        _WAVE_PATCH, (n, n), 0,
                                         n_samples=_WAVE_ENV_SPP,
                                         mode="wavefront")
 
@@ -1348,16 +1351,19 @@ def parity_wavefront_paths(dev, card):
     if march.WAVEFRONT_PATHS.launches != launches + 2:
         raise AssertionError("the env wavefront render is not two launches")
     max_err = max(max_err, _env_compare(
-        f"RGB wavefront, deferred sky, default.scene 256x256 patch, "
-        f"{_WAVE_ENV_SPP} spp (8 slots, then n_valid 3 of 8)", got,
+        f"RGB wavefront, deferred sky, default.scene {n}x{n} patch, "
+        f"{_WAVE_ENV_SPP} spp, {cfg.max_bounces} bounces (8 slots, then "
+        f"n_valid 3 of 8)", got,
         _with_plain_launches(render)))
     return max_err, ms, plain_ms, bound
 
 
 def parity_wavefront_spectral(dev, card):
-    """The spectral wavefront entry on a 128^2 patch at a non-zero origin,
-    3 samples at 4 bounces, against wavefront_spectral_plain.  Returns
-    (max err, ms, plain ms, bound)."""
+    """The spectral wavefront entry at the full bounce budget against
+    wavefront_spectral_plain: the main path's own launch (spectral_demo,
+    1024^2, 8 samples; timed, with its bound), then a 128^2 patch at a
+    non-zero origin, 3 samples.  Returns (max err, ms, plain ms,
+    bound)."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
@@ -1366,20 +1372,30 @@ def parity_wavefront_spectral(dev, card):
         spectral_demo)
 
     scene, params, mats = spectral_demo(dev)
-    cfg = _main_cfg(max_bounces=_WAVE_BOUNCES)
+    cfg = _main_cfg()
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
+
+    def fns(origin, size, spp):
+        return (lambda: march.render_fused_spectral(
+                    scene, params, mats, cfg, corners, 0, n_samples=spp,
+                    origin_xy=origin, patch_shape=(size, size),
+                    mode="wavefront"),
+                lambda work=None: march.wavefront_spectral_plain(
+                    scene, params, mats, cfg, corners, 0, spp, origin, size,
+                    size, work=work))
+
     max_err, ms, plain_ms, work = _main_launch(
-        f"spectral wavefront, 128x128 patch at {_SPEC_PATCH}, {_WAVE_SPP} "
-        f"spp, {_WAVE_BOUNCES} bounces",
-        lambda: march.render_fused_spectral(
-            scene, params, mats, cfg, corners, 0, n_samples=_WAVE_SPP,
-            origin_xy=_SPEC_PATCH, patch_shape=(128, 128), mode="wavefront"),
-        lambda work=None: march.wavefront_spectral_plain(
-            scene, params, mats, cfg, corners, 0, _WAVE_SPP, _SPEC_PATCH, 128,
-            128, work=work), card)
+        f"spectral wavefront, 1024x1024, {_WAVE_MAIN_SPP} spp, "
+        f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
+        *fns((0, 0), 1024, _WAVE_MAIN_SPP), card)
     prog, data = spectral_buffers(scene, params, mats, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
-                   128 * 128 * 12, lookups=0)
+                   1024 * 1024 * 12, lookups=0)
+    kernel, plain = fns(_SPEC_PATCH, _WAVE_SIZE, _WAVE_SPP)
+    max_err = max(max_err, _compare(
+        f"spectral wavefront, {_WAVE_SIZE}x{_WAVE_SIZE} patch at "
+        f"{_SPEC_PATCH}, {_WAVE_SPP} spp, {cfg.max_bounces} bounces",
+        kernel(), plain()))
     return max_err, ms, plain_ms, bound
 
 
@@ -1570,6 +1586,7 @@ def wavefront_paths_path(dev, card):
 
     cfg = _main_cfg()
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    n = _WAVE_MAIN_SPP
     rgb = 0
     for label, scene in (("sphere_on_floor", builtin.sphere_on_floor()),
                          ("default.scene + gradient env", _env_scene())):
@@ -1577,7 +1594,7 @@ def wavefront_paths_path(dev, card):
         march.WAVEFRONT_PATHS.launches = 0
         t0 = time.perf_counter()
         img = march.render_fused(scene, params, cfg, corners, 0,
-                                 n_samples=8, mode="wavefront")
+                                 n_samples=n, mode="wavefront")
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         launches = march.WAVEFRONT_PATHS.launches
@@ -1587,24 +1604,23 @@ def wavefront_paths_path(dev, card):
                                  "launches or a bad image")
         rgb += launches
         print(f"main path, RGB wavefront (render_fused mode=\"wavefront\", "
-              f"{label}, 1024x1024, 8 spp): {launches} launch, {wall:.3f} s "
+              f"{label}, 1024x1024, {n} spp): {launches} launch, {wall:.3f} s "
               f"with the composite, image mean {float(img.mean()):.6f} "
               f"[{card}]", flush=True)
     scene, params, mats = spectral_demo(dev)
     march.WAVEFRONT_SPECTRAL.launches = 0
     t0 = time.perf_counter()
     img = march.render_fused_spectral(scene, params, mats, cfg, corners, 0,
-                                      n_samples=8, mode="wavefront")
+                                      n_samples=n, mode="wavefront")
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     spec = march.WAVEFRONT_SPECTRAL.launches
     if spec != 1 or not float(img.mean()) > 0.0:
         raise AssertionError(f"spectral wavefront path: {spec} launches")
     print(f"main path, spectral wavefront (render_fused_spectral mode="
-          f"\"wavefront\", 1024x1024, 8 spp): {spec} launch, {wall:.3f} s, "
+          f"\"wavefront\", 1024x1024, {n} spp): {spec} launch, {wall:.3f} s, "
           f"image mean {float(img.mean()):.6f} [{card}]", flush=True)
     return rgb, spec
-
 
 
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound):

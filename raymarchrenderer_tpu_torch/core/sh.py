@@ -62,7 +62,7 @@ def constant_coeffs(value: float) -> np.ndarray:
     return c
 
 
-def latlong_dirs(h: int, w: int, device="cpu") -> Vec3:
+def latlong_dirs(h: int, w: int, device="cuda") -> Vec3:
     """Unit directions of an (h, w) equirect grid in the `Scene.sky`
     texture convention (u = phi / 2 pi with phi = atan2(z, x) wrapped to
     [0, 2 pi); v = 1 - (y * 0.5 + 0.5); texel centres at half-integers),
@@ -79,9 +79,10 @@ def latlong_dirs(h: int, w: int, device="cpu") -> Vec3:
                   for a in (x, yy, z)))
 
 
-def bake_latlong(coeffs, h: int = 64, w: int = 128) -> np.ndarray:
-    """SH coefficients rendered to an (h, w, 3) linear latlong texture
-    (loadable back as an env image)."""
-    coeffs = torch.as_tensor(np.asarray(coeffs, np.float32))
-    c = sh_eval(coeffs, latlong_dirs(h, w))
-    return np.stack([c.x.numpy(), c.y.numpy(), c.z.numpy()], axis=-1)
+def bake_latlong(coeffs, h: int = 64, w: int = 128,
+                 device="cuda") -> np.ndarray:
+    """SH coefficients rendered on `device` to an (h, w, 3) linear latlong
+    texture (loadable back as an env image)."""
+    coeffs = torch.as_tensor(np.asarray(coeffs, np.float32), device=device)
+    c = sh_eval(coeffs, latlong_dirs(h, w, device))
+    return torch.stack([c.x, c.y, c.z], dim=-1).cpu().numpy()

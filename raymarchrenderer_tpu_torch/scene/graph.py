@@ -454,8 +454,6 @@ def _eval_object(obj: ObjectDef, params, p: Vec3):
     return d.expand(p.x.shape) if d.shape != p.x.shape else d
 
 
-
-
 def loads_scene(text: str, env_image: Optional[np.ndarray] = None,
                 env_sh: Optional[np.ndarray] = None,
                 env_filter: str = "linear",

@@ -106,9 +106,3 @@ def port_train_grads(ts, tp, tcfg, tc, spp, impl):
     loss, grads = tsharding.train_grads_sharded(
         ts, tp, tcfg, tc, torch.from_numpy(_TARGET), spp, march_impl=impl)
     return float(loss), [g.numpy() for g in param_leaves(grads)]
-
-
-def sky_first_bars(leaves, sky_shape):
-    """1e-4 for the leaf of shape `sky_shape`, 1e-3 for the others."""
-    return [1e-4 if tuple(leaf.shape) == sky_shape else 1e-3
-            for leaf in leaves]

@@ -467,7 +467,10 @@ def test_defer_kernel_matches_plain(cuda_device, case):
     CUDA sin / cos are an ulp from the kernel's `--fmad=false` build, and
     after two or three diffuse bounces of these scenes the miss direction
     has moved by up to 1e-4 of a turn (measured: 1.0-1.1% of the live
-    slots, up to 7 bins; thr and the raw sums equal); one launch."""
+    slots, up to 7 bins; thr and the raw sums equal).  The plain version
+    against itself on the CPU with sin and cos one ulp up on half their
+    inputs moves these scenes' banks by 0.47-0.98% and up to 13 bins
+    (test_torch_uv_witness.py); one launch."""
     kind, nee, extra = _DEFER_CASES[case]
     scene = _env_scene(kind)
     params = scene.init_params(cuda_device)
@@ -566,10 +569,10 @@ def test_sh_kernel_matches_plain(cuda_device):
                                   "env", "env_dispersion_nee"])
 def test_wavefront_kernel_matches_plain(cuda_device, case):
     """The RGB wavefront entry against wavefront_paths_plain on the same
-    CUDA tensors, 5 samples (the env cases: 5 path slots of a bank of 8,
-    n_valid 5); one launch.  Images and throughput banks at the kernel
-    bar (NEE bar with NEE), the miss directions with fewer than 1e-3 of
-    their components off by more than 1e-4."""
+    CUDA tensors, 5 samples at the full 16 bounces (the env cases: 5 path
+    slots of a bank of 8, n_valid 5); one launch.  Images and throughput
+    banks at the kernel bar (NEE bar with NEE), the miss directions with
+    fewer than 1e-3 of their components off by more than 1e-4."""
     extra, nee = {}, False
     if case == "sphere_on_floor":
         scene = builtin.sphere_on_floor()
@@ -582,7 +585,7 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
         if "dispersion" in case:
             extra = dict(separate_channels=True)
     params = scene.init_params(cuda_device)
-    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=16,
                        max_dist=100.0, relax_omega=2.0, normal_taps=4,
                        **extra)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
@@ -617,11 +620,12 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
 @pytest.mark.requires_cuda
 def test_wavefront_spectral_kernel_matches_plain(cuda_device):
     """The spectral wavefront entry against wavefront_spectral_plain on
-    the same CUDA tensors, 4 samples of a patch at a non-zero origin."""
+    the same CUDA tensors, 4 samples of a patch at a non-zero origin, 16
+    bounces."""
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         spectral_demo)
     scene, params, mats = spectral_demo(cuda_device)
-    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=16,
                        max_dist=100.0, relax_omega=2.0, normal_taps=4)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)

@@ -120,9 +120,9 @@ def test_sh_eval_and_bake_match_jax():
     assert float(min(g.min() for g in got)) == 0.0
     np.testing.assert_array_equal(tsh.constant_coeffs(0.7),
                                   jsh.constant_coeffs(0.7))
-    for g, w in zip(tsh.latlong_dirs(6, 10), jsh.latlong_dirs(6, 10)):
+    for g, w in zip(tsh.latlong_dirs(6, 10, "cpu"), jsh.latlong_dirs(6, 10)):
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
-    np.testing.assert_allclose(tsh.bake_latlong(coeffs, 16, 32),
+    np.testing.assert_allclose(tsh.bake_latlong(coeffs, 16, 32, "cpu"),
                                jsh.bake_latlong(coeffs, 16, 32), rtol=1e-6,
                                atol=1e-7)
 

@@ -17,9 +17,12 @@ bin edge).  The packed banks of a render: equal on all but 5% of the live
 slots, never more than 4 bins apart: a bin is 1.5e-5 of a turn, and a
 miss direction after a bounce inherits the SDF normal's finite difference
 of map values, which XLA:CPU's ulp-off sqrt, sin and cos move by about
-1e-5 (measured: up to 3.4% of the slots and 3 bins on these scenes).  On
-the card, kernel against plain version, `chip_smoke.py` holds the banks
-to 1e-3 and one bin (both use CUDA's libm).  Images: the JAX package's
+1e-5 (measured: 1.41% / 3 bins, 3.35% / 2, 1.34% / 3 on the three
+scenes; the port against itself with sqrt, sin and cos one ulp up on
+half their inputs, every throughput bank equal: 1.98% / 3, 4.96% / 3,
+1.53% / 3, test_torch_uv_witness.py).  On the card, kernel against plain
+version, `chip_smoke.py` holds the banks to 1e-3 and one bin (both use
+CUDA's libm).  Images: the JAX package's
 env bars (tests/test_kernels.py:84-123, 255-278): atol 5e-3 for a
 sample's image against its oracle, fewer than 1e-3 of the values off by
 more than 1e-3 for a multi-sample mean, by more than 5e-3 with

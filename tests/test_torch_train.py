@@ -22,6 +22,7 @@ from raymarchrenderer_tpu.parallel import sharding as jsharding
 from raymarchrenderer_tpu.render.config import RenderConfig as JCfg
 from raymarchrenderer_tpu.scene import builtin as jbuiltin
 from raymarchrenderer_tpu_torch.app import cli as tcli
+from raymarchrenderer_tpu_torch.core import sh as tsh
 from raymarchrenderer_tpu_torch.core.camera import Camera as TCamera
 from raymarchrenderer_tpu_torch.kernels import build
 from raymarchrenderer_tpu_torch.kernels import march as tmarch
@@ -127,6 +128,8 @@ def test_library_defaults_to_the_card(tmp_path):
         scene.init_params()
     with pytest.raises((AssertionError, RuntimeError)):
         TCamera().corner_rays_flat()
+    with pytest.raises((AssertionError, RuntimeError)):
+        tsh.bake_latlong(tsh.constant_coeffs(0.5), 4, 8)
     target = tmp_path / "t.npy"
     np.save(target, np.zeros((8, 8, 3), np.float32))
     with pytest.raises(SystemExit, match="no CUDA device"):

@@ -3,15 +3,14 @@ and gradients, the SH coefficients a leaf with a gradient (the replay
 evaluates `Scene.sky` differentiably; the recorder reads no sky), against
 the JAX package's gradient of the same loss on the same numpy inputs.
 
-Bars: as in test_torch_train_env.py, the loss to rtol 1e-5, the sh
-leaf's gradient to atol 1e-4 * max|g|, every other leaf's to atol 1e-3 *
-max|g| (an occasional path differs in its miss direction's bounce).
+Bars: as in test_torch_train_env.py, the loss to rtol 1e-5 and every
+leaf's gradient to atol 1e-4 * max|g| (measured: at most 3.4e-5, on the
+ball's centre).
 """
 import numpy as np
 import torch
 
-from _torch_env import (assert_grads_close, jax_train_grads,
-                        port_train_grads, sky_first_bars)
+from _torch_env import assert_grads_close, jax_train_grads, port_train_grads
 from _torch_parity import np_tree
 
 from raymarchrenderer_tpu.core.camera import Camera as JCamera
@@ -47,16 +46,7 @@ def test_sh_train_grads_match_jax():
     tc = torch.from_numpy(np.stack([np.asarray(c) for c in jc]))
     want = jax_train_grads(js, jp, JCfg(**kw), jc, 2)
     got = port_train_grads(ts, tp, TCfg(**kw), tc, 2, "recorded")
-    assert_grads_close(want, got, sky_first_bars(param_leaves(tp), (16, 3)))
+    assert_grads_close(want, got, [1e-4] * len(param_leaves(tp)))
     sh_leaf = got[1][[i for i, leaf in enumerate(param_leaves(tp))
                       if tuple(leaf.shape) == (16, 3)][0]]
     assert np.abs(sh_leaf[0]).max() > 0.0
-
-
-def _ball_json():
-    from raymarchrenderer_tpu_torch.scene import builtin
-    b = builtin.SceneBuilder()
-    m = b.diffuse([0.6, 0.5, 0.4])
-    b.sphere(m, [0.0, 1.0, 0.0], 1.0)
-    b.box(m, [0.0, -0.05, 0.0], [8.0, 0.05, 8.0])
-    return b.to_json()
