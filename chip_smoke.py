@@ -73,7 +73,9 @@ Phases (any failure raises and the script exits non-zero):
      env bar, fewer than 1e-3 of the values off by more than 1e-3.  Gradients: loss to rtol 1e-5, each leaf to atol
      1e-3 * max|g|.  The main launches are timed (CUDA events), and a
      second run of the plain version there counts the map evaluations
-     these inputs need, for the kernel's operation bound;
+     these inputs need, for the kernel's operation bound (the wavefront
+     entries' plain versions, about 75 s each at 1024^2, count in their
+     timed run);
   4. main paths — the port's CLI in-process, each with its kernel's launch
      counter zeroed just before and read just after:
        render --spectral --scene data/scenes/spectral.scene ...
@@ -333,26 +335,33 @@ def _bound(scene, cfg, work, in_bytes, out_bytes, lookups=1):
             "operations" if t_ops >= t_bytes else "bytes", ops)
 
 
-def _main_launch(label, kernel, plain, card, compare=_compare):
+def _main_launch(label, kernel, plain, card, compare=_compare,
+                 count_apart=True):
     """Kernel vs plain at a main path's own launch: parity by `compare`,
     the kernel's time (mean of 3), the plain version's time (one run),
     then one more plain run that counts the work for the bound, outside
-    that time.  Returns (max abs err, ms, plain ms, work)."""
+    that time.  With `count_apart` false the timed run also counts (for
+    plain versions that take minutes; the counters add one reduction per
+    march step).  Returns (max abs error, ms, plain ms, work)."""
     got = kernel()
+    work = {}
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
-    want = plain()
+    want = plain() if count_apart else plain(work)
     end.record()
     torch.cuda.synchronize()
     plain_ms = start.elapsed_time(end)
     max_err = compare(label, got, want)
     del got, want
     ms = _cuda_ms(kernel, reps=3, warmup=False)
-    work = {}
-    count_ms = _cuda_ms(lambda: plain(work), reps=1, warmup=False)
-    print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (with work "
-          f"counters {count_ms:.3f} ms) [{card}]", flush=True)
+    if count_apart:
+        count_ms = _cuda_ms(lambda: plain(work), reps=1, warmup=False)
+        counted = f"with work counters {count_ms:.3f} ms"
+    else:
+        counted = "the same run counted the work"
+    print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms ({counted}) "
+          f"[{card}]", flush=True)
     return max_err, ms, plain_ms, work
 
 
@@ -1321,7 +1330,7 @@ def parity_wavefront_paths(dev, card):
         f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
         lambda: march._launch_wavefront_paths(*args),
         lambda work=None: march.wavefront_paths_plain(*args, work=work),
-        card)
+        card, count_apart=False)
     prog, data = paths_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
@@ -1387,7 +1396,7 @@ def parity_wavefront_spectral(dev, card):
     max_err, ms, plain_ms, work = _main_launch(
         f"spectral wavefront, 1024x1024, {_WAVE_MAIN_SPP} spp, "
         f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
-        *fns((0, 0), 1024, _WAVE_MAIN_SPP), card)
+        *fns((0, 0), 1024, _WAVE_MAIN_SPP), card, count_apart=False)
     prog, data = spectral_buffers(scene, params, mats, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
