@@ -11,7 +11,10 @@ Phases (any failure raises and the script exits non-zero):
      csrc/mega_spectral.cu (the render and the recording entries),
      csrc/wavefront_spectral.cu and csrc/march_fused.cu with nvcc
      (sm_90a), one process per source, started together; time each and
-     print every kernel's registers and spills (ptxas);
+     print every kernel's registers and spills (ptxas): each source holds
+     a stencil and an exact-normal (`normal_taps=0`, `grad_map`)
+     instantiation of each kernel, and the stencil ones are printed beside
+     the registers and spills they had before (`PTXAS_BEFORE`);
   3. parity — each kernel's wrapper on CUDA tensors against its plain
      PyTorch version on the same tensors, production knobs:
        * RGB (`render_fused_patch` vs `trace_mega_paths`): the main path's
@@ -62,7 +65,15 @@ Phases (any failure raises and the script exits non-zero):
          128^2 patches with NEE, dispersion and roulette (3 samples) and
          under the gradient sky (11 samples: 8 slots, then n_valid 3 of
          8); the spectral one at its main path's launch (1024^2, 8
-         samples) and on a 128^2 patch at a non-zero origin, 3 samples.
+         samples) and on a 128^2 patch at a non-zero origin, 3 samples;
+       * the exact normal (`normal_taps=0`) in every shading kernel, each
+         on a 128^2 patch at a non-zero origin against its plain version
+         (torch.autograd's reverse sweep of the map): the RGB render (csg
+         with NEE, dispersion and roulette), the SH sky, the deferred sky
+         (banks and composite), the RGB wavefront entry (NEE, roulette),
+         the spectral render and its wavefront entry, and the three
+         recorders; each timed (kernel mean of 3, plain one run that also
+         counts the work) with its bound.
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -73,8 +84,8 @@ Phases (any failure raises and the script exits non-zero):
      env bar, fewer than 1e-3 of the values off by more than 1e-3.  Gradients: loss to rtol 1e-5, each leaf to atol
      1e-3 * max|g|.  The main launches are timed (CUDA events), and a
      second run of the plain version there counts the map evaluations
-     these inputs need, for the kernel's operation bound (the wavefront
-     entries' plain versions, about 75 s each at 1024^2, count in their
+     these inputs need, for the kernel's operation bound (the main
+     launches' plain versions, 35-80 s each at 1024^2, count in their
      timed run);
   4. main paths — the port's CLI in-process, each with its kernel's launch
      counter zeroed just before and read just after:
@@ -115,9 +126,19 @@ Phases (any failure raises and the script exits non-zero):
      launches, the deferred kernel for the final render, the env image's
      gradient non-zero and the printed loss falling; and the wavefront
      modes through the library API at 1024^2, 8 samples (RGB constant
-     sky, RGB under the gradient sky, spectral), one launch each;
+     sky, RGB under the gradient sky, spectral), one launch each; then
+     the exact normal's main paths: `render --spectral`, `render`
+     (sphere_on_floor) and `render --env-map` with `--normal-taps 0` at
+     the same 1024^2, 128 spp (launches counted, the env one timed), and
+       train --scene csg --direct-light --normal-taps 0 --width 256
+             --height 256 ...
+     toward csg with its floor's albedo x 1.5: 3 recorder launches, the
+     render kernel for the final image, the smooth union's radius
+     gradient non-zero (NEE's cos term differentiates the normal) and the
+     printed loss falling;
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
-     launch (the CLI's default chunk), and the RGB kernel at 128, one
+     launch (the CLI's default chunk), the RGB kernel at 128, and both
+     render kernels at 128 with the exact normal, one
      `perf:` JSON line; then the train step at the full configuration
      (recorder, replay forward, the whole step, its rate, peak memory with
      and without remat), one `train perf:` JSON line, the spectral
@@ -126,8 +147,10 @@ Phases (any failure raises and the script exits non-zero):
      under its constant sky, one `env train perf:` JSON line.
 
 The line before the last is a JSON object with one entry per kernel of the
-paths; the last line is {"ok": true, "device": {...}}.  Imports nothing of
-JAX.
+paths (each shading kernel's with a `normal_taps_0` note: its exact-normal
+patch's max error, times and bound, and its launches on the exact-normal
+main path where one runs it); the last line is {"ok": true, "device":
+{...}}.  Imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -176,6 +199,16 @@ ENV_TRAIN_ARGV = ["train", "--scene", os.path.join(_ROOT, "data", "scenes",
                                                    "default.scene"),
                   "--width", "256", "--height", "256", *_TRAIN]
 
+
+def exact(argv):
+    """`argv` with the exact normal: --normal-taps 0 for 4."""
+    i = argv.index("--normal-taps")
+    return argv[:i + 1] + ["0"] + argv[i + 2:]
+
+
+TRAIN_EXACT_ARGV = exact(["train", "--scene", "csg", "--direct-light",
+                          "--width", "256", "--height", "256", *_TRAIN])
+
 # the H100 SXM's published peaks (NVIDIA data sheet, 700 W)
 PEAK_FP32 = 67e12             # FLOP/s outside the tensor cores
 PEAK_BYTES = 3.35e12          # HBM3 bytes/s
@@ -206,8 +239,9 @@ def _cuda_ms(fn, reps: int, warmup: bool = True) -> float:
 
 def _main_cfg(**kw):
     from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    kw.setdefault("normal_taps", 4)
     return RenderConfig(width=1024, height=1024, spp=128, relax_omega=2.0,
-                        normal_taps=4, **kw)
+                        **kw)
 
 
 def _knobs():
@@ -255,7 +289,7 @@ def _paths_fns(dev, scene_name, n, origin_xy=(0, 0), patch_shape=None,
     return kernel, plain, scene, cfg, params
 
 
-def _spectral_fns(dev, n, origin_xy=(0, 0), patch_shape=None):
+def _spectral_fns(dev, n, origin_xy=(0, 0), patch_shape=None, **cfg_kw):
     """As `_paths_fns`, for the spectral path on spectral_demo()."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
@@ -265,7 +299,7 @@ def _spectral_fns(dev, n, origin_xy=(0, 0), patch_shape=None):
         spectral_demo)
 
     scene, params, mats = spectral_demo(dev)
-    cfg = _main_cfg()
+    cfg = _main_cfg(**cfg_kw)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
     ph, pw = patch_shape or (cfg.height, cfg.width)
 
@@ -317,13 +351,15 @@ def _bound(scene, cfg, work, in_bytes, out_bytes, lookups=1):
     the map evaluations these inputs need, as counted by the plain version
     (march steps of live lanes, and per shaded hit `lookups` material
     lookups, 1 for the megakernels and 0 where the march returns the
-    material, and `normal_taps` taps), times the object program's FP32
-    cost; integer RNG hashing and material arithmetic are left out, so the
-    bound is low.  Returns (ms, "bytes" or "operations", operations)."""
+    material, and `normal_taps` taps, 2 for the exact normal's reverse
+    sweep as the JAX package's utils/metrics.py counts it), times the
+    object program's FP32 cost; integer RNG hashing and material
+    arithmetic are left out, so the bound is low.  Returns (ms, "bytes" or
+    "operations", operations)."""
     from raymarchrenderer_tpu_torch.kernels.scene_program import map_flops
     mf = map_flops(scene)
     march, shade = int(work["march"]), int(work.get("shade", 0))
-    taps = cfg.normal_taps
+    taps = cfg.normal_taps or 2
     ops = (march * (mf + MARCH_STEP_FLOPS)
            + shade * ((lookups + taps) * mf + 6 * taps + 11))
     t_ops, t_bytes = ops / PEAK_FP32, (in_bytes + out_bytes) / PEAK_BYTES
@@ -380,7 +416,7 @@ def parity_paths(dev, card):
     in_bytes = 15 * 4 + _buffer_bytes(prog, data)
     max_err, ms, plain_ms, work = _main_launch(
         "RGB, sphere_on_floor 1024x1024, 128 spp (the main path's launch)",
-        kernel, plain, card)
+        kernel, plain, card, count_apart=False)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
 
     kernel, plain, *_ = _paths_fns(dev, "csg_demo", 8, _NEE_PATCH,
@@ -406,7 +442,7 @@ def parity_spectral(dev, card):
     in_bytes = 15 * 4 + _buffer_bytes(prog, data)
     max_err, ms, plain_ms, work = _main_launch(
         "spectral 1024x1024, 128 spp (the main path's launch)", kernel,
-        plain, card)
+        plain, card, count_apart=False)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
     kernel, plain, *_ = _spectral_fns(dev, 4, _SPEC_PATCH, (128, 128))
     max_err = max(max_err, _compare(
@@ -419,8 +455,9 @@ def _train_cfg(size, **kw):
     """The train workload's configuration (`tools/train_bench.py`): 4
     bounces, relax 1.9, 4 normal taps, the CLI's other defaults."""
     from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    kw.setdefault("normal_taps", 4)
     return RenderConfig(width=size, height=size, max_bounces=4,
-                        relax_omega=1.9, normal_taps=4, **kw)
+                        relax_omega=1.9, **kw)
 
 
 def _planes_compare(label, got, want):
@@ -629,7 +666,8 @@ def parity_grads(dev, card):
                      for m in ("fused", "oracle")))
 
 
-def _record_spectral_fns(dev, size, n, origin_xy=(0, 0), patch_shape=None):
+def _record_spectral_fns(dev, size, n, origin_xy=(0, 0), patch_shape=None,
+                         **cfg_kw):
     """(kernel, plain, scene, cfg, (params, mats)) of a spectral recording
     launch on spectral_demo: the wrapper on CUDA tensors and
     `record_spectral_plain` on the same tensors, each returning the folded
@@ -641,7 +679,7 @@ def _record_spectral_fns(dev, size, n, origin_xy=(0, 0), patch_shape=None):
         spectral_demo)
 
     scene, params, mats = spectral_demo(dev)
-    cfg = _train_cfg(size)
+    cfg = _train_cfg(size, **cfg_kw)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
     shape = patch_shape or (size, size)
 
@@ -798,16 +836,17 @@ def parity_spectral_grads(dev, card):
                    "vs plain banks (scene leaves and band rows)", *results)
 
 
-def _write_target(path, dev, scene_name, size, direct_light, leaf):
+def _write_target(path, dev, scene_name, size, direct_light, leaf,
+                  factor=1.05):
     """The port's own render of the scene with the parameter `leaf(params)`
-    (a radius) scaled by 1.05, 64 samples, saved as .npy."""
+    (a radius) scaled by `factor`, 64 samples, saved as .npy."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels.march import render_fused
     from raymarchrenderer_tpu_torch.scene import builtin
 
     scene = getattr(builtin, scene_name)()
     params = scene.init_params(dev)
-    leaf(params).mul_(1.05)
+    leaf(params).mul_(factor)
     img = render_fused(scene, params, _train_cfg(size),
                        Camera(aspect=1.0).corner_rays_flat(dev), 0,
                        n_samples=64, direct_light=direct_light)
@@ -1081,7 +1120,7 @@ def main_path(label, argv, kernel, card):
 def perf(dev, card):
     """Kernels and plain versions at 1024^2 with 8 samples per launch (the
     CLI's default chunk), and the RGB kernel at 128 (the spectral one's 128
-    is timed in the parity phase)."""
+    is timed in the parity phase); both at 128 with the exact normal."""
     res = {"card": card}
     for name, fns in (("rgb", lambda n: _paths_fns(dev, "sphere_on_floor",
                                                    n)[:2]),
@@ -1091,6 +1130,11 @@ def perf(dev, card):
         res[f"{name}_plain_ms_n8"] = _cuda_ms(plain, reps=1, warmup=False)
     res["rgb_kernel_ms_n128"] = _cuda_ms(_paths_fns(
         dev, "sphere_on_floor", 128)[0], reps=3)
+    # the exact normal at the main launches (1024^2, 128 samples)
+    res["rgb_exact_kernel_ms_n128"] = _cuda_ms(_paths_fns(
+        dev, "sphere_on_floor", 128, normal_taps=0)[0], reps=3)
+    res["spectral_exact_kernel_ms_n128"] = _cuda_ms(_spectral_fns(
+        dev, 128, normal_taps=0)[0], reps=3)
     for key in [k for k in res if k.endswith("_ms_n8")]:
         res[key.replace("_ms_n8", "_mpix_spp_per_s_n8")] = (
             1024 * 1024 * 8 / 1e3 / res[key])
@@ -1408,10 +1452,11 @@ def parity_wavefront_spectral(dev, card):
     return max_err, ms, plain_ms, bound
 
 
-def env_main_path(dev, card, sky_path):
-    """render --env-map at the full configuration through the CLI: 4
-    launches of the deferred-sky kernel and none of the constant-sky one;
-    the kernel's and the composite's time by CUDA events around each
+def env_main_path(dev, card, sky_path, argv=ENV_ARGV, label="rgb --env-map",
+                  perf="env perf"):
+    """render --env-map at the full configuration through the CLI (`argv`):
+    4 launches of the deferred-sky kernel and none of the constant-sky
+    one; the kernel's and the composite's time by CUDA events around each
     call, and the rate.  Returns the deferred kernel's launches."""
     from raymarchrenderer_tpu_torch.app import cli
     from raymarchrenderer_tpu_torch.kernels import march
@@ -1436,7 +1481,7 @@ def env_main_path(dev, card, sky_path):
     try:
         with tempfile.TemporaryDirectory() as tmp:
             out = os.path.join(tmp, "env.png")
-            args = cli.build_parser().parse_args(ENV_ARGV + [
+            args = cli.build_parser().parse_args(argv + [
                 "--env-map", sky_path, "--out", out])
             march.MEGA_PATHS_DEFER.launches = 0
             img, n, render_s = cli.cmd_render(args)
@@ -1456,12 +1501,12 @@ def env_main_path(dev, card, sky_path):
     k_ms = sum(s.elapsed_time(e) for s, e in timed["kernel"])
     c_ms = sum(s.elapsed_time(e) for s, e in timed["composite"])
     rate = 1024 * 1024 * n / 1e6 / render_s
-    print(f"main path, rgb --env-map default.scene: 1024x1024 @ {n:.0f} spp, "
+    print(f"main path, {label} default.scene: 1024x1024 @ {n:.0f} spp, "
           f"render {render_s:.3f} s ({rate:.2f} Mpix*spp/s), {launches} "
           f"deferred launches ({k_ms:.3f} ms of kernel), {len(timed['composite'])} "
           f"composites ({c_ms:.3f} ms), {const} constant-sky launches, "
           f"image mean {float(img.mean()):.6f} [{card}]", flush=True)
-    print("env perf: " + json.dumps({
+    print(f"{perf}: " + json.dumps({
         "card": card, "render_s": render_s, "mpix_spp_per_s": rate,
         "kernel_ms": k_ms, "composite_ms": c_ms,
         "kernel_ms_each": [s.elapsed_time(e) for s, e in timed["kernel"]],
@@ -1498,14 +1543,11 @@ def _write_env_target(path, dev, size):
     np.save(path, img.cpu().numpy())
 
 
-def env_train_path(dev, card, sky_path):
-    """train --env-map at 256^2 through the CLI: 3 recorder launches, the
-    deferred kernel for the final render, the env image's gradient
-    non-zero, and the printed loss falling from step 0 to step 2."""
+def _printed_losses(fn):
+    """(fn(), the losses a `train` run inside it printed, step by step)."""
     import contextlib
     import io
     import re
-    from raymarchrenderer_tpu_torch.kernels import march
     buf = io.StringIO()
 
     class Tee(io.TextIOBase):
@@ -1514,18 +1556,54 @@ def env_train_path(dev, card, sky_path):
             return buf.write(text)
 
     with contextlib.redirect_stdout(Tee()):
-        launches = train_path(
-            "train --env-map default.scene 256x256 (recorded)",
-            ENV_TRAIN_ARGV + ["--env-map", sky_path], dev, card,
-            lambda p: _write_env_target(p, dev, 256),
-            lambda tree: tree["env"]["image"],
-            {march.RECORD_PATHS: 3, march.MEGA_PATHS_DEFER: None,
-             march.MEGA_PATHS: 0})
-    losses = [float(x) for x in re.findall(r"step +\d+ loss ([0-9.e+-]+)",
-                                           buf.getvalue())]
+        out = fn()
+    return out, [float(x) for x in re.findall(r"step +\d+ loss ([0-9.e+-]+)",
+                                              buf.getvalue())]
+
+
+def env_train_path(dev, card, sky_path):
+    """train --env-map at 256^2 through the CLI: 3 recorder launches, the
+    deferred kernel for the final render, the env image's gradient
+    non-zero, and the printed loss falling from step 0 to step 2."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    launches, losses = _printed_losses(lambda: train_path(
+        "train --env-map default.scene 256x256 (recorded)",
+        ENV_TRAIN_ARGV + ["--env-map", sky_path], dev, card,
+        lambda p: _write_env_target(p, dev, 256),
+        lambda tree: tree["env"]["image"],
+        {march.RECORD_PATHS: 3, march.MEGA_PATHS_DEFER: None,
+         march.MEGA_PATHS: 0}))
     if len(losses) != 3 or not losses[-1] < losses[0]:
         raise AssertionError(f"train --env-map: losses {losses} do not fall")
     print(f"main path, train --env-map: losses {losses} [{card}]", flush=True)
+    return launches[march.RECORD_PATHS]
+
+
+def exact_train_path(dev, card):
+    """train --normal-taps 0 (the exact normal) through the CLI: csg_demo
+    with NEE at 256^2 toward its render with the floor's albedo x 1.5: 3
+    recorder launches (ExactNormal<Banks>), the render kernel for the
+    final image, the smooth union's radius gradient non-zero (the normal
+    enters NEE's cos term, so the replay differentiates the reverse
+    sweep) and the printed loss falling.  Returns the recorder's
+    launches."""
+    from raymarchrenderer_tpu_torch.kernels import march
+
+    def floor_albedo(tree):
+        return tree["materials"][0][0]
+
+    launches, losses = _printed_losses(lambda: train_path(
+        "train --normal-taps 0 csg --direct-light 256x256 (recorded)",
+        TRAIN_EXACT_ARGV, dev, card,
+        lambda p: _write_target(p, dev, "csg_demo", 256, True,
+                                floor_albedo, 1.5),
+        lambda tree: tree["objects"][3][1],
+        {march.RECORD_PATHS: 3, march.MEGA_PATHS: None}))
+    if len(losses) != 3 or not losses[-1] < losses[0]:
+        raise AssertionError(f"train --normal-taps 0: losses {losses} do "
+                             "not fall")
+    print(f"main path, train --normal-taps 0: losses {losses} [{card}]",
+          flush=True)
     return launches[march.RECORD_PATHS]
 
 
@@ -1631,13 +1709,228 @@ def wavefront_paths_path(dev, card):
           f"image mean {float(img.mean()):.6f} [{card}]", flush=True)
     return rgb, spec
 
+# ---- the exact normal (normal_taps = 0) -----------------------------------
 
-def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound):
-    return {"name": name, "route": "cuda",
-            "source": f"raymarchrenderer_tpu_torch/csrc/{source}",
-            "replaces": replaces, "launches": launches,
-            "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-            "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+_EXACT_SIZE = 128             # side of the exact-normal parity patches
+
+
+def _exact_case(label, kernel, plain, compare, scene, cfg, in_bytes,
+                out_bytes, card, lookups=1):
+    """Kernel vs plain on one exact-normal patch: parity by `compare`, the
+    plain version's time (one run, which also counts its work), the
+    kernel's (mean of 3) and the bound.  Returns the `normal_taps_0` note
+    of the kernel's entry."""
+    got = kernel()
+    work = {}
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    want = plain(work)
+    end.record()
+    torch.cuda.synchronize()
+    plain_ms = start.elapsed_time(end)
+    max_err = compare(label, got, want)
+    del got, want
+    ms = _cuda_ms(kernel, reps=3, warmup=False)
+    bound = _bound(scene, cfg, work, in_bytes, out_bytes, lookups)
+    print(f"{label}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms (counted "
+          f"the work), bound {bound[0]:.4f} ms ({bound[1]}) [{card}]",
+          flush=True)
+    return {"patch": label, "max_abs_err": max_err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound[0], "bound_by": bound[1]}
+
+
+def parity_exact(dev, card, sh_scene_path):
+    """Every shading kernel with `normal_taps=0` (the exact normal, each
+    source's ExactNormal instantiation) against its plain version on a
+    128^2 patch at a non-zero origin: the RGB render (csg with NEE,
+    dispersion and roulette), its SH and deferred skies, the RGB (NEE and
+    roulette) and spectral wavefront entries, the spectral render, and
+    the three recorders.  Returns {entry name: its normal_taps_0 note}."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        paths_buffers, spectral_buffers)
+    from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
+    from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
+    from raymarchrenderer_tpu_torch.scene import builtin, load_scene
+
+    n = _EXACT_SIZE
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    notes = {}
+
+    def in_bytes(scene, params, mats=None):
+        bufs = (paths_buffers(scene, params, dev) if mats is None
+                else spectral_buffers(scene, params, mats, dev))
+        return 15 * 4 + _buffer_bytes(*bufs)
+
+    def nee_compare(label, got, want):
+        return _compare(label, got, want, nee=True)
+
+    # kernel #2, constant sky: csg with NEE, dispersion and roulette
+    kernel, plain, scene, cfg, params = _paths_fns(
+        dev, "csg_demo", 4, _NEE_PATCH, (n, n), direct_light=True,
+        separate_channels=True, rr_start_bounce=1, normal_taps=0)
+    notes["mega_paths"] = _exact_case(
+        f"exact normal, RGB + NEE + dispersion + RR, csg_demo {n}x{n} patch "
+        f"at {_NEE_PATCH}, 4 spp", kernel, lambda w: plain(w), nee_compare,
+        scene, cfg, in_bytes(scene, params), n * n * 12, card)
+    # the SH sky
+    sscene = load_scene(sh_scene_path)
+    sparams = sscene.init_params(dev)
+    scfg = _main_cfg(normal_taps=0)
+
+    def sh_plain(work):
+        px, py = pixel_grid(n, n, dev, _WAVE_PATCH)
+        return _mean(trace_mega_paths(sscene, sparams, scfg, corners, px, py,
+                                      0, n_samples=8, work=work, **_knobs()),
+                     8)
+    note = _exact_case(
+        f"exact normal, RGB SH sky, {n}x{n} patch at {_WAVE_PATCH}, 8 spp",
+        lambda: march.render_fused_patch(sscene, sparams, scfg, corners,
+                                         _WAVE_PATCH, (n, n), 0, n_samples=8,
+                                         **_knobs()),
+        sh_plain, _compare, sscene, scfg, in_bytes(sscene, sparams),
+        n * n * 12, card)
+    notes["mega_paths"]["sh_sky"] = note
+    # the deferred sky
+    escene = _env_scene()
+    eparams = escene.init_params(dev)
+    ecfg = _main_cfg(normal_taps=0)
+    eargs = (escene, eparams, ecfg, corners, _WAVE_PATCH, n, n, 0, 8, False)
+
+    def defer_plain(work):
+        px, py = pixel_grid(n, n, dev, _WAVE_PATCH)
+        c, banks = trace_mega_paths(escene, eparams, ecfg, corners, px, py, 0,
+                                    n_samples=8, defer_sky=True, work=work,
+                                    **_knobs())
+        return c.stack(-1), list(banks)
+
+    def defer_compare(label, got, want):
+        err = _compare(label + ", raw sum", got[0], want[0])
+        for j, c in enumerate("rgb"):
+            err = max(err, _compare(f"{label}, thr_{c} bank", got[1][j],
+                                    want[1][j]))
+        _uv_compare(label, got[1], want[1])
+        return max(err, _env_compare(
+            label + ", composite image",
+            march.composite_uv(escene, eparams, *got),
+            march.composite_uv(escene, eparams, *want)))
+
+    notes["mega_paths_defer"] = _exact_case(
+        f"exact normal, RGB deferred sky, default.scene + gradient env "
+        f"{n}x{n} patch at {_WAVE_PATCH}, 8 paths",
+        lambda: march._launch_mega_defer(*eargs, **_knobs()), defer_plain,
+        defer_compare, escene, ecfg, in_bytes(escene, eparams),
+        n * n * (12 + 16 * 8), card)
+    # the RGB wavefront entry: csg with NEE and roulette (its plain
+    # version marches sample by sample: dispersion would triple it)
+    wscene = builtin.csg_demo()
+    wparams = wscene.init_params(dev)
+    wcfg = _main_cfg(rr_start_bounce=1, normal_taps=0)
+    wargs = (wscene, wparams, wcfg, corners, _WAVE_PATCH, n, n, 0,
+             _WAVE_SPP, True)
+    notes["wavefront_paths"] = _exact_case(
+        f"exact normal, RGB wavefront + NEE + RR, csg_demo "
+        f"{n}x{n} patch at {_WAVE_PATCH}, {_WAVE_SPP} spp, "
+        f"{wcfg.max_bounces} bounces",
+        lambda: march._launch_wavefront_paths(*wargs),
+        lambda w: march.wavefront_paths_plain(*wargs, work=w), nee_compare,
+        wscene, wcfg, in_bytes(wscene, wparams), n * n * 12, card,
+        lookups=0)
+    # kernel #1: the spectral render and its wavefront entry
+    kernel, plain, sscene2, sp_cfg, (spar, smats) = _spectral_fns(
+        dev, 4, _SPEC_PATCH, (n, n), normal_taps=0)
+    notes["mega_spectral"] = _exact_case(
+        f"exact normal, spectral {n}x{n} patch at {_SPEC_PATCH}, 4 spp",
+        kernel, lambda w: plain(w), _compare, sscene2, sp_cfg,
+        in_bytes(sscene2, spar, smats), n * n * 12, card)
+    notes["wavefront_spectral"] = _exact_case(
+        f"exact normal, spectral wavefront {n}x{n} patch at {_SPEC_PATCH}, "
+        f"{_WAVE_SPP} spp, {sp_cfg.max_bounces} bounces",
+        lambda: march.render_fused_spectral(
+            sscene2, spar, smats, sp_cfg, corners, 0, n_samples=_WAVE_SPP,
+            origin_xy=_SPEC_PATCH, patch_shape=(n, n), mode="wavefront"),
+        lambda w: march.wavefront_spectral_plain(
+            sscene2, spar, smats, sp_cfg, corners, 0, _WAVE_SPP,
+            _SPEC_PATCH, n, n, work=w),
+        _compare, sscene2, sp_cfg, in_bytes(sscene2, spar, smats),
+        n * n * 12, card, lookups=0)
+    # the recorders (#5, #6, #4) at the train configuration
+    kernel, plain, rscene, rcfg, rparams = _record_fns(
+        dev, "csg_demo", 1024, 2, _NEE_PATCH, (n, n), direct_light=True,
+        normal_taps=0)
+    notes["record_paths"] = _exact_case(
+        f"exact normal, recorder + NEE, csg_demo {n}x{n} patch at "
+        f"{_NEE_PATCH}, 2 samples", kernel, lambda w: plain(w),
+        _planes_compare, rscene, rcfg, in_bytes(rscene, rparams),
+        n * n * (12 + 4 * rscene.n_lights) * 2 * rcfg.max_bounces, card)
+    kernel, plain, qscene, qcfg, (qpar, qmats) = _record_spectral_fns(
+        dev, 1024, 4, _SPEC_PATCH, (n, n), normal_taps=0)
+    notes["record_spectral"] = _exact_case(
+        f"exact normal, spectral recorder {n}x{n} patch at {_SPEC_PATCH}, "
+        f"4 samples", kernel, lambda w: plain(w), _planes_compare, qscene,
+        qcfg, in_bytes(qscene, qpar, qmats), n * n * 12 * 4 * 4, card)
+    kernel, plain, vscene, vcfg, vparams, _ = _wavefront_fns(
+        dev, "csg_demo", 1024, _NEE_PATCH, (n, n), direct_light=True,
+        rr_start_bounce=1, normal_taps=0)
+    notes["record_wavefront"] = _exact_case(
+        f"exact normal, wavefront recorder + NEE + RR, csg_demo {n}x{n} "
+        f"patch at {_NEE_PATCH}", kernel, lambda w: plain(w),
+        _planes_compare, vscene, vcfg, 36 * n * n + in_bytes(vscene, vparams)
+        - 15 * 4, n * n * (12 + 4 * vscene.n_lights) * vcfg.max_bounces,
+        card, lookups=0)
+    return notes
+
+
+
+def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
+           exact=None):
+    """One kernel of the `kernels` line; `exact` is its `normal_taps_0`
+    note (the exact-normal instantiation on its parity patch, and its
+    launches on the exact-normal main path where one runs it)."""
+    entry = {"name": name, "route": "cuda",
+             "source": f"raymarchrenderer_tpu_torch/csrc/{source}",
+             "replaces": replaces, "launches": launches,
+             "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+    if exact is not None:
+        entry["normal_taps_0"] = exact
+    return entry
+
+
+# registers, spill stores and spill loads (bytes) of the stencil (4 and 6
+# taps) instantiations before the exact normal joined their sources
+# (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W); the build phase
+# prints whether each kept them
+PTXAS_BEFORE = {
+    "mega_paths_kernel<NoBanks>": (80, 56, 68),
+    "mega_paths_kernel<Banks>": (80, 68, 72),
+    "mega_paths_kernel<DeferSky>": (80, 40, 68),
+    "mega_paths_kernel<ShSky>": (80, 148, 160),
+    "record_wavefront_kernel": (40, 572, 824),
+    "wavefront_paths_kernel": (64, 160, 220),
+    "wavefront_spectral_kernel": (40, 252, 268),
+    "mega_spectral_kernel<NoBanks>": (80, 4, 12),
+    "record_spectral_kernel<Banks>": (80, 4, 12),
+    "march_fused_kernel": (40, 40, 40),
+}
+
+
+def _instantiation(fn):
+    """A readable name of a mangled kernel: its template's policy, and
+    " exact" for an exact-normal instantiation."""
+    name = next(k for k in (
+        "record_wavefront_kernel", "wavefront_paths_kernel",
+        "wavefront_spectral_kernel", "mega_paths_kernel",
+        "mega_spectral_kernel", "record_spectral_kernel",
+        "march_fused_kernel") if k in fn)
+    policy = next((p for p, tag in (
+        ("NoBanks", "7NoBanks"), ("ShSky", "5ShSky"),
+        ("DeferSky", "8DeferSky"), ("Banks", "5Banks")) if tag in fn), None)
+    exact = "ExactNormal" in fn or "ILb1E" in fn
+    return (name + (f"<{policy}>" if policy else "")
+            + (" exact" if exact else ""))
 
 
 def main() -> int:
@@ -1668,10 +1961,15 @@ def main() -> int:
               if k.build_log) + f") [{card}]", flush=True)
     for k in kernels:
         for fn, use in ptxas_usage(k.build_log).items():
-            print(f"ptxas: {k.source.name} {fn}: {use['registers']} "
-                  f"registers, {use.get('spill_stores', 0)} bytes spill "
-                  f"stores, {use.get('spill_loads', 0)} bytes spill loads",
-                  flush=True)
+            got = (use["registers"], use.get("spill_stores", 0),
+                   use.get("spill_loads", 0))
+            label = _instantiation(fn)
+            before = PTXAS_BEFORE.get(label)
+            note = ("" if before is None else " (as before)" if got == before
+                    else f" (before: {before[0]}/{before[1]}/{before[2]})")
+            print(f"ptxas: {k.source.name} {label}: {got[0]} registers, "
+                  f"{got[1]} bytes spill stores, {got[2]} bytes spill "
+                  f"loads{note}", flush=True)
 
     # 3. parity (its launches do not count for the main paths)
     p_err, p_ms, p_plain, p_bound = parity_paths(dev, card)
@@ -1692,6 +1990,7 @@ def main() -> int:
     p_err = max(p_err, parity_sh(dev, card, sh_scene))
     wp_err, wp_ms, wp_plain, wp_bound = parity_wavefront_paths(dev, card)
     ws_err, ws_ms, ws_plain, ws_bound = parity_wavefront_spectral(dev, card)
+    exact_notes = parity_exact(dev, card, sh_scene)
 
     # 4. main paths
     s_launches = main_path("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL,
@@ -1752,6 +2051,18 @@ def main() -> int:
     w_launches = wavefront_path(dev, card)
     env_train_path(dev, card, sky_path)
     wp_launches, ws_launches = wavefront_paths_path(dev, card)
+    # the exact normal's main paths (each counter zeroed just before)
+    exact_notes["mega_spectral"]["main_path_launches"] = main_path(
+        "spectral --normal-taps 0", exact(SPECTRAL_ARGV), march.MEGA_SPECTRAL,
+        card)
+    exact_notes["mega_paths"]["main_path_launches"] = main_path(
+        "rgb sphere_on_floor --normal-taps 0", exact(RGB_ARGV),
+        march.MEGA_PATHS, card)
+    exact_notes["mega_paths_defer"]["main_path_launches"] = env_main_path(
+        dev, card, sky_path, exact(ENV_ARGV), "rgb --env-map --normal-taps 0",
+        "env perf (exact normal)")
+    exact_notes["record_paths"]["main_path_launches"] = exact_train_path(
+        dev, card)
     tmp_dir.cleanup()
 
     # 5. perf
@@ -1763,31 +2074,39 @@ def main() -> int:
     print(json.dumps({"kernels": [
         _entry("mega_paths", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395", p_launches,
-               p_err, p_ms, p_plain, p_bound),
+               p_err, p_ms, p_plain, p_bound,
+               exact_notes["mega_paths"]),
         _entry("mega_spectral", "mega_spectral.cu",
                "raymarchrenderer_tpu/kernels/march.py:782", s_launches,
-               s_err, s_ms, s_plain, s_bound),
+               s_err, s_ms, s_plain, s_bound,
+               exact_notes["mega_spectral"]),
         _entry("record_paths", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/record.py:395", r_launches,
-               r_err, r_ms, r_plain, r_bound),
+               r_err, r_ms, r_plain, r_bound,
+               exact_notes["record_paths"]),
         _entry("march_fused", "march_fused.cu",
                "raymarchrenderer_tpu/kernels/march.py:575", m_launches,
                m_err, m_ms, m_plain, m_bound),
         _entry("record_spectral", "mega_spectral.cu",
                "raymarchrenderer_tpu/kernels/record.py:513", rs_launches,
-               rs_err, rs_ms, rs_plain, rs_bound),
+               rs_err, rs_ms, rs_plain, rs_bound,
+               exact_notes["record_spectral"]),
         _entry("record_wavefront", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/record.py:274", w_launches,
-               w_err, w_ms, w_plain, w_bound),
+               w_err, w_ms, w_plain, w_bound,
+               exact_notes["record_wavefront"]),
         _entry("mega_paths_defer", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395 mega+defer_sky",
-               d_launches, d_err, d_ms, d_plain, d_bound),
+               d_launches, d_err, d_ms, d_plain, d_bound,
+               exact_notes["mega_paths_defer"]),
         _entry("wavefront_paths", "wavefront_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395 wavefront",
-               wp_launches, wp_err, wp_ms, wp_plain, wp_bound),
+               wp_launches, wp_err, wp_ms, wp_plain, wp_bound,
+               exact_notes["wavefront_paths"]),
         _entry("wavefront_spectral", "wavefront_spectral.cu",
                "raymarchrenderer_tpu/kernels/march.py:782 wavefront",
-               ws_launches, ws_err, ws_ms, ws_plain, ws_bound)]}))
+               ws_launches, ws_err, ws_ms, ws_plain, ws_bound,
+               exact_notes["wavefront_spectral"])]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -22,6 +22,8 @@
 The same flags as the JAX package's `render` and `train` subcommands that
 these paths read, plus `--device` (default `cuda`; `--device cpu` runs the
 plain PyTorch versions of the kernels).  On `cuda` with no card it fails.
+`render --impl auto` picks as the JAX CLI does, with the card in the
+TPU's place: the fused kernels on `cuda`, the oracle on the CPU.
 `--env-map` (.hdr, .npy or .png) is the sky of a scene *file*, as in the
 JAX package (a builtin scene name keeps its constant sky), for `render`
 and `train`; under `--spectral` it is accepted and unused (the spectral
@@ -116,57 +118,84 @@ def _add_render_flags(p):
                         "0 = reference-parity stepMultiply=0.5 march")
     p.add_argument("--normal-taps", type=int, choices=(0, 4, 6), default=6,
                    help="SDF normal estimator: 6 central-diff (parity), "
-                        "4 tetrahedron (faster); 0 (exact gradient) is not "
-                        "ported yet")
+                        "4 tetrahedron (faster), 0 the exact gradient (one "
+                        "reverse sweep of the scene map)")
     p.add_argument("--chunk", type=int, default=8,
                    help="samples per kernel launch")
     p.add_argument("--out", default=None,
-                   help="output image (.png/.bmp/.npy); default "
+                   help="output image (.png/.bmp/.exr/.npy); default "
                         "output/<timestamp>.png")
     p.add_argument("--device", default="cuda",
                    help="cuda (the CUDA kernel) or cpu (its plain PyTorch "
                         "version)")
 
 
+def pick_impl(impl: str, device) -> str:
+    """`render --impl`: "auto" takes the fused kernels on a CUDA card and
+    the oracle on the CPU (the JAX CLI's `_pick_impl`, with the card in
+    the TPU's place); "fused" and "oracle" are taken as given."""
+    if impl != "auto":
+        return impl
+    return "fused" if device.type == "cuda" else "oracle"
+
+
 def cmd_render(args):
     """Render, print the rate, save the image; returns (image, n, render
-    seconds), the seconds from the first launch to the image on the host."""
+    seconds), the seconds from the first launch to the image on the host.
+    `--impl fused` renders in launches of `--chunk` samples through the
+    kernels (their plain versions on the CPU); `--impl oracle` renders
+    sample by sample with the wavefront integrators in plain PyTorch."""
 
     from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
     from raymarchrenderer_tpu_torch.kernels.march import (
         MEGA_PATHS, MEGA_PATHS_DEFER, MEGA_SPECTRAL, prepare,
         render_progressive_fused, render_progressive_fused_spectral)
+    from raymarchrenderer_tpu_torch.render.integrator import render
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
-        band_table)
+        band_table, render_spectral)
 
     device = _device(args.device)
     scene = _build_scene(args)
     params = scene.init_params(device)
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
-    # nvcc stays out of the render time
-    build_s = prepare(device, MEGA_SPECTRAL if args.spectral else (
-        MEGA_PATHS_DEFER if scene.has_env_map else MEGA_PATHS))
-    if build_s is not None:
-        print(f"kernel built and loaded in {build_s:.3f}s")
+    impl = pick_impl(args.impl, device)
+    if impl == "fused":
+        # nvcc stays out of the render time
+        build_s = prepare(device, MEGA_SPECTRAL if args.spectral else (
+            MEGA_PATHS_DEFER if scene.has_env_map else MEGA_PATHS))
+        if build_s is not None:
+            print(f"kernel built and loaded in {build_s:.3f}s")
     kind = "spectral" if args.spectral else (
         "rgb, env map" if scene.has_env_map else "rgb")
     print(f"rendering {cfg.width}x{cfg.height} @ {cfg.spp} spp "
-          f"({kind}, {device})")
+          f"({kind}, {device}) with the {impl} path")
 
     def progress(s, state):
         print(f"  {s}/{cfg.spp} spp", flush=True)
 
+    def oracle_progress(s, state):
+        if (s + 1) % args.chunk == 0 or s + 1 == cfg.spp:
+            progress(s + 1, state)
+
     t0 = time.perf_counter()
-    if args.spectral:
+    if args.spectral and impl == "fused":
         img, n = render_progressive_fused_spectral(
             scene, params, band_table(scene, device), cfg, corners,
             spp=cfg.spp, samples_per_launch=args.chunk, callback=progress)
-    else:
+    elif args.spectral:
+        img, n = render_spectral(scene, params, band_table(scene, device),
+                                 cfg, corners, spp=cfg.spp,
+                                 callback=oracle_progress)
+    elif impl == "fused":
         img, n = render_progressive_fused(
             scene, params, cfg, corners, spp=cfg.spp,
             samples_per_launch=args.chunk, direct_light=args.direct_light,
             callback=progress)
+    else:
+        img, n = render(scene, params, cfg, corners, spp=cfg.spp,
+                        direct_light=args.direct_light,
+                        callback=oracle_progress)
     img_np = img.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
     mpix_spp = cfg.width * cfg.height * n / 1e6
@@ -338,6 +367,12 @@ def build_parser() -> argparse.ArgumentParser:
     sub = p.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="render a scene to an image")
     _add_render_flags(pr)
+    pr.add_argument("--impl", choices=("auto", "fused", "oracle"),
+                    default="auto",
+                    help="fused: the CUDA kernels (their plain versions "
+                         "on the CPU); oracle: the plain wavefront "
+                         "integrators; auto: fused on a card, oracle on "
+                         "the CPU")
     pr.set_defaults(fn=cmd_render)
     pt = sub.add_parser("train", help="inverse-render: fit the scene's "
                                       "parameters to a target image")

@@ -3,6 +3,20 @@
 Op for op the JAX package's `core/sdf.py` (reference parity:
 `RayMarch3.glsl:115-130`, `RayMarch.glsl:115-119,183-215`; plane, torus,
 cylinder and capsule are the standard Inigo Quilez formulas).
+
+The non-smooth ops take JAX's derivatives, so that `torch.autograd`
+through the map (the exact normal of `normal_taps=0`, the march adjoint)
+gives what `jax.grad` gives at their kinks.  `torch.minimum` and
+`torch.maximum` split a tie 0.5 / 0.5 as `jnp.minimum` / `jnp.maximum`
+do; they zero a losing input's cotangent where JAX multiplies it by 0,
+which differs only for a cotangent of inf or NaN, and none of the
+primitives here sends one into a min or max.  Where torch's own rule
+differs at a kink that matters, a small Function keeps torch's value
+bit for bit and takes JAX's derivative: `jclamp` splits a tie with its
+bound 0.5 / 0.5 and passes the cotangent on by a multiply (inf * 0 is
+NaN, as in `lax.max`'s jvp: inside a cylinder), where `torch.clamp`
+gives 1 and masks; `jabs` has the derivative 1 at 0, where torch's
+`abs` has 0.
 """
 from __future__ import annotations
 
@@ -11,15 +25,80 @@ import torch
 from .vecmath import Vec3
 
 
+def _balanced_eq(x, ans, y):
+    """JAX's `_balanced_eq`: 1 where x is the result and y is not, 0.5
+    where both are, 0 where x is not."""
+    one = (x == ans).to(torch.float32)
+    return one / torch.where(y == ans, 2.0, 1.0)
+
+
+def _differentiated(*tensors) -> bool:
+    """Whether autograd records an op on `tensors` (else the helpers below
+    call torch's op directly: the same value, no Function to dispatch)."""
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
+class _Clamp(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, lo, hi):
+        out = torch.clamp(x, lo, hi)
+        ctx.save_for_backward(x)
+        ctx.bounds = lo, hi
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        # jnp.clip(x, lo, hi) = minimum(maximum(x, lo), hi): the cotangent
+        # meets the minimum first
+        (x,) = ctx.saved_tensors
+        lo, hi = ctx.bounds
+        m = x if lo is None else torch.clamp(x, min=lo)
+        if hi is not None:
+            g = g * _balanced_eq(m, torch.clamp(m, max=hi), hi)
+        if lo is not None:
+            g = g * _balanced_eq(x, m, lo)
+        return g, None, None
+
+
+def jclamp(x, lo=None, hi=None):
+    """`torch.clamp(x, lo, hi)` with `jnp.clip`'s derivative (float
+    bounds)."""
+    if _differentiated(x):
+        return _Clamp.apply(x, lo, hi)
+    return torch.clamp(x, lo, hi)
+
+
+class _Abs(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.save_for_backward(x)
+        return torch.abs(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        (x,) = ctx.saved_tensors
+        return torch.where(x >= 0, g, -g)
+
+
+def jabs(x):
+    """`torch.abs` with `jnp.abs`'s derivative (1 at 0)."""
+    if _differentiated(x):
+        return _Abs.apply(x)
+    return torch.abs(x)
+
+
 def sd_sphere(p: Vec3, centre: Vec3, radius):
     q = p - centre
     return q.length() - radius
 
 
 def sd_box(p: Vec3, centre: Vec3, half_extent: Vec3):
-    q = (p - centre).abs() - half_extent
+    d = p - centre
+    q = Vec3(jabs(d.x), jabs(d.y), jabs(d.z)) - half_extent
+    # at the outside clamps' tie (q = 0) the cotangent they pass on, the
+    # length's 2 m g' with m = 0, is 0 already: torch's rule gives JAX's
     outside = q.maximum(0.0).length()
-    inside = torch.clamp(q.max_component(), max=0.0)
+    inside = jclamp(q.max_component(), hi=0.0)
     return inside + outside
 
 
@@ -36,23 +115,23 @@ def sd_torus(p: Vec3, centre: Vec3, major, minor):
 def sd_cylinder(p: Vec3, centre: Vec3, radius, half_height):
     q = p - centre
     dxz = torch.sqrt(q.x * q.x + q.z * q.z) - radius
-    dy = torch.abs(q.y) - half_height
-    mx = torch.clamp(dxz, min=0.0)
-    my = torch.clamp(dy, min=0.0)
+    dy = jabs(q.y) - half_height
+    mx = jclamp(dxz, 0.0)
+    my = jclamp(dy, 0.0)
     out = torch.sqrt(mx * mx + my * my)
-    return torch.clamp(torch.maximum(dxz, dy), max=0.0) + out
+    return jclamp(torch.maximum(dxz, dy), hi=0.0) + out
 
 
 def sd_capsule(p: Vec3, a: Vec3, b: Vec3, radius):
     pa = p - a
     ba = b - a
-    h = torch.clamp(pa.dot(ba) / torch.clamp(ba.dot(ba), min=1e-30), 0.0, 1.0)
+    h = jclamp(pa.dot(ba) / jclamp(ba.dot(ba), 1e-30), 0.0, 1.0)
     return (pa - ba * h).length() - radius
 
 
 def smin(a, b, k):
     """Polynomial smooth min (`RayMarch.glsl:115-119`)."""
-    h = torch.clamp(0.5 + 0.5 * (b - a) / k, 0.0, 1.0)
+    h = jclamp(0.5 + 0.5 * (b - a) / k, 0.0, 1.0)
     return (b * (1.0 - h) + a * h) - k * h * (1.0 - h)
 
 

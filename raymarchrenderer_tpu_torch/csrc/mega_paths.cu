@@ -120,13 +120,15 @@ constexpr int kWaitMiss = -1;  // a parked miss of the deferred sky
 
 // The lane machine's policies: what a lane banks and which sky a missed
 // bounce ray meets.  `kOn` turns on the recording (banks of march
-// residuals, no sky, no image); `kSky` is the sky of a render.  Each is a
+// residuals, no sky, no image); `kSky` is the sky of a render; `kExact`
+// the exact normal (ExactNormal<policy>, normal_taps = 0).  Each is a
 // template argument, so every instantiation compiles only its own code.
 
 // The render with the constant sky: no banks.
 struct NoBanks {
   static constexpr bool kOn = false;
   static constexpr int kSky = kSkyConst;
+  static constexpr bool kExact = false;
 };
 
 // The render with the SH sky, its coefficients in shared memory
@@ -134,6 +136,7 @@ struct NoBanks {
 struct ShSky {
   static constexpr bool kOn = false;
   static constexpr int kSky = kSkySh;
+  static constexpr bool kExact = false;
 };
 
 // The render with an env image (the deferred sky): a missed bounce ray
@@ -143,6 +146,7 @@ struct ShSky {
 struct DeferSky {
   static constexpr bool kOn = false;
   static constexpr int kSky = kSkyDefer;
+  static constexpr bool kExact = false;
   float* thr_r;
   float* thr_g;
   float* thr_b;
@@ -155,6 +159,7 @@ struct DeferSky {
 struct Banks {
   static constexpr bool kOn = true;
   static constexpr int kSky = kSkyConst;  // unread: a recording meets no sky
+  static constexpr bool kExact = false;
   float* t;
   int* mid;
   int* hit;
@@ -320,7 +325,7 @@ __device__ void shade(const Ctx& c, Lane& L, const R& r) {
     r.mid[k] = mid;
     r.hit[k] = 1;
   }
-  in.normal = get_normal(c.s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
+  in.normal = get_normal<R::kExact>(c.s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
   in.channels = lane_channels(c, L.s_idx);
   Rng rng = rng_make(a.seed, c.px, c.py, shade_stream(c, L.s_idx), (uint32_t)L.bounce);
   const ShadeOut so = eval_material(c.s, mid, in, rng);
@@ -557,6 +562,21 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(P
   }
 }
 
+// Launch the lane machine of policy R, or of ExactNormal<R> when
+// normal_taps is 0.
+template <class R>
+void launch_mega(const PathArgs* args, const float* corners, const float* fdata, const int* prog,
+                 float* out, const R& banks, cudaStream_t stream) {
+  const dim3 block(16, kBlockThreads / 16);
+  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
+  if (args->normal_taps == 0) {
+    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out,
+                                                  ExactNormal<R>(banks));
+  } else {
+    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, banks);
+  }
+}
+
 // Plain C entry point for ctypes.  `args` is a host pointer; the buffers
 // are device pointers on CUDA device `device`; `out` is (ph, pw, 3)
 // float32.  The library carries its own (static) CUDA runtime, so it
@@ -572,12 +592,10 @@ extern "C" int rmr_mega_paths(const PathArgs* args, const float* corners, const 
   if (sky_kind != kSkyConst && sky_kind != kSkySh) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  const dim3 block(16, kBlockThreads / 16);
-  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
   if (sky_kind == kSkySh) {
-    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, ShSky());
+    launch_mega(args, corners, fdata, prog, out, ShSky(), stream);
   } else {
-    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, NoBanks());
+    launch_mega(args, corners, fdata, prog, out, NoBanks(), stream);
   }
   return (int)cudaGetLastError();
 }
@@ -605,9 +623,7 @@ extern "C" int rmr_mega_paths_defer(const PathArgs* args, const float* corners,
   banks.uv = uv;
   banks.plane = (size_t)args->ph * args->pw;
   banks.pix = 0;
-  const dim3 block(16, kBlockThreads / 16);
-  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, banks);
+  launch_mega(args, corners, fdata, prog, out, banks, stream);
   return (int)cudaGetLastError();
 }
 
@@ -631,9 +647,7 @@ extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, cons
   banks.plane = (size_t)args->ph * args->pw;
   banks.pix = 0;
   banks.paths = args->dispersion ? 3 * args->n_samples : args->n_samples;
-  const dim3 block(16, kBlockThreads / 16);
-  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, nullptr, banks);
+  launch_mega(args, corners, fdata, prog, nullptr, banks, stream);
   return (int)cudaGetLastError();
 }
 
@@ -651,7 +665,8 @@ extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, cons
 // returns for it (a shadow ray of an inactive lane returns its t_max, so
 // it banks lit).  A miss would multiply the throughput by the sky, but the
 // lane ends there and the roulette never reads it again, so it is left
-// out.
+// out.  kExact: the exact normal (normal_taps = 0).
+template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) record_wavefront_kernel(
     PathArgs a, int n, const float* __restrict__ fdata, const int* __restrict__ prog,
     const float* __restrict__ ex, const float* __restrict__ ey, const float* __restrict__ ez,
@@ -698,7 +713,7 @@ __global__ void __launch_bounds__(kBlockThreads) record_wavefront_kernel(
     in.t = t;
     in.inside = inside;
     in.hit = add(o, scale(d, t));
-    in.normal = get_normal(s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
+    in.normal = get_normal<kExact>(s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
     in.channels = splat(1.0f);
     Rng rng = rng_make(a.seed, upx, upy, usample, (uint32_t)b);
     const ShadeOut so = eval_material(s, mid, in, rng);
@@ -756,7 +771,12 @@ extern "C" int rmr_record_wavefront(const PathArgs* args, int n, const float* fd
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
   const int grid = (n + kBlockThreads - 1) / kBlockThreads;
-  record_wavefront_kernel<<<grid, kBlockThreads, 0, stream>>>(
-      *args, n, fdata, prog, ex, ey, ez, dx, dy, dz, px, py, sample, t, mid, hit, sd);
+  if (args->normal_taps == 0) {
+    record_wavefront_kernel<true><<<grid, kBlockThreads, 0, stream>>>(
+        *args, n, fdata, prog, ex, ey, ez, dx, dy, dz, px, py, sample, t, mid, hit, sd);
+  } else {
+    record_wavefront_kernel<false><<<grid, kBlockThreads, 0, stream>>>(
+        *args, n, fdata, prog, ex, ey, ez, dx, dy, dz, px, py, sample, t, mid, hit, sd);
+  }
   return (int)cudaGetLastError();
 }

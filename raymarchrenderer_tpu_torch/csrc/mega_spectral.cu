@@ -74,11 +74,13 @@ constexpr int kWaitMiss = -1;
 // The render: no banks.
 struct NoBanks {
   static constexpr bool kOn = false;
+  static constexpr bool kExact = false;
 };
 
 // The record banks of one recording launch, at this lane's pixel.
 struct Banks {
   static constexpr bool kOn = true;
+  static constexpr bool kExact = false;
   float* t;
   int* mid;
   int* hit;
@@ -197,7 +199,7 @@ __device__ void shade(const Ctx& c, Lane& L, const R& r) {
       r.mid[k] = mid;
       r.hit[k] = 1;
     }
-    normal = get_normal(c.s, a.max_dist, a.normal_eps, a.normal_taps, hitp);
+    normal = get_normal<R::kExact>(c.s, a.max_dist, a.normal_eps, a.normal_taps, hitp);
     // the band table tail: ints [n_mats, kind * n_mats], floats
     // [min_wave * n_mats, max_wave * n_mats, power * n_mats]
     const int* tail = c.s.prog + c.s.prog[1];
@@ -288,6 +290,8 @@ __device__ V3 trace_pixel(const Ctx& c, const R& r) {
 
 // ---- launch ----------------------------------------------------------------
 
+// R = NoBanks, or ExactNormal<NoBanks> for normal_taps = 0
+template <class R>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_spectral_kernel(SpecArgs a, const float* __restrict__ corners,
                                      const float* __restrict__ fdata,
                                      const int* __restrict__ prog, float* __restrict__ out) {
@@ -301,7 +305,7 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_spectral_kerne
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
-  const V3 acc = trace_pixel(c, NoBanks());
+  const V3 acc = trace_pixel(c, R());
   float* o = out + 3 * ((size_t)ly * a.pw + lx);
   o[0] = acc.x * a.inv_n;
   o[1] = acc.y * a.inv_n;
@@ -319,15 +323,22 @@ extern "C" int rmr_mega_spectral(const SpecArgs* args, const float* corners, con
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  mega_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  if (args->normal_taps == 0) {
+    using Exact = ExactNormal<NoBanks>;
+    mega_spectral_kernel<Exact><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  } else {
+    mega_spectral_kernel<NoBanks><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  }
   return (int)cudaGetLastError();
 }
 
-// The recording kernel: the same lane machine with banks.
+// The recording kernel: the same lane machine with banks (R = Banks, or
+// ExactNormal<Banks> for normal_taps = 0).
+template <class R>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
     record_spectral_kernel(SpecArgs a, const float* __restrict__ corners,
                            const float* __restrict__ fdata, const int* __restrict__ prog,
-                           Banks banks) {
+                           R banks) {
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   if (lx >= a.pw || ly >= a.ph) return;
@@ -359,6 +370,11 @@ extern "C" int rmr_record_spectral(const SpecArgs* args, const float* corners, c
   banks.pix = 0;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  record_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, banks);
+  if (args->normal_taps == 0) {
+    record_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog,
+                                                       ExactNormal<Banks>(banks));
+  } else {
+    record_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, banks);
+  }
   return (int)cudaGetLastError();
 }

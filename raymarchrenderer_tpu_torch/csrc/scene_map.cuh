@@ -1,6 +1,7 @@
 // Shared device code of the megakernels (mega_spectral.cu, mega_paths.cu):
 // vec3 math, the counter-based RNG, the scene's object interpreter
-// (map_dist, map_mid, get_normal) and uniform sphere sampling.
+// (map_dist, map_mid, get_normal and its exact gradient grad_map) and
+// uniform sphere sampling.
 //
 // The object program layout is written by kernels/scene_program.py, and
 // the two must agree:
@@ -149,102 +150,115 @@ __device__ __forceinline__ float repeat_axis(float c, float period) {
   return period != 0.0f ? pymod(c, period) - period * 0.5f : c;
 }
 
-__device__ float eval_object(const SceneRef& s, int obj, V3 p) {
+// The value of one object node (opcode `op`) on its inputs.
+__device__ __forceinline__ V3 node_value(int op, V3 a, V3 b, V3 c, V3 e) {
+  V3 out;
+  switch (op) {
+    case OP_SPHERE:
+      out = splat(length(sub(a, b)) - c.x);
+      break;
+    case OP_BOX: {
+      V3 q = sub(mk(fabsf(a.x - b.x), fabsf(a.y - b.y), fabsf(a.z - b.z)), c);
+      float outside = length(mk(fmaxf(q.x, 0.0f), fmaxf(q.y, 0.0f), fmaxf(q.z, 0.0f)));
+      float inside = fminf(fmaxf(q.x, fmaxf(q.y, q.z)), 0.0f);
+      out = splat(inside + outside);
+      break;
+    }
+    case OP_PLANE:
+      out = splat(dot(a, normalized(b)) - c.x);
+      break;
+    case OP_TORUS: {
+      V3 q = sub(a, b);
+      float ql = sqrtf(q.x * q.x + q.z * q.z) - c.x;
+      out = splat(sqrtf(ql * ql + q.y * q.y) - c.y);
+      break;
+    }
+    case OP_CYLINDER: {
+      V3 q = sub(a, b);
+      float dxz = sqrtf(q.x * q.x + q.z * q.z) - c.x;
+      float dy = fabsf(q.y) - c.y;
+      float mx = fmaxf(dxz, 0.0f);
+      float my = fmaxf(dy, 0.0f);
+      out = splat(fminf(fmaxf(dxz, dy), 0.0f) + sqrtf(mx * mx + my * my));
+      break;
+    }
+    case OP_CAPSULE: {
+      V3 pa = sub(a, b);
+      V3 ba = sub(c, b);
+      float h = clamp01(dot(pa, ba) / fmaxf(dot(ba, ba), 1e-30f));
+      out = splat(length(sub(pa, scale(ba, h))) - e.x);
+      break;
+    }
+    case OP_UNION:
+      out = mk(fminf(a.x, b.x), fminf(a.y, b.y), fminf(a.z, b.z));
+      break;
+    case OP_SUBTRACT:
+      out = mk(fmaxf(a.x, -b.x), fmaxf(a.y, -b.y), fmaxf(a.z, -b.z));
+      break;
+    case OP_INTERSECT:
+      out = mk(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z));
+      break;
+    case OP_SMOOTH_UNION: {
+      float h = clamp01(0.5f + 0.5f * (b.x - a.x) / c.x);
+      out = splat((b.x * (1.0f - h) + a.x * h) - c.x * h * (1.0f - h));
+      break;
+    }
+    case OP_REPEAT:
+      out = mk(repeat_axis(a.x, b.x), repeat_axis(a.y, b.y), repeat_axis(a.z, b.z));
+      break;
+    case OP_GETX:
+      out = splat(a.x);
+      break;
+    case OP_GETY:
+      out = splat(a.y);
+      break;
+    case OP_GETZ:
+      out = splat(a.z);
+      break;
+    case OP_ADD:
+      out = add(a, b);
+      break;
+    case OP_SUB:
+      out = sub(a, b);
+      break;
+    case OP_MUL:
+      out = mul(a, b);
+      break;
+    case OP_DIV:
+      out = mk(a.x / b.x, a.y / b.y, a.z / b.z);
+      break;
+    case OP_SIN:
+      out = mk(sinf(a.x), sinf(a.y), sinf(a.z));
+      break;
+    default:  // OP_COS
+      out = mk(cosf(a.x), cosf(a.y), cosf(a.z));
+      break;
+  }
+  return out;
+}
+
+// Run object `obj`'s nodes at p into `regs`; returns its distance.
+__device__ __forceinline__ float run_object(const SceneRef& s, int obj, V3 p, V3* regs) {
   const int* od = s.prog + kHeader + kObjWords * obj;
   const int first = od[0];
   const int n_nodes = od[1];
-  V3 regs[kMaxRegs];
   for (int k = 0; k < n_nodes; ++k) {
     const int* nd = s.prog + first + kNodeWords * k;
+    // the inputs in order, as eval_object read them before the exact
+    // normal shared this loop (the order moves march_fused's spills)
     const V3 a = fetch(s, regs, p, nd[2]);
     const V3 b = fetch(s, regs, p, nd[3]);
     const V3 c = fetch(s, regs, p, nd[4]);
     const V3 e = fetch(s, regs, p, nd[5]);
-    V3 out;
-    switch (nd[0]) {
-      case OP_SPHERE:
-        out = splat(length(sub(a, b)) - c.x);
-        break;
-      case OP_BOX: {
-        V3 q = sub(mk(fabsf(a.x - b.x), fabsf(a.y - b.y), fabsf(a.z - b.z)), c);
-        float outside = length(mk(fmaxf(q.x, 0.0f), fmaxf(q.y, 0.0f), fmaxf(q.z, 0.0f)));
-        float inside = fminf(fmaxf(q.x, fmaxf(q.y, q.z)), 0.0f);
-        out = splat(inside + outside);
-        break;
-      }
-      case OP_PLANE:
-        out = splat(dot(a, normalized(b)) - c.x);
-        break;
-      case OP_TORUS: {
-        V3 q = sub(a, b);
-        float ql = sqrtf(q.x * q.x + q.z * q.z) - c.x;
-        out = splat(sqrtf(ql * ql + q.y * q.y) - c.y);
-        break;
-      }
-      case OP_CYLINDER: {
-        V3 q = sub(a, b);
-        float dxz = sqrtf(q.x * q.x + q.z * q.z) - c.x;
-        float dy = fabsf(q.y) - c.y;
-        float mx = fmaxf(dxz, 0.0f);
-        float my = fmaxf(dy, 0.0f);
-        out = splat(fminf(fmaxf(dxz, dy), 0.0f) + sqrtf(mx * mx + my * my));
-        break;
-      }
-      case OP_CAPSULE: {
-        V3 pa = sub(a, b);
-        V3 ba = sub(c, b);
-        float h = clamp01(dot(pa, ba) / fmaxf(dot(ba, ba), 1e-30f));
-        out = splat(length(sub(pa, scale(ba, h))) - e.x);
-        break;
-      }
-      case OP_UNION:
-        out = mk(fminf(a.x, b.x), fminf(a.y, b.y), fminf(a.z, b.z));
-        break;
-      case OP_SUBTRACT:
-        out = mk(fmaxf(a.x, -b.x), fmaxf(a.y, -b.y), fmaxf(a.z, -b.z));
-        break;
-      case OP_INTERSECT:
-        out = mk(fmaxf(a.x, b.x), fmaxf(a.y, b.y), fmaxf(a.z, b.z));
-        break;
-      case OP_SMOOTH_UNION: {
-        float h = clamp01(0.5f + 0.5f * (b.x - a.x) / c.x);
-        out = splat((b.x * (1.0f - h) + a.x * h) - c.x * h * (1.0f - h));
-        break;
-      }
-      case OP_REPEAT:
-        out = mk(repeat_axis(a.x, b.x), repeat_axis(a.y, b.y), repeat_axis(a.z, b.z));
-        break;
-      case OP_GETX:
-        out = splat(a.x);
-        break;
-      case OP_GETY:
-        out = splat(a.y);
-        break;
-      case OP_GETZ:
-        out = splat(a.z);
-        break;
-      case OP_ADD:
-        out = add(a, b);
-        break;
-      case OP_SUB:
-        out = sub(a, b);
-        break;
-      case OP_MUL:
-        out = mul(a, b);
-        break;
-      case OP_DIV:
-        out = mk(a.x / b.x, a.y / b.y, a.z / b.z);
-        break;
-      case OP_SIN:
-        out = mk(sinf(a.x), sinf(a.y), sinf(a.z));
-        break;
-      default:  // OP_COS
-        out = mk(cosf(a.x), cosf(a.y), cosf(a.z));
-        break;
-    }
+    const V3 out = node_value(nd[0], a, b, c, e);
     if (nd[1] >= 0) regs[nd[1]] = out;
   }
   return regs[od[2]].x;
+}
+
+__device__ float eval_object(const SceneRef& s, int obj, V3 p) {
+  V3 regs[kMaxRegs];
+  return run_object(s, obj, p, regs);
 }
 
 // distance only: running fminf seeded from object 0
@@ -271,8 +285,362 @@ __device__ int map_mid(const SceneRef& s, float max_dist, V3 p) {
   return mid;
 }
 
-// SDF-gradient normal: 4 tetrahedron taps or 6 central differences
+// ---- the exact gradient (normal_taps = 0) ----------------------------------
+//
+// grad_map is the reverse sweep of map_dist at p: the plain version is
+// torch.autograd of scene.map_dist (render/integrator.py exact_gradient,
+// with core/sdf.py's JAX derivatives at the kinks), and each node's
+// adjoint below repeats torch's backward formula op for op (sqrt:
+// g / (2 sqrt x); a / b: g / b and -g ((a / b) / b); x * x: g x + g x;
+// min / max: a tie splits 0.5 / 0.5, the loser gets 0, as JAX's for any
+// finite cotangent).  The clamps of core/sdf.py's jclamp take JAX's rule:
+// a tie with the bound splits 0.5 / 0.5 and the cotangent passes by a
+// multiply (balanced_eq); jabs' (0) = 1.  No multiply by a zero cotangent
+// is skipped: inf * 0 is NaN where JAX's is (inside a cylinder,
+// sqrt'(0) = inf).  A register
+// component no later node reads has no cotangent at all (its `live` bit
+// stays clear), as an unused value has none in torch or JAX; the object
+// compiler gives every node its own register, so the forward's registers
+// hold every node's inputs when the reverse pass reads them.
+
+// JAX's balanced_eq(x, ans, y): 1 where x is the result, halved where y
+// is too
+__device__ __forceinline__ float bal(float x, float ans, float y) {
+  return (x == ans ? 1.0f : 0.0f) / (y == ans ? 2.0f : 1.0f);
+}
+
+// Vec3.length = sqrt(clamp(dot(q, q), min=1e-24)): q's adjoint from g
+__device__ __forceinline__ V3 length_adj(float g, V3 q) {
+  const float ss = dot(q, q);
+  const float l = sqrtf(fmaxf(ss, 1e-24f));
+  const float gs = ss >= 1e-24f ? g / (2.0f * l) : 0.0f;
+  const float tx = gs * q.x, ty = gs * q.y, tz = gs * q.z;
+  return mk(tx + tx, ty + ty, tz + tz);
+}
+
+// torch.maximum / torch.minimum's adjoint of input x against the other
+// input y: a tie splits, the losing input gets 0
+__device__ __forceinline__ float ext_adj(float g, float x, float y, bool take_max) {
+  if (x == y) return g / 2.0f;
+  return (take_max ? x < y : x > y) ? 0.0f : g;
+}
+
+// jclamp(x, lo, 1) of core/sdf.py: jnp.clip's adjoint, the minimum first
+__device__ __forceinline__ float clip_adj(float g, float x, float lo, float hi) {
+  const float m = fmaxf(x, lo);
+  return (g * bal(m, fminf(m, hi), hi)) * bal(x, m, lo);
+}
+
+// torch's floor division of floats (the divisor's adjoint of remainder)
+__device__ __forceinline__ float floor_div(float a, float b) {
+  const float m = fmodf(a, b);
+  float d = (a - m) / b;
+  if (m != 0.0f && ((b < 0.0f) != (m < 0.0f))) d -= 1.0f;
+  if (d == 0.0f) return copysignf(0.0f, a / b);
+  float f = floorf(d);
+  if (d - f > 0.5f) f += 1.0f;
+  return f;
+}
+
+__device__ __forceinline__ float& comp(V3& v, int k) { return (&v.x)[k]; }
+__device__ __forceinline__ float at(const V3& v, int k) { return (&v.x)[k]; }
+
+// The adjoint registers of one object: values, live bits (3 per register)
+// and the point's adjoint.
+struct Adj {
+  V3 v[kMaxRegs];
+  uint64_t live;
+  V3 dp;
+};
+
+// add `val` to component k of input `code`'s adjoint (constants have none)
+__device__ __forceinline__ void acc(Adj& A, int code, int k, float val) {
+  if (code >= 0) {
+    const uint64_t bit = 1ull << (3 * code + k);
+    comp(A.v[code], k) = (A.live & bit) ? comp(A.v[code], k) + val : val;
+    A.live |= bit;
+  } else if (code == -1) {
+    comp(A.dp, k) = comp(A.dp, k) + val;
+  }
+}
+__device__ __forceinline__ void acc3(Adj& A, int code, V3 val) {
+  acc(A, code, 0, val.x);
+  acc(A, code, 1, val.y);
+  acc(A, code, 2, val.z);
+}
+
+// The reverse of one node: its inputs' adjoints from its output's.
+__device__ void node_adjoint(const SceneRef& s, const V3* regs, V3 p, const int* nd, Adj& A) {
+  const int out = nd[1];
+  if (out < 0) return;
+  const int lm = (int)((A.live >> (3 * out)) & 7u);
+  if (lm == 0) return;  // nothing reads this node
+  const V3 g = A.v[out];
+  // a splat node's scalar adjoint: the sum of its read components
+  float gs = 0.0f;
+  bool first = true;
+  for (int k = 0; k < 3; ++k) {
+    if (lm & (1 << k)) {
+      gs = first ? at(g, k) : gs + at(g, k);
+      first = false;
+    }
+  }
+  const int ia = nd[2], ib = nd[3], ic = nd[4], ie = nd[5];
+  const V3 a = fetch(s, regs, p, ia);
+  const V3 b = fetch(s, regs, p, ib);
+  const V3 c = fetch(s, regs, p, ic);
+  switch (nd[0]) {
+    case OP_SPHERE: {
+      const V3 gq = length_adj(gs, sub(a, b));
+      acc3(A, ia, gq);
+      acc3(A, ib, neg(gq));
+      acc(A, ic, 0, -gs);
+      break;
+    }
+    case OP_BOX: {
+      const V3 d = sub(a, b);
+      const V3 q = sub(mk(fabsf(d.x), fabsf(d.y), fabsf(d.z)), c);
+      const V3 m = mk(fmaxf(q.x, 0.0f), fmaxf(q.y, 0.0f), fmaxf(q.z, 0.0f));
+      const V3 gm = length_adj(gs, m);
+      const float in_yz = fmaxf(q.y, q.z);
+      const float mq = fmaxf(q.x, in_yz);
+      const float gmq = gs * bal(mq, fminf(mq, 0.0f), 0.0f);
+      const float gyz = ext_adj(gmq, in_yz, q.x, true);
+      // torch.clamp(q, min=0): where(q >= 0, g, 0)
+      const V3 gq = mk((q.x >= 0.0f ? gm.x : 0.0f) + ext_adj(gmq, q.x, in_yz, true),
+                       (q.y >= 0.0f ? gm.y : 0.0f) + ext_adj(gyz, q.y, q.z, true),
+                       (q.z >= 0.0f ? gm.z : 0.0f) + ext_adj(gyz, q.z, q.y, true));
+      const V3 gd = mk(d.x >= 0.0f ? gq.x : -gq.x, d.y >= 0.0f ? gq.y : -gq.y,
+                       d.z >= 0.0f ? gq.z : -gq.z);
+      acc3(A, ia, gd);
+      acc3(A, ib, neg(gd));
+      acc3(A, ic, neg(gq));
+      break;
+    }
+    case OP_PLANE: {
+      const float inv = 1.0f / sqrtf(fmaxf(dot(b, b), 1e-24f));
+      const V3 n = scale(b, inv);
+      acc3(A, ia, scale(n, gs));
+      if (ib > -2) {
+        // n = b * inv, inv = reciprocal(sqrt(clamp(dot(b, b), 1e-24)))
+        const V3 gn = scale(a, gs);
+        const float ginv = (gn.x * b.x + gn.y * b.y) + gn.z * b.z;
+        const float ss = dot(b, b);
+        const float r = sqrtf(fmaxf(ss, 1e-24f));
+        const float gr = -ginv * (inv * inv);
+        const float gss = ss >= 1e-24f ? gr / (2.0f * r) : 0.0f;
+        const float tx = gss * b.x, ty = gss * b.y, tz = gss * b.z;
+        acc3(A, ib, mk(gn.x * inv + (tx + tx), gn.y * inv + (ty + ty), gn.z * inv + (tz + tz)));
+      }
+      acc(A, ic, 0, -gs);
+      break;
+    }
+    case OP_TORUS: {
+      const V3 q = sub(a, b);
+      const float r1 = sqrtf(q.x * q.x + q.z * q.z);
+      const float ql = r1 - c.x;
+      const float r2 = sqrtf(ql * ql + q.y * q.y);
+      const float g2 = gs / (2.0f * r2);
+      const float u = g2 * ql, v = g2 * q.y;
+      const float gql = u + u;
+      const float g1 = gql / (2.0f * r1);
+      const float w = g1 * q.x, z = g1 * q.z;
+      const V3 gq = mk(w + w, v + v, z + z);
+      acc3(A, ia, gq);
+      acc3(A, ib, neg(gq));
+      acc(A, ic, 0, -gql);
+      acc(A, ic, 1, -gs);
+      break;
+    }
+    case OP_CYLINDER: {
+      const V3 q = sub(a, b);
+      const float r1 = sqrtf(q.x * q.x + q.z * q.z);
+      const float dxz = r1 - c.x;
+      const float dy = fabsf(q.y) - c.y;
+      const float mx = fmaxf(dxz, 0.0f);
+      const float my = fmaxf(dy, 0.0f);
+      const float r2 = sqrtf(mx * mx + my * my);
+      const float mm = fmaxf(dxz, dy);
+      const float g2 = gs / (2.0f * r2);
+      const float u = g2 * mx, v = g2 * my;
+      const float gmm = gs * bal(mm, fminf(mm, 0.0f), 0.0f);
+      const float gdxz = (u + u) * bal(dxz, mx, 0.0f) + ext_adj(gmm, dxz, dy, true);
+      const float gdy = (v + v) * bal(dy, my, 0.0f) + ext_adj(gmm, dy, dxz, true);
+      const float g1 = gdxz / (2.0f * r1);
+      const float w = g1 * q.x, z = g1 * q.z;
+      const V3 gq = mk(w + w, q.y >= 0.0f ? gdy : -gdy, z + z);
+      acc3(A, ia, gq);
+      acc3(A, ib, neg(gq));
+      acc(A, ic, 0, -gdxz);
+      acc(A, ic, 1, -gdy);
+      break;
+    }
+    case OP_CAPSULE: {
+      const V3 pa = sub(a, b);
+      const V3 ba = sub(c, b);
+      const float num = dot(pa, ba);
+      const float dd = dot(ba, ba);
+      const float den = fmaxf(dd, 1e-30f);
+      const float r = num / den;
+      const float h = clamp01(r);
+      const V3 gv = length_adj(gs, sub(pa, scale(ba, h)));
+      // v = pa - ba * h
+      const V3 gbh = neg(gv);
+      const float gh = (gbh.x * ba.x + gbh.y * ba.y) + gbh.z * ba.z;
+      const float gr = clip_adj(gh, r, 0.0f, 1.0f);
+      const float gnum = gr / den;
+      const float gden = -gr * ((num / den) / den);
+      const float gdd = gden * bal(dd, fmaxf(dd, 1e-30f), 1e-30f);
+      const float tx = gdd * ba.x, ty = gdd * ba.y, tz = gdd * ba.z;
+      const V3 gpa = add(gv, scale(ba, gnum));
+      const V3 gba = add(add(scale(gbh, h), mk(tx + tx, ty + ty, tz + tz)), scale(pa, gnum));
+      acc3(A, ia, gpa);
+      acc3(A, ib, neg(add(gpa, gba)));
+      acc3(A, ic, gba);
+      acc(A, ie, 0, -gs);
+      break;
+    }
+    case OP_UNION:
+    case OP_SUBTRACT:
+    case OP_INTERSECT:
+      for (int k = 0; k < 3; ++k) {
+        if (!(lm & (1 << k))) continue;
+        const float gk = at(g, k);
+        const float ak = at(a, k);
+        const float bk = at(b, k);
+        if (nd[0] == OP_UNION) {
+          acc(A, ia, k, ext_adj(gk, ak, bk, false));
+          acc(A, ib, k, ext_adj(gk, bk, ak, false));
+        } else if (nd[0] == OP_SUBTRACT) {
+          acc(A, ia, k, ext_adj(gk, ak, -bk, true));
+          acc(A, ib, k, -ext_adj(gk, -bk, ak, true));
+        } else {
+          acc(A, ia, k, ext_adj(gk, ak, bk, true));
+          acc(A, ib, k, ext_adj(gk, bk, ak, true));
+        }
+      }
+      break;
+    case OP_SMOOTH_UNION: {
+      const float x1 = 0.5f * (b.x - a.x);
+      const float uu = 0.5f + x1 / c.x;
+      const float h = clamp01(uu);
+      const float omh = 1.0f - h;
+      const float kh = c.x * h;
+      // (b (1 - h) + a h) - (k h) (1 - h), two separate (1 - h)
+      const float grhs = -gs;
+      const float gkh = grhs * omh;
+      const float gh = ((gs * a.x + gkh * c.x) + -(gs * b.x)) + -(grhs * kh);
+      const float gu = clip_adj(gh, uu, 0.0f, 1.0f);
+      const float gx1 = gu / c.x;
+      const float gdiff = gx1 * 0.5f;
+      acc(A, ia, 0, gs * h - gdiff);
+      acc(A, ib, 0, gs * omh + gdiff);
+      acc(A, ic, 0, gkh * h + -gu * ((x1 / c.x) / c.x));
+      break;
+    }
+    case OP_REPEAT:
+      for (int k = 0; k < 3; ++k) {
+        if (!(lm & (1 << k))) continue;
+        const float gk = at(g, k);
+        const float per = at(b, k);
+        acc(A, ia, k, gk);
+        if (per != 0.0f) {
+          acc(A, ib, k, -gk * floor_div(at(a, k), per) + -gk * 0.5f);
+        }
+      }
+      break;
+    case OP_GETX:
+      acc(A, ia, 0, gs);
+      break;
+    case OP_GETY:
+      acc(A, ia, 1, gs);
+      break;
+    case OP_GETZ:
+      acc(A, ia, 2, gs);
+      break;
+    default:  // the componentwise arithmetic
+      for (int k = 0; k < 3; ++k) {
+        if (!(lm & (1 << k))) continue;
+        const float gk = at(g, k);
+        const float ak = at(a, k);
+        const float bk = at(b, k);
+        switch (nd[0]) {
+          case OP_ADD:
+            acc(A, ia, k, gk);
+            acc(A, ib, k, gk);
+            break;
+          case OP_SUB:
+            acc(A, ia, k, gk);
+            acc(A, ib, k, -gk);
+            break;
+          case OP_MUL:
+            acc(A, ia, k, gk * bk);
+            acc(A, ib, k, gk * ak);
+            break;
+          case OP_DIV:
+            acc(A, ia, k, gk / bk);
+            acc(A, ib, k, -gk * ((ak / bk) / bk));
+            break;
+          case OP_SIN:
+            acc(A, ia, k, gk * cosf(ak));
+            break;
+          default:  // OP_COS
+            acc(A, ia, k, gk * -sinf(ak));
+            break;
+        }
+      }
+      break;
+  }
+}
+
+// The gradient of map_dist at p.  The running minimum's cotangents follow
+// torch.minimum's (and jnp.minimum's) chain from object 0: among the t
+// objects at the minimum,
+// the first gets 0.5^(t-1) and the i-th (i > 1) 0.5^(t-i+1) (a three-way
+// tie: 0.25 / 0.25 / 0.5), every other object 0.  Every object is swept,
+// those of cotangent 0 too, as JAX's vjp sweeps them.  A call, so that
+// the kernels keep their own registers around it; only the exact-normal
+// instantiations contain it.
+__device__ __noinline__ V3 grad_map(const SceneRef& s, float max_dist, V3 p) {
+  const int n_obj = s.prog[0];
+  if (n_obj == 0) return splat(0.0f);
+  float dmin = eval_object(s, 0, p);
+  int n_tie = 1;  // objects at the running minimum
+  for (int i = 1; i < n_obj; ++i) {
+    const float di = eval_object(s, i, p);
+    n_tie = di < dmin ? 1 : (di == dmin ? n_tie + 1 : n_tie);
+    dmin = fminf(dmin, di);
+  }
+  V3 dp = splat(0.0f);
+  int rank = 0;  // tied objects at or after i
+  for (int i = n_obj - 1; i >= 0; --i) {
+    V3 regs[kMaxRegs];
+    const float di = run_object(s, i, p, regs);
+    float cot = 0.0f;
+    if (di == dmin) {
+      rank += 1;
+      cot = ldexpf(1.0f, -(rank == n_tie ? n_tie - 1 : rank));
+    }
+    const int* od = s.prog + kHeader + kObjWords * i;
+    Adj A;
+    A.live = 1ull << (3 * od[2]);
+    A.v[od[2]].x = cot;
+    A.dp = splat(0.0f);
+    for (int k = od[1] - 1; k >= 0; --k) {
+      node_adjoint(s, regs, p, s.prog + od[0] + kNodeWords * k, A);
+    }
+    dp = add(dp, A.dp);
+  }
+  return dp;
+}
+
+// SDF-gradient normal: 4 tetrahedron taps or 6 central differences, or,
+// in an exact-normal instantiation (normal_taps = 0), the normalised
+// reverse sweep.  kExact is a template argument so that the stencil
+// instantiations compile to the code they had without grad_map.
+template <bool kExact>
 __device__ V3 get_normal(const SceneRef& s, float max_dist, float e, int taps, V3 p) {
+  if constexpr (kExact) return normalized(grad_map(s, max_dist, p));
   if (taps == 4) {
     const float k[4][3] = {{1.0f, -1.0f, -1.0f}, {-1.0f, -1.0f, 1.0f},
                            {-1.0f, 1.0f, -1.0f}, {1.0f, 1.0f, 1.0f}};
@@ -292,6 +660,16 @@ __device__ V3 get_normal(const SceneRef& s, float max_dist, float e, int taps, V
                 map_dist(s, max_dist, mk(p.x, p.y, p.z - e)));
   return normalized(n);
 }
+
+// A kernel policy B with the exact normal: the lane machines read
+// `R::kExact` (false in every base policy) and pass it to get_normal, and
+// each entry point launches ExactNormal<B> when normal_taps is 0.
+template <class B>
+struct ExactNormal : B {
+  static constexpr bool kExact = true;
+  ExactNormal() = default;
+  explicit ExactNormal(const B& b) : B(b) {}
+};
 
 // ---- sampling (core/sampling.py) -------------------------------------------
 

@@ -65,7 +65,8 @@ struct Path {
 };
 
 // trace_rgb for one lane: the path from the eye along d0 with shade stream
-// `sid` and colour mask `ch`.
+// `sid` and colour mask `ch`; kExact: the exact normal (normal_taps = 0).
+template <bool kExact>
 __device__ Path trace_path(const Ctx& c, V3 eye, V3 d0, uint32_t sid, V3 ch) {
   const PathArgs& a = c.a;
   const bool defer = c.sky_kind == kSkyDefer;
@@ -97,7 +98,7 @@ __device__ Path trace_path(const Ctx& c, V3 eye, V3 d0, uint32_t sid, V3 ch) {
     in.t = t;
     in.inside = inside;
     in.hit = add(o, scale(d, t));
-    in.normal = get_normal(c.s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
+    in.normal = get_normal<kExact>(c.s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
     in.channels = ch;
     Rng rng = rng_make(a.seed, c.px, c.py, sid, (uint32_t)b);
     const ShadeOut so = eval_material(c.s, mid, in, rng);
@@ -156,6 +157,7 @@ struct MissBanks {
   size_t stride;    // ph * pw
 };
 
+template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) wavefront_paths_kernel(
     PathArgs a, int sky_kind, const float* __restrict__ corners, const float* __restrict__ fdata,
     const int* __restrict__ prog, float* __restrict__ out, MissBanks banks) {
@@ -202,7 +204,8 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_paths_kernel(
       const uint32_t ci = s % 3u;
       const uint32_t sid = a.dispersion ? samp * 4u + ci + 1u : s;
       const V3 d0 = primary_ray(cam, a.seed, c.px, c.py, samp, a.width, a.height);
-      const Path p = trace_path(c, cam.eye, d0, sid, a.dispersion ? one_hot(ci) : splat(1.0f));
+      const Path p =
+          trace_path<kExact>(c, cam.eye, d0, sid, a.dispersion ? one_hot(ci) : splat(1.0f));
       const size_t slot = (size_t)k * banks.stride + pix;
       banks.plane[0][slot] = p.miss_thr.x;
       banks.plane[1][slot] = p.miss_thr.y;
@@ -217,9 +220,9 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_paths_kernel(
       if (a.dispersion) {
         col = splat(0.0f);
         for (uint32_t ci = 0; ci < 3u; ++ci)
-          col = add(col, trace_path(c, cam.eye, d0, s * 4u + ci + 1u, one_hot(ci)).color);
+          col = add(col, trace_path<kExact>(c, cam.eye, d0, s * 4u + ci + 1u, one_hot(ci)).color);
       } else {
-        col = trace_path(c, cam.eye, d0, s, splat(1.0f)).color;
+        col = trace_path<kExact>(c, cam.eye, d0, s, splat(1.0f)).color;
       }
       acc = add(acc, col);
     }
@@ -257,7 +260,12 @@ extern "C" int rmr_wavefront_paths(const PathArgs* args, int sky_kind, const flo
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  wavefront_paths_kernel<<<grid, block, 0, stream>>>(*args, sky_kind, corners, fdata, prog, out,
-                                                      banks);
+  if (args->normal_taps == 0) {
+    wavefront_paths_kernel<true><<<grid, block, 0, stream>>>(*args, sky_kind, corners, fdata, prog,
+                                                             out, banks);
+  } else {
+    wavefront_paths_kernel<false><<<grid, block, 0, stream>>>(*args, sky_kind, corners, fdata,
+                                                              prog, out, banks);
+  }
   return (int)cudaGetLastError();
 }

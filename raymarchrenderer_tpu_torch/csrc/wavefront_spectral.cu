@@ -33,6 +33,8 @@ using namespace rmr;
 
 namespace {
 
+// kExact: the exact normal (normal_taps = 0)
+template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) wavefront_spectral_kernel(
     SpecArgs a, const float* __restrict__ corners, const float* __restrict__ fdata,
     const int* __restrict__ prog, float* __restrict__ out) {
@@ -78,7 +80,7 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_spectral_kernel(
       const bool absorbed =
           apply_band(wl, power, u, band[row], band[n_mats + row], band[2 * n_mats + row]);
       if (tail[1 + row] == 1 || absorbed) break;
-      const V3 normal = get_normal(s, a.max_dist, a.normal_eps, a.normal_taps, hitp);
+      const V3 normal = get_normal<kExact>(s, a.max_dist, a.normal_eps, a.normal_taps, hitp);
       const float u1 = rng_next(rng);
       const float u2 = rng_next(rng);
       d = uniform_sphere_or_hemisphere(u1, u2, normal);
@@ -106,6 +108,10 @@ extern "C" int rmr_wavefront_spectral(const SpecArgs* args, const float* corners
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  wavefront_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  if (args->normal_taps == 0) {
+    wavefront_spectral_kernel<true><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  } else {
+    wavefront_spectral_kernel<false><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
+  }
   return (int)cudaGetLastError();
 }

@@ -34,6 +34,18 @@ def _keep(x):
     return x
 
 
+def _leaves(tree):
+    """The tensors of a nested dict / list parameter tree."""
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    elif isinstance(tree, (list, tuple)):
+        for v in tree:
+            yield from _leaves(v)
+    else:
+        yield tree
+
+
 def _detached_tree(tree):
     if isinstance(tree, dict):
         return {k: _detached_tree(v) for k, v in tree.items()}
@@ -51,8 +63,10 @@ def _surface_gradient(scene, cfg, params, p: Vec3) -> Vec3:
             _keep, _keep):
         q = Vec3(*(c.detach().requires_grad_(True) for c in p))
         f = scene.map_dist(_detached_tree(params), q, cfg.max_dist)
-        g = torch.autograd.grad(f, tuple(q), torch.ones_like(f),
-                                allow_unused=True)
+        # a scene without objects: a constant map, a zero gradient
+        g = (torch.autograd.grad(f, tuple(q), torch.ones_like(f),
+                                 allow_unused=True) if f.requires_grad
+             else (None,) * 3)
     return Vec3(*(torch.zeros_like(c) if gc is None else gc
                   for gc, c in zip(g, p)))
 

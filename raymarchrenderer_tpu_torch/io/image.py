@@ -1,15 +1,15 @@
-"""Image I/O: linear float accumulation -> sRGB BMP/PNG, or float NPY; and
-the readers of a train target (BMP, PNG, EXR).
+"""Image I/O: linear float accumulation -> sRGB BMP/PNG, or float EXR/NPY;
+and the readers of a train target (BMP, PNG, EXR).
 
 The reference saves its accumulation buffer as an sRGB-encoded BMP
 (`Graphics::SaveImage`, `Graphics.cpp:754-799`) named
 "%Y-%m-%d_%H-%M-%S.bmp" (`Program.cpp:71-84`).  The buffer stays float32
 linear and ONE explicit sRGB OETF applies at encode time.  These are the
-JAX package's pure-Python encoders (24-bit bottom-up BGR BMP, zlib PNG),
-byte for byte, and its numpy-only readers (`load_bmp`, `load_png`,
-`load_png_bytes`, `load_exr`, `_srgb_to_linear_np`); the native C++
-encoder is not bound here.  Images are numpy arrays: callers hand over
-`tensor.cpu().numpy()`.
+JAX package's pure-Python encoders (24-bit bottom-up BGR BMP, zlib PNG)
+and its OpenEXR writer (`save_exr`), byte for byte, and its numpy-only
+readers (`load_bmp`, `load_png`, `load_png_bytes`, `load_exr`,
+`_srgb_to_linear_np`); the native C++ encoder is not bound here.  Images
+are numpy arrays: callers hand over `tensor.cpu().numpy()`.
 """
 from __future__ import annotations
 
@@ -87,12 +87,59 @@ def save_npy(path: str, img_linear: np.ndarray) -> None:
     np.save(path, np.asarray(img_linear, np.float32))
 
 
+def _exr_attr(name: bytes, typ: bytes, data: bytes) -> bytes:
+    return name + b"\x00" + typ + b"\x00" + struct.pack("<I", len(data)) + data
+
+
+def save_exr(path: str, img_linear: np.ndarray) -> None:
+    """OpenEXR 2.0 writer: single-part scanline, float32 B/G/R channels,
+    no compression, increasing-Y; linear radiance."""
+    img = np.ascontiguousarray(np.asarray(img_linear, np.float32))
+    if img.ndim != 3 or img.shape[2] != 3:
+        raise ValueError(f"save_exr expects (H, W, 3), got {img.shape}")
+    h, w, _ = img.shape
+
+    # channel list, alphabetical (B, G, R), pixelType 2 = FLOAT
+    def chan(name: bytes) -> bytes:
+        return name + b"\x00" + struct.pack("<iBBBBii", 2, 0, 0, 0, 0, 1, 1)
+
+    chlist = chan(b"B") + chan(b"G") + chan(b"R") + b"\x00"
+    box = struct.pack("<iiii", 0, 0, w - 1, h - 1)
+    header = (
+        struct.pack("<I", 20000630)       # magic
+        + struct.pack("<I", 2)            # version 2, no flags
+        + _exr_attr(b"channels", b"chlist", chlist)
+        + _exr_attr(b"compression", b"compression", b"\x00")  # NONE
+        + _exr_attr(b"dataWindow", b"box2i", box)
+        + _exr_attr(b"displayWindow", b"box2i", box)
+        + _exr_attr(b"lineOrder", b"lineOrder", b"\x00")      # increasing Y
+        + _exr_attr(b"pixelAspectRatio", b"float", struct.pack("<f", 1.0))
+        + _exr_attr(b"screenWindowCenter", b"v2f", struct.pack("<ff", 0, 0))
+        + _exr_attr(b"screenWindowWidth", b"float", struct.pack("<f", 1.0))
+        + b"\x00")                        # end of header
+
+    row_bytes = 3 * 4 * w                 # 3 float32 channels per scanline
+    chunk_bytes = 8 + row_bytes           # y:int32 + size:int32 + data
+    data_pos = len(header) + 8 * h        # offset table: one uint64 per line
+    offsets = np.arange(h, dtype=np.uint64) * chunk_bytes + data_pos
+    # per-scanline chunk payload: B row, G row, R row (channel-planar)
+    planar = np.ascontiguousarray(np.transpose(img[:, :, ::-1], (0, 2, 1)))
+    with open(path, "wb") as f:
+        f.write(header)
+        f.write(offsets.tobytes())
+        for y in range(h):
+            f.write(struct.pack("<ii", y, row_bytes))
+            f.write(planar[y].tobytes())
+
+
 def save_image(path: str, img_linear: np.ndarray) -> None:
     ext = os.path.splitext(path)[1].lower()
     if ext == ".bmp":
         save_bmp(path, img_linear)
     elif ext == ".png":
         save_png(path, img_linear)
+    elif ext == ".exr":
+        save_exr(path, img_linear)
     elif ext == ".npy":
         save_npy(path, img_linear)
     else:

@@ -34,8 +34,9 @@ the input tensors (`corners`, or the ray planes) picks the route: a CUDA
 tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
 runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`,
 `wavefront_paths_plain`, `wavefront_spectral_plain`).  There is no other
-route and no fallback between the two.  `normal_taps=0` is not ported and
-raises on both routes.
+route and no fallback between the two.  `normal_taps=0` (the exact
+normal) takes each source's exact-normal instantiation, which the entry
+point picks on the host (`grad_map` in csrc/scene_map.cuh).
 """
 from __future__ import annotations
 
@@ -46,6 +47,7 @@ import numpy as np
 import torch
 
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3
+from raymarchrenderer_tpu_torch.diff.march import _leaves
 from raymarchrenderer_tpu_torch.kernels.build import CudaKernel
 from raymarchrenderer_tpu_torch.kernels.scene_program import (
     MAX_LIGHTS, SKY_DEFER, object_buffers, paths_buffers, sky_kind,
@@ -54,7 +56,6 @@ from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (march, spp_rays,
                                                           trace_rgb)
 from raymarchrenderer_tpu_torch.render.mega import (check_knobs,
-                                                    check_paths_supported,
                                                     trace_mega_paths,
                                                     trace_mega_spectral)
 from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
@@ -157,26 +158,16 @@ def _inv(n_samples: int, normalize: bool) -> float:
     return float(np.float32(1.0 / float(n_samples))) if normalize else 1.0
 
 
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
-            yield from _leaves(v)
-    elif isinstance(tree, (list, tuple)):
-        for v in tree:
-            yield from _leaves(v)
-    else:
-        yield tree
-
-
 def _check_launch(corners, cfg, *trees):
     """The wrapper's checks before a launch: corners' type and shape, a
-    ported normal estimator, and every tensor on the corners' device."""
+    normal estimator the kernels have (0, 4 or 6 taps), and every tensor
+    on the corners' device."""
     device = corners.device
     if corners.dtype != torch.float32 or tuple(corners.shape) != (5, 3):
         raise ValueError("corners must be a (5, 3) float32 tensor")
-    if cfg.normal_taps not in (4, 6):
-        raise NotImplementedError(
-            f"normal_taps={cfg.normal_taps} is not ported to the kernel")
+    if cfg.normal_taps not in (0, 4, 6):
+        raise ValueError(f"normal_taps must be 0, 4 or 6, not "
+                         f"{cfg.normal_taps}")
     for leaf in (leaf for tree in trees for leaf in _leaves(tree)):
         if leaf.device != device:
             raise ValueError("scene tensors and corners are on different "
@@ -553,7 +544,6 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
     schedule; "wavefront" traces each sample's path to its end, sample
     after sample (the schedule knobs do not apply)."""
     check_knobs(march_unroll, regen_cadence)
-    check_paths_supported(scene, cfg)
     if n_samples < 1:
         raise ValueError("n_samples must be >= 1")
     if mode == "auto":
@@ -601,6 +591,14 @@ def render_fused(scene: Scene, params, cfg: RenderConfig, corners, sample0,
         sample0, n_samples=n_samples, direct_light=direct_light, mode=mode,
         march_unroll=march_unroll, lazy_miss=lazy_miss,
         regen_cadence=regen_cadence)
+
+
+def render_sample_fused(scene: Scene, params, cfg: RenderConfig, corners,
+                        sample, direct_light: bool = False):
+    """One full-frame sample through the RGB kernel, a drop-in for
+    `render.integrator.render_sample` (returns the stacked (H, W, 3))."""
+    return render_fused(scene, params, cfg, corners, sample, n_samples=1,
+                        direct_light=direct_light)
 
 
 def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,

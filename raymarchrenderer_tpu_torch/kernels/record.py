@@ -51,8 +51,7 @@ from raymarchrenderer_tpu_torch.kernels.scene_program import (
     paths_buffers, spectral_buffers)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import get_normal, march
-from raymarchrenderer_tpu_torch.render.mega import (check_paths_supported,
-                                                    trace_mega_paths,
+from raymarchrenderer_tpu_torch.render.mega import (trace_mega_paths,
                                                     trace_mega_spectral)
 from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
 from raymarchrenderer_tpu_torch.scene.graph import Scene
@@ -113,7 +112,6 @@ def trace_record_fused(scene: Scene, params, cfg: RenderConfig, corners,
     if mode not in ("auto", "mega"):
         raise ValueError(f"mode must be 'auto', 'mega' or 'wavefront', not "
                          f"{mode!r}")
-    check_paths_supported(scene, cfg)
     if n_samples < 1:
         raise ValueError("n_samples must be >= 1")
     if corners.device.type == "cpu":
@@ -138,7 +136,6 @@ def record_plain(scene: Scene, params, cfg: RenderConfig, corners,
     with the knobs a recording launch takes there (`record_knobs`): the
     CPU route, and on the card the kernel's yardstick.  `work` counts the
     map evaluations as `trace_mega_paths` does."""
-    check_paths_supported(scene, cfg)
     ph, pw = patch_shape
     S = int(n_samples)
     nee = bool(direct_light) and scene.n_lights > 0
@@ -256,7 +253,6 @@ def _miss_banks(cfg: RenderConfig, shape, device):
 
 
 def _check_wavefront(scene: Scene, cfg: RenderConfig):
-    check_paths_supported(scene, cfg)
     if cfg.separate_channels:
         raise NotImplementedError(
             "dispersion recording enumerates (sample, channel) paths, a "

@@ -105,7 +105,7 @@ def compile_program(scene: Scene):
     obj_words, node_words, param_slots = [], [], []
     first = _HEADER + _OBJ_WORDS * n_obj
     for oi, obj in enumerate(scene.objects):
-        regs = {}
+        regs, n_written = {}, 0
         start = first + len(node_words)
         for node in obj.nodes:
             if node.name not in OPCODES:
@@ -130,8 +130,12 @@ def compile_program(scene: Scene):
                     raise ValueError(f"unresolvable input {desc}")
             out = -1
             if node.outputs:
-                key = node.outputs[0]
-                out = regs.setdefault(key, len(regs))
+                # a register of its own per node (a rebound key reads
+                # the new one), so the exact normal's reverse sweep finds
+                # every node's inputs in the registers
+                out = n_written
+                n_written += 1
+                regs[node.outputs[0]] = out
                 if out >= MAX_REGS:
                     raise ValueError(f"object {oi} needs more than "
                                      f"{MAX_REGS} registers")

@@ -3,14 +3,18 @@
   * `march` — the per-ray sphere trace over planes of rays (classic, or
     safeguarded over-relaxed when `cfg.relax_omega > 1`), the plain
     version of the CUDA kernel `march_fused` (`csrc/march_fused.cu`);
-  * `get_normal` — SDF-gradient normals, 4 or 6 taps;
+  * `get_normal` — SDF-gradient normals: 4 or 6 taps, or the exact
+    gradient (`normal_taps=0`, `exact_gradient`);
   * `trace_rgb` — gen-1 `trace` (`RayMarch.glsl:483-565`) as one Python
     loop over bounces over masked planes, with next-event estimation
     (`_direct_light`), Russian roulette and, with `differentiable=True`,
     the implicit-function march adjoint of `diff/march.py`;
   * `render_patch` / `render_patch_spp` — one sample of a patch, or all
     samples at once with the sample axis folded into the rows (the train
-    step's layout).
+    step's layout);
+  * `render_sample`, `accumulate`, `render` — the oracle progressive
+    render (`render --impl oracle`): one full-frame sample at a time,
+    folded into a running mean.
 
 `march_impl` picks how every march of `trace_rgb` runs: "oracle" is
 `march` here; "fused" is `kernels.march.march_fused` (the CUDA kernel for
@@ -126,17 +130,16 @@ def _march_relaxed(scene: Scene, params, cfg: RenderConfig, o: Vec3,
 
 def get_normal(scene: Scene, params, cfg: RenderConfig, p: Vec3) -> Vec3:
     """`normal_taps=6`: central differences (`RayMarch.glsl:259-268`,
-    eps = cfg.normal_eps); `normal_taps=4`: tetrahedron differences.
-    `normal_taps=0` (the exact gradient by one reverse sweep) is not ported
-    yet."""
+    eps = cfg.normal_eps); `normal_taps=4`: tetrahedron differences;
+    `normal_taps=0`: the exact gradient of the map at p by one reverse
+    sweep, normalised (`exact_gradient`)."""
     e = cfg.normal_eps
 
     def md(q):
         return scene.map_dist(params, q, cfg.max_dist)
 
     if cfg.normal_taps == 0:
-        raise NotImplementedError(
-            "normal_taps=0 (exact autodiff gradient) is not ported yet")
+        return exact_gradient(scene, params, cfg, p).normalized()
     if cfg.normal_taps == 4:
         n = Vec3(0.0, 0.0, 0.0)
         for kx, ky, kz in _TETRA:
@@ -147,6 +150,38 @@ def get_normal(scene: Scene, params, cfg: RenderConfig, p: Vec3) -> Vec3:
                 md(Vec3(p.x, p.y + e, p.z)) - md(Vec3(p.x, p.y - e, p.z)),
                 md(Vec3(p.x, p.y, p.z + e)) - md(Vec3(p.x, p.y, p.z - e))
                 ).normalized()
+
+
+def exact_gradient(scene: Scene, params, cfg: RenderConfig, p: Vec3) -> Vec3:
+    """The gradient of `scene.map_dist` at p, the plain version of the
+    kernels' reverse sweep (`grad_map`, csrc/scene_map.cuh), with the JAX
+    package's derivatives at the kinks (`core.sdf`).  Where grad mode is on
+    and p or a scene parameter carries a graph (a train replay), the sweep
+    keeps its graph (`create_graph=True`), so the normal carries its own
+    derivatives w.r.t. the parameters and p, as `jax.grad` through the
+    JAX package's `jax.vjp` does; the sweep keeps its own saved tensors
+    (saved-tensor hooks), so it also runs inside `torch.utils.checkpoint`.
+    Otherwise it is `diff.march._surface_gradient`'s detached sweep."""
+    from raymarchrenderer_tpu_torch.diff.march import (_keep, _leaves,
+                                                       _surface_gradient)
+    if not torch.is_grad_enabled() or not any(
+            t.requires_grad for t in (*p, *_leaves(params))
+            if isinstance(t, torch.Tensor)):
+        return _surface_gradient(scene, cfg, params, p)
+    # the kept graph's saved tensors are packed as data: a saved output
+    # packed with its own grad_fn would hold its node in a cycle that
+    # outlives the step (autograd reattaches the grad_fn on unpacking)
+    hooks = torch.autograd.graph.saved_tensors_hooks(torch.Tensor.detach,
+                                                     _keep)
+    with hooks:
+        q = Vec3(*(c if c.requires_grad else c.detach().requires_grad_(True)
+                   for c in p))
+        f = scene.map_dist(params, q, cfg.max_dist)
+        g = (torch.autograd.grad(f, tuple(q), torch.ones_like(f),
+                                 create_graph=True, allow_unused=True)
+             if f.requires_grad else (None,) * 3)
+    return Vec3(*(torch.zeros_like(c) if gc is None else gc
+                  for gc, c in zip(g, q)))
 
 
 def _detach(v: Vec3) -> Vec3:
@@ -259,8 +294,8 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
     of `kernels.record.trace_record_fused` for these planes.  `work`, with
     the oracle march, gains the map evaluations a one-thread-per-path
     kernel makes: "march" (steps of live lanes, shadow rays included) and
-    "shade" (hits shaded: `normal_taps` evaluations each; the march
-    returns the material)."""
+    "shade" (hits shaded: `normal_taps` evaluations each, 2 for the exact
+    gradient; the march returns the material)."""
     if march_impl == "recorded" and recorded is None:
         raise ValueError("march_impl='recorded' needs recorded planes")
     march_fn, shadow_march = _march_fns(scene, params, cfg, march_impl,
@@ -456,3 +491,46 @@ def render_patch_spp(scene: Scene, params, cfg: RenderConfig, corners,
     c = _trace_channels(scene, params, cfg, eye, d, px, py, sample,
                         direct_light, differentiable, march_impl, recorded)
     return Vec3(*(v.reshape(S, ph, pw).sum(0) for v in c))
+
+
+def render_sample(scene: Scene, params, cfg: RenderConfig, corners, sample,
+                  direct_light: bool = False,
+                  differentiable: bool = False) -> Vec3:
+    """One full-frame sample (all pixels, 1 spp), the body of one
+    `Graphics::Render` dispatch (`Graphics.cpp:314-354`) without tiling;
+    with `cfg.separate_channels` the sum of the three channel paths, which
+    draw the streams sample * 4 + channel + 1."""
+    return render_patch(scene, params, cfg, corners, (0, 0),
+                        (cfg.height, cfg.width), sample, direct_light,
+                        differentiable)
+
+
+def accumulate(accum, color: Vec3, n):
+    """Progressive running mean (`RayMarch.glsl:600-612`): new / (n + 1) +
+    old * n / (n + 1), in float32; `accum` is (H, W, 3)."""
+    n = torch.as_tensor(n, dtype=torch.float32, device=accum.device)
+    f1 = 1.0 / (n + 1.0)
+    f2 = n / (n + 1.0)
+    return color.stack(-1) * f1 + accum * f2
+
+
+def render(scene: Scene, params, cfg: RenderConfig, corners, spp: int = None,
+           direct_light: bool = False, accum=None, n0: float = 0.0,
+           callback=None):
+    """The oracle progressive render: `spp` samples from sample `n0`, each
+    `render_sample` folded into the running mean; resumable from (`accum`,
+    `n0`).  `callback(s, (accum, n))` runs after each sample.  Returns
+    (image (H, W, 3) float32, n)."""
+    spp = cfg.spp if spp is None else spp
+    if accum is None:
+        accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                            device=corners.device)
+    n = torch.tensor(float(n0), dtype=torch.float32, device=corners.device)
+    with torch.no_grad():
+        for s in range(int(n0), int(n0) + spp):
+            color = render_sample(scene, params, cfg, corners, s,
+                                  direct_light)
+            accum, n = accumulate(accum, color, n), n + 1.0
+            if callback is not None:
+                callback(s, (accum, n))
+    return accum, float(n)

@@ -119,7 +119,8 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     `work`, when given, is a dict that gains the counts of the map
     evaluations a one-lane-per-thread kernel makes on these inputs:
     "march" (one per marching lane and step) and "shade" (hits shaded,
-    one material lookup plus `normal_taps` evaluations each).
+    one material lookup plus `normal_taps` evaluations each, 2 for the
+    exact gradient of `normal_taps=0`).
 
     `record_banks`: returns (sum, banks), the plain version of the
     spectral recorder: t float32, mid int32 and hit int32, each
@@ -332,13 +333,6 @@ def pack_uv(d: Vec3) -> torch.Tensor:
     return (ui << 16) | vi
 
 
-def check_paths_supported(scene: Scene, cfg: RenderConfig) -> None:
-    """Refuse, out loud, what the RGB path does not port yet."""
-    if cfg.normal_taps not in (4, 6):
-        raise NotImplementedError(
-            f"normal_taps={cfg.normal_taps} is not ported yet (4 or 6)")
-
-
 def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
                      px, py, sample0, channels: Vec3 = None,
                      n_samples: int = 1, march_unroll: int = 1,
@@ -379,7 +373,6 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     if record_banks and defer_sky:
         raise ValueError("record_banks and defer_sky are exclusive modes")
     check_knobs(march_unroll, regen_cadence)
-    check_paths_supported(scene, cfg)
     shape = px.shape
     device = px.device
     zero = torch.zeros(shape, dtype=torch.float32, device=device)

@@ -10,9 +10,10 @@ This module holds the band table, the band filter (hard, and the soft
 one of spectral inverse rendering, `_apply_band_soft`) and the wavefront
 transport `trace_spectral` over planes of rays, with
 `render_patch_spp_spectral` (every sample of a patch in one trace, the
-`train --spectral` forward); the megakernel schedule is `render/mega.py`.
-`trace_spectral(profile=True)` and the progressive oracle
-`render_sample_spectral` / `render_spectral` are not ported yet.
+`train --spectral` forward), and the progressive oracle
+`render_sample_spectral` / `render_spectral` (`render --spectral --impl
+oracle`); the megakernel schedule is `render/mega.py`.
+`trace_spectral(profile=True)` is not ported yet.
 """
 from __future__ import annotations
 
@@ -28,6 +29,7 @@ from raymarchrenderer_tpu_torch.core.spectral import wavelength_to_rgb
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (_march_fns,
+                                                          accumulate,
                                                           get_normal,
                                                           spp_rays)
 from raymarchrenderer_tpu_torch.scene.graph import Scene
@@ -209,6 +211,36 @@ def render_patch_spp_spectral(scene: Scene, params, mats: SpectralMaterials,
                                recorded=recorded)
     c = wavelength_to_rgb(wl) * power
     return Vec3(*(v.reshape(S, ph, pw).sum(0) for v in c))
+
+
+def render_sample_spectral(scene: Scene, params, mats: SpectralMaterials,
+                           cfg: RenderConfig, corners, sample) -> Vec3:
+    """One full-frame spectral sample: `wavelength_to_rgb(wl) * power`."""
+    px, py, samp, eye, d = spp_rays(cfg, corners, (0, 0),
+                                    (cfg.height, cfg.width), sample, 1)
+    wl, power = trace_spectral(scene, params, mats, cfg, eye, d, px, py,
+                               samp)
+    return wavelength_to_rgb(wl) * power
+
+
+def render_spectral(scene: Scene, params, mats: SpectralMaterials,
+                    cfg: RenderConfig, corners, spp: int = None, accum=None,
+                    n0: float = 0.0, callback=None):
+    """The oracle progressive spectral render, as `integrator.render`:
+    returns (image (H, W, 3) float32, n)."""
+    spp = cfg.spp if spp is None else spp
+    if accum is None:
+        accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                            device=corners.device)
+    n = torch.tensor(float(n0), dtype=torch.float32, device=corners.device)
+    with torch.no_grad():
+        for s in range(int(n0), int(n0) + spp):
+            color = render_sample_spectral(scene, params, mats, cfg, corners,
+                                           s)
+            accum, n = accumulate(accum, color, n), n + 1.0
+            if callback is not None:
+                callback(s, (accum, n))
+    return accum, float(n)
 
 
 def default_band_table(scene: Scene, device) -> SpectralMaterials:

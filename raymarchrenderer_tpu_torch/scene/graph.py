@@ -259,7 +259,9 @@ class Scene:
 
     def map_dist(self, params: dict, p: Vec3, max_dist: float):
         """Distance only: a running minimum seeded from object 0's
-        distance (no `max_dist` splat), as in the JAX package."""
+        distance (no `max_dist` splat), as in the JAX package; its ties
+        split as `jnp.minimum`'s do (three objects at the minimum: 0.25 /
+        0.25 / 0.5)."""
         if not self.objects:
             return torch.full(p.x.shape, max_dist, dtype=torch.float32,
                               device=p.x.device)

@@ -64,10 +64,10 @@ def jax_loss_grads(js, jp, cfg, corners, impl, direct_light, shape, spp):
     return float(value), [np.asarray(g) for g in jax.tree.leaves(grads)]
 
 
-def assert_grads_close(want, got, rel_atol):
-    """Loss to rtol 1e-5; each leaf to atol rel_atol * max|g| of the
+def assert_grads_close(want, got, rel_atol, loss_rtol=1e-5):
+    """Loss to `loss_rtol`; each leaf to atol rel_atol * max|g| of the
     leaf."""
-    np.testing.assert_allclose(got[0], want[0], rtol=1e-5)
+    np.testing.assert_allclose(got[0], want[0], rtol=loss_rtol)
     assert len(want[1]) == len(got[1])
     for a, b in zip(want[1], got[1]):
         assert a.shape == b.shape

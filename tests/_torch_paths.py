@@ -32,6 +32,9 @@ STRICT = dict(relax_omega=0.0, normal_taps=6), dict(
     lazy_miss=False, march_unroll=4, regen_cadence=0)
 PRODUCTION = dict(relax_omega=2.0, normal_taps=4), dict(
     lazy_miss=True, march_unroll=32, regen_cadence=16)
+# the exact normal (normal_taps=0: the reverse sweep of the map)
+EXACT = dict(relax_omega=0.0, normal_taps=0), dict(
+    lazy_miss=False, march_unroll=4, regen_cadence=0)
 
 
 def two_light(b):

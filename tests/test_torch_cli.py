@@ -34,8 +34,8 @@ def test_render_spectral_matches_jax_cli(tmp_path, capsys):
     jout, tout = tmp_path / "jax.png", tmp_path / "torch.png"
     assert jcli.main(["--no-cache", "render", "--spectral", "--cpu",
                       "--impl", "oracle", *_FLAGS, "--out", str(jout)]) == 0
-    assert tcli.main(["render", "--spectral", "--device", "cpu", *_FLAGS,
-                      "--out", str(tout)]) == 0
+    assert tcli.main(["render", "--spectral", "--device", "cpu", "--impl",
+                      "fused", *_FLAGS, "--out", str(tout)]) == 0
     text = capsys.readouterr().out
     assert "2/2 spp" in text and "Mpix*spp/s" in text
     want, got = load_png(str(jout)), load_png(str(tout))
@@ -69,8 +69,8 @@ def test_render_rgb_matches_jax_cli(tmp_path, capsys, nee):
     jout, tout = tmp_path / "jax.npy", tmp_path / "torch.npy"
     assert jcli.main(["--no-cache", "render", "--cpu", "--impl", "oracle",
                       *_FLAGS, *extra, "--out", str(jout)]) == 0
-    assert tcli.main(["render", "--device", "cpu", *_FLAGS, *extra,
-                      "--out", str(tout)]) == 0
+    assert tcli.main(["render", "--device", "cpu", "--impl", "fused",
+                      *_FLAGS, *extra, "--out", str(tout)]) == 0
     text = capsys.readouterr().out
     assert "(rgb, cpu)" in text and "2/2 spp" in text
     want, got = np.load(jout), np.load(tout)
@@ -83,8 +83,9 @@ def test_render_rgb_matches_jax_cli(tmp_path, capsys, nee):
 
 def test_render_needs_spectral(tmp_path):
     """The RGB path no longer needs `--spectral`, and it renders an SH sky
-    (a scene with nothing in it shows the sky itself); what it refuses,
-    out loud, is what it has not ported: `--normal-taps 0`."""
+    (a scene with nothing in it shows the sky itself), with every normal
+    estimator: `--normal-taps 0` (the exact normal) renders too, through
+    the fused path and the oracle."""
     from raymarchrenderer_tpu_torch.app import cli as tcli
     scene = tmp_path / "sh.scene"
     scene.write_text('{"materials": [], "objects": [], "environment": '
@@ -95,10 +96,13 @@ def test_render_needs_spectral(tmp_path):
                       "--out", str(out)]) == 0
     img = np.load(out)
     assert np.isfinite(img).all() and img.mean() > 0.0
-    with pytest.raises(NotImplementedError, match="normal_taps=0"):
-        tcli.main(["render", "--device", "cpu", "--scene", str(scene),
-                   "--width", "8", "--height", "8", "--spp", "1",
-                   "--normal-taps", "0", "--out", str(tmp_path / "y.png")])
+    for impl in ("fused", "oracle"):
+        out = tmp_path / f"y_{impl}.npy"
+        assert tcli.main(["render", "--device", "cpu", "--scene",
+                          str(scene), "--width", "8", "--height", "8",
+                          "--spp", "1", "--normal-taps", "0", "--impl", impl,
+                          "--out", str(out)]) == 0
+        np.testing.assert_array_equal(np.load(out), img)
 
 
 def test_cuda_device_without_a_card_fails(tmp_path):

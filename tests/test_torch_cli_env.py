@@ -52,8 +52,8 @@ def _both(tmp_path, scene_flags):
     jout, tout = tmp_path / "jax.npy", tmp_path / "torch.npy"
     assert jcli.main(["--no-cache", "render", "--cpu", "--impl", "oracle",
                       *scene_flags, *_FLAGS, "--out", str(jout)]) == 0
-    assert tcli.main(["render", "--device", "cpu", *scene_flags, *_FLAGS,
-                      "--out", str(tout)]) == 0
+    assert tcli.main(["render", "--device", "cpu", "--impl", "fused",
+                      *scene_flags, *_FLAGS, "--out", str(tout)]) == 0
     return np.load(jout), np.load(tout)
 
 

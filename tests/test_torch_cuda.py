@@ -58,6 +58,8 @@ _STRICT = dict(relax=0.0, taps=6, lazy_miss=False, march_unroll=4,
                regen_cadence=0)
 _PRODUCTION = dict(relax=2.0, taps=4, lazy_miss=True, march_unroll=32,
                    regen_cadence=16)
+# the exact normal (normal_taps=0): every kernel's ExactNormal instantiation
+_EXACT = dict(_PRODUCTION, taps=0)
 
 
 def _scene(name):
@@ -67,8 +69,8 @@ def _scene(name):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("scene_name", ["demo", "all_nodes"])
-@pytest.mark.parametrize("knobs", [_STRICT, _PRODUCTION],
-                         ids=["strict", "production"])
+@pytest.mark.parametrize("knobs", [_STRICT, _PRODUCTION, _EXACT],
+                         ids=["strict", "production", "exact_normal"])
 def test_kernel_matches_plain(cuda_device, scene_name, knobs):
     """Kernel vs plain version on the same CUDA tensors, on a patch at a
     non-zero origin; the launch counter rises by exactly one."""
@@ -126,8 +128,8 @@ def _paths_scene(name):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("case", list(_PATH_CASES))
-@pytest.mark.parametrize("knobs", [_STRICT, _PRODUCTION],
-                         ids=["strict", "production"])
+@pytest.mark.parametrize("knobs", [_STRICT, _PRODUCTION, _EXACT],
+                         ids=["strict", "production", "exact_normal"])
 def test_paths_kernel_matches_plain(cuda_device, case, knobs):
     """The RGB kernel vs its plain version on the same CUDA tensors, on a
     patch at a non-zero origin; the launch counter rises by exactly one."""
@@ -200,6 +202,7 @@ _RECORD_CASES = {
     "csg_nee": ("csg", True, {}, 2),
     "csg_dispersion_nee_rr": ("csg", True, dict(separate_channels=True,
                                                 rr_start_bounce=1), 1),
+    "csg_nee_exact_normal": ("csg", True, dict(normal_taps=0), 2),
 }
 
 
@@ -222,7 +225,7 @@ def test_record_kernel_matches_plain(cuda_device, case):
     params = scene.init_params(cuda_device)
     # the train workload's configuration (the CLI's max_steps, max_dist)
     cfg = RenderConfig(width=96, height=64, max_bounces=4, relax_omega=1.9,
-                       normal_taps=4, **extra)
+                       **{"normal_taps": 4, **extra})
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     launches = march.RECORD_PATHS.launches
@@ -282,16 +285,19 @@ def test_march_fused_kernel_matches_plain(cuda_device, relax):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("name,nee", [("demo", False), ("csg", True)])
-def test_train_grads_kernel_banks_match_plain_banks(cuda_device, name, nee):
+@pytest.mark.parametrize("name,nee,taps", [("demo", False, 4),
+                                          ("csg", True, 4), ("csg", True, 0)])
+def test_train_grads_kernel_banks_match_plain_banks(cuda_device, name, nee,
+                                                    taps):
     """One train step's loss and gradients replayed over the recorder's
     banks and over its plain version's, and with `march_fused` against
     the plain march: each leaf to atol 1e-3 * max|g|, with NEE the JAX
-    package's NEE bar 2e-2 * max|g| (tests/test_diff.py:409-413)."""
+    package's NEE bar 2e-2 * max|g| (tests/test_diff.py:409-413); with the
+    exact normal (0 taps) the replay differentiates the normal too."""
     scene = _paths_scene(name)
     params = scene.init_params(cuda_device)
     cfg = RenderConfig(width=64, height=48, max_bounces=3, relax_omega=1.9,
-                       normal_taps=4)
+                       normal_taps=taps)
     corners = Camera(aspect=64 / 48).corner_rays_flat(cuda_device)
     target = torch.full((48, 64, 3), 0.2, device=cuda_device)
     kw = dict(spp=2, direct_light=nee)
@@ -318,7 +324,8 @@ def test_train_grads_kernel_banks_match_plain_banks(cuda_device, name, nee):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("scene_name", ["demo", "all_nodes"])
-def test_record_spectral_kernel_matches_plain(cuda_device, scene_name):
+@pytest.mark.parametrize("taps", [4, 0])
+def test_record_spectral_kernel_matches_plain(cuda_device, scene_name, taps):
     """The spectral recorder against its plain version with the card's
     knobs (unroll 32, cadence 16, lazy miss) on the same CUDA tensors: a
     patch at a non-zero origin, 3 samples from sample 2; one launch."""
@@ -326,7 +333,7 @@ def test_record_spectral_kernel_matches_plain(cuda_device, scene_name):
     params = scene.init_params(cuda_device)
     mats = band_table(scene, cuda_device)
     cfg = RenderConfig(width=96, height=64, max_bounces=4, relax_omega=1.9,
-                       normal_taps=4)
+                       normal_taps=taps)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     launches = march.RECORD_SPECTRAL.launches
@@ -345,6 +352,8 @@ _WAVEFRONT_CASES = {
     "sphere_on_floor": ("demo", False, {}),
     "csg_nee_rr": ("csg", True, dict(rr_start_bounce=1)),
     "all_materials_nee_rr": ("all_materials", True, dict(rr_start_bounce=1)),
+    "csg_nee_rr_exact_normal": ("csg", True, dict(rr_start_bounce=1,
+                                                  normal_taps=0)),
 }
 
 
@@ -358,7 +367,7 @@ def test_record_wavefront_kernel_matches_plain(cuda_device, case):
     scene = _paths_scene(name)
     params = scene.init_params(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_bounces=4, relax_omega=1.9,
-                       normal_taps=4, **extra)
+                       **{"normal_taps": 4, **extra})
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     px, py, sample, eye, d = integrator.spp_rays(cfg, corners, (8, 4),
@@ -452,6 +461,7 @@ _DEFER_CASES = {
     "nee": ("nee", True, {}),
     "dispersion_rr": ("glass", False, dict(separate_channels=True,
                                            rr_start_bounce=1)),
+    "nee_exact_normal": ("nee", True, dict(normal_taps=0)),
 }
 
 
@@ -475,8 +485,8 @@ def test_defer_kernel_matches_plain(cuda_device, case):
     scene = _env_scene(kind)
     params = scene.init_params(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
-                       max_dist=100.0, relax_omega=2.0, normal_taps=4,
-                       **extra)
+                       max_dist=100.0, relax_omega=2.0,
+                       **{"normal_taps": 4, **extra})
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     sched = {k: _PRODUCTION[k] for k in ("lazy_miss", "march_unroll",
@@ -534,7 +544,8 @@ def test_env_render_matches_plain_chunks(cuda_device):
 
 
 @pytest.mark.requires_cuda
-def test_sh_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("taps", [4, 0])
+def test_sh_kernel_matches_plain(cuda_device, taps):
     """The SH sky in-kernel (MEGA_PATHS with the ShSky policy) against
     trace_mega_paths on the same CUDA tensors: the kernel bar."""
     from raymarchrenderer_tpu_torch.core.sh import constant_coeffs
@@ -547,7 +558,7 @@ def test_sh_kernel_matches_plain(cuda_device):
     scene = loads_scene(b.to_json(), env_sh=sh)
     params = scene.init_params(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
-                       max_dist=100.0, relax_omega=2.0, normal_taps=4)
+                       max_dist=100.0, relax_omega=2.0, normal_taps=taps)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     launches = march.MEGA_PATHS.launches
@@ -566,7 +577,9 @@ def test_sh_kernel_matches_plain(cuda_device):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("case", ["sphere_on_floor", "csg_dispersion_nee_rr",
-                                  "env", "env_dispersion_nee"])
+                                  "env", "env_dispersion_nee",
+                                  "csg_dispersion_nee_rr_exact_normal",
+                                  "env_nee_exact_normal"])
 def test_wavefront_kernel_matches_plain(cuda_device, case):
     """The RGB wavefront entry against wavefront_paths_plain on the same
     CUDA tensors, 5 samples at the full 16 bounces (the env cases: 5 path
@@ -574,9 +587,10 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
     banks at the kernel bar (NEE bar with NEE), the miss directions with
     fewer than 1e-3 of their components off by more than 1e-4."""
     extra, nee = {}, False
+    taps = 0 if case.endswith("exact_normal") else 4
     if case == "sphere_on_floor":
         scene = builtin.sphere_on_floor()
-    elif case == "csg_dispersion_nee_rr":
+    elif case.startswith("csg_dispersion_nee_rr"):
         scene, nee = builtin.csg_demo(), True
         extra = dict(separate_channels=True, rr_start_bounce=1)
     else:
@@ -586,7 +600,7 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
             extra = dict(separate_channels=True)
     params = scene.init_params(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=16,
-                       max_dist=100.0, relax_omega=2.0, normal_taps=4,
+                       max_dist=100.0, relax_omega=2.0, normal_taps=taps,
                        **extra)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
@@ -618,7 +632,8 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
 
 
 @pytest.mark.requires_cuda
-def test_wavefront_spectral_kernel_matches_plain(cuda_device):
+@pytest.mark.parametrize("taps", [4, 0])
+def test_wavefront_spectral_kernel_matches_plain(cuda_device, taps):
     """The spectral wavefront entry against wavefront_spectral_plain on
     the same CUDA tensors, 4 samples of a patch at a non-zero origin, 16
     bounces."""
@@ -626,7 +641,7 @@ def test_wavefront_spectral_kernel_matches_plain(cuda_device):
         spectral_demo)
     scene, params, mats = spectral_demo(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=16,
-                       max_dist=100.0, relax_omega=2.0, normal_taps=4)
+                       max_dist=100.0, relax_omega=2.0, normal_taps=taps)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     launches = march.WAVEFRONT_SPECTRAL.launches
@@ -639,3 +654,31 @@ def test_wavefront_spectral_kernel_matches_plain(cuda_device):
                                           1, 4, (8, 4), 48, 80)
     assert float(got.mean()) > 0.0
     assert frac_off(want.cpu().numpy(), got.cpu().numpy()) < MAX_FRAC_OFF
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spectral", [False, True], ids=["rgb", "spectral"])
+def test_render_impl_oracle_on_the_card(cuda_device, tmp_path, spectral):
+    """`render --impl oracle` runs on the card (the plain integrators on
+    CUDA tensors, launching none of the kernels) and agrees with the same
+    render on the CPU at the image bar; `--impl fused` launches the
+    kernel once."""
+    from raymarchrenderer_tpu_torch.app import cli
+    flags = ["render", "--width", "32", "--height", "24", "--spp", "2",
+             "--chunk", "2", "--max-steps", "96", "--max-bounces", "3",
+             "--normal-taps", "0"] + (["--spectral"] if spectral else [])
+    kernel = march.MEGA_SPECTRAL if spectral else march.MEGA_PATHS
+    imgs = {}
+    for dev, impl in (("cuda", "oracle"), ("cpu", "oracle"),
+                      ("cuda", "fused")):
+        launches = kernel.launches
+        args = cli.build_parser().parse_args(
+            flags + ["--device", dev, "--impl", impl, "--out",
+                     str(tmp_path / f"{dev}_{impl}.npy")])
+        img, n, _ = cli.cmd_render(args)
+        torch.cuda.synchronize()
+        assert kernel.launches == launches + (impl == "fused")
+        imgs[(dev, impl)] = img.cpu().numpy()
+    assert frac_off(imgs[("cpu", "oracle")], imgs[("cuda", "oracle")]) < \
+        MAX_FRAC_OFF
+    assert float(imgs[("cuda", "fused")].mean()) > 0.0

@@ -134,7 +134,9 @@ def test_pack_uv_matches_jax():
     ("glass", {}, PRODUCTION),
     ("nee", {}, STRICT),
     ("glass", dict(separate_channels=True, rr_start_bounce=1), STRICT),
-], ids=["glass-production", "nee-strict", "dispersion-rr-strict"])
+    ("nee", dict(normal_taps=0), STRICT),
+], ids=["glass-production", "nee-strict", "dispersion-rr-strict",
+        "nee-exact_normal"])
 def test_trace_mega_paths_defer_matches_jax(kind, extra, knobs):
     """The deferred megakernel schedule, 24 x 16: the sum without the sky
     and the four banks against the JAX package's (2 samples, or 1 sample

@@ -17,7 +17,7 @@ import torch
 
 from _torch_parity import (MAX_FRAC_OFF, assert_nee_close, corners_to_torch,
                            frac_off, np_tree)
-from _torch_paths import STRICT, scene_pair, trace_pair
+from _torch_paths import EXACT, STRICT, scene_pair, trace_pair
 
 from raymarchrenderer_tpu.core.camera import Camera as JCamera
 from raymarchrenderer_tpu.kernels import march as jmarch
@@ -49,6 +49,20 @@ def test_dispersion_with_nee_matches_jax():
     1.5% off by more than 1e-5, none by 1e-3, max 3.6e-5)."""
     want, got = trace_pair("csg_demo", STRICT, direct_light=True,
                            separate_channels=True)
+    d = np.abs(want - got)
+    assert float((d > 1e-3).mean()) < 1e-3, (d.max(), (d > 1e-3).mean())
+    assert float(d.max()) < 0.1
+
+
+def test_exact_normal_nee_dispersion_matches_jax():
+    """`normal_taps=0` (the exact normal, the JAX side's jax.vjp inside the
+    jitted schedule) with NEE, dispersion and roulette on csg_demo, 24 x
+    24, one sample as three (sample, channel) paths: the NEE bar and the
+    dispersion + NEE worst-lane bound of 0.1."""
+    want, got = trace_pair("csg_demo", EXACT, size=(24, 24),
+                           direct_light=True, separate_channels=True,
+                           rr_start_bounce=1)
+    assert got.mean() > 0.05
     d = np.abs(want - got)
     assert float((d > 1e-3).mean()) < 1e-3, (d.max(), (d > 1e-3).mean())
     assert float(d.max()) < 0.1
@@ -136,10 +150,11 @@ def _tiny():
 
 
 def test_unported_paths_refused():
-    """normal_taps=0 is refused out loud on the RGB path, never rendered
-    as something else, and so is a recording with the deferred sky (the
-    SH and env-image skies are ported: tests/test_torch_wavefront.py,
-    tests/test_torch_env_render.py; an SH sky renders here)."""
+    """A recording with the deferred sky is refused out loud, never
+    rendered as something else; the SH and env-image skies are ported
+    (tests/test_torch_wavefront.py, tests/test_torch_env_render.py; an SH
+    sky renders here), and so is normal_taps=0 (the exact normal,
+    tests/test_torch_normal_exact.py), which renders here."""
     cfg, corners = _tiny()
     sh = loads_scene('{"materials": [], "objects": [], "environment": '
                      '{"sh": ' + str([[0.1, 0.1, 0.1]] * 16) + '}}')
@@ -147,9 +162,9 @@ def test_unported_paths_refused():
     assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
     scene = builtin.sphere_on_floor()
     params = scene.init_params("cpu")
-    with pytest.raises(NotImplementedError, match="normal_taps=0"):
-        tmarch.render_fused(scene, params, cfg.replace(normal_taps=0),
-                            corners, 0)
+    img = tmarch.render_fused(scene, params, cfg.replace(normal_taps=0),
+                              corners, 0)
+    assert bool(torch.isfinite(img).all()) and float(img.mean()) > 0.0
     px, py = pixel_grid(8, 8, "cpu")
     with pytest.raises(ValueError, match="exclusive"):
         tmega.trace_mega_paths(scene, params, cfg, corners, px, py, 0,

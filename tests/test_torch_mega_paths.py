@@ -17,7 +17,7 @@ import pytest
 import torch
 
 from _torch_parity import MAX_FRAC_OFF, frac_off
-from _torch_paths import PRODUCTION, STRICT, trace_pair
+from _torch_paths import EXACT, PRODUCTION, STRICT, trace_pair
 
 from raymarchrenderer_tpu_torch.core.camera import Camera as TCamera
 from raymarchrenderer_tpu_torch.kernels import march as tmarch
@@ -35,9 +35,11 @@ _CASES = [
     ("volume_demo", STRICT, {}, None),
     ("simple.scene", STRICT, {}, _SIMPLE_CAM),
     ("material_test.scene", STRICT, {}, None),
+    ("csg_demo", EXACT, {}, None),
 ]
 _IDS = ["sphere_on_floor-strict", "sphere_on_floor-production", "cornell-rr",
-        "glass_demo", "volume_demo", "simple", "material_test"]
+        "glass_demo", "volume_demo", "simple", "material_test",
+        "csg_demo-exact_normal"]
 
 
 @pytest.mark.parametrize("name,knobs,extra,cam", _CASES, ids=_IDS)

@@ -21,7 +21,7 @@ import numpy as np
 import pytest
 
 from _torch_parity import assert_banked_t_close, corners_to_torch, np_tree
-from _torch_paths import PRODUCTION, STRICT, scene_pair
+from _torch_paths import EXACT, PRODUCTION, STRICT, scene_pair
 
 from raymarchrenderer_tpu.core.camera import Camera as JCamera
 from raymarchrenderer_tpu.core.vecmath import Vec3 as JVec3
@@ -80,8 +80,8 @@ def _assert_banks(want, got, n_banks, paths=_S):
     assert (got[0][got[2] == 0] == 100.0).all()
 
 
-@pytest.mark.parametrize("knobs", [STRICT, PRODUCTION],
-                         ids=["strict", "production"])
+@pytest.mark.parametrize("knobs", [STRICT, PRODUCTION, EXACT],
+                         ids=["strict", "production", "exact_normal"])
 def test_banks_sphere_on_floor(knobs):
     """Measured: t, mid, hit exact at both knob sets."""
     want, got = _bank_pair("sphere_on_floor", knobs)

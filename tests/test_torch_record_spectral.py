@@ -13,6 +13,7 @@ entries; later bounces: fewer than 5% off by more than 1e-4, none by
 entries (one march step, 5.0e-4); later bounces' t off by more than 1e-4
 on 1.1% of the entries, max 9.3e-4.
 """
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,6 +24,7 @@ from _torch_parity import (assert_banked_t_close, corners_to_torch,
 
 from raymarchrenderer_tpu.core.camera import Camera as JCamera
 from raymarchrenderer_tpu.kernels import record as jrecord
+from raymarchrenderer_tpu.render import mega as jmega
 from raymarchrenderer_tpu.render import spectral_integrator as jspec
 from raymarchrenderer_tpu.render.config import RenderConfig as JCfg
 from raymarchrenderer_tpu.render.raygen import pixel_grid as jgrid
@@ -73,6 +75,33 @@ def test_banks_match_jax(banks):
     assert got["hit"][1:].sum() > 0         # later bounces were recorded
     assert (got["mid"][got["hit"] == 0] == -1).all()
     assert (got["t"][got["hit"] == 0] == 100.0).all()
+
+
+def test_exact_normal_banks_match_jax():
+    """`normal_taps=0`: the plain recorder's stacked banks against the
+    JAX package's recording schedule (plain jnp, jitted, its exact normal
+    a jax.vjp) at the CPU's strict knobs: decisions equal, t to the
+    banked-t bars."""
+    cfg = dict(_CFG, normal_taps=0)
+    js, jp, jm = jspec.spectral_demo()
+    corners = JCamera(aspect=2.0).corner_rays_flat()
+    px, py = jgrid(_W, _H)
+    want = jax.jit(lambda p: jmega.trace_mega_spectral(
+        js, p, jm, JCfg(**cfg), corners, px + _ORIGIN[0], py + _ORIGIN[1],
+        jnp.uint32(_SAMPLE0), n_samples=_S, march_unroll=1,
+        record_banks=True)[1])(jp)
+    ts = tbuiltin.sphere_on_floor()
+    tx, ty = tgrid(_W, _H, "cpu", _ORIGIN)
+    _, got = tmega.trace_mega_spectral(
+        ts, params_from_numpy(np_tree(jp), "cpu"), mats_to_torch(jm),
+        TCfg(**cfg), corners_to_torch(corners), tx, ty, _SAMPLE0,
+        n_samples=_S, record_banks=True)
+    want = [np.asarray(a) for a in want]
+    got = [a.numpy() for a in got]
+    np.testing.assert_array_equal(got[1], want[1])
+    np.testing.assert_array_equal(got[2], want[2])
+    assert_banked_t_close(want[0], got[0], _S)
+    assert got[2][_S:].sum() > 0
 
 
 def test_recording_continues_through_absorption(banks):

@@ -42,6 +42,7 @@ _CASES = {
     "csg_nee": ("csg_demo", True, {}),
     "all_materials_nee_rr": ("all_materials", True,
                              dict(rr_start_bounce=1, rr_min_prob=0.05)),
+    "csg_nee_exact_normal": ("csg_demo", True, dict(normal_taps=0)),
 }
 
 

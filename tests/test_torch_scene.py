@@ -123,7 +123,7 @@ def test_map_and_map_dist(name):
                                atol=1e-5)
 
 
-@pytest.mark.parametrize("taps", [4, 6])
+@pytest.mark.parametrize("taps", [4, 6, 0])
 @pytest.mark.parametrize("name", ["spectral.scene", "object_test.scene",
                                   "default.scene", "all_nodes"])
 def test_get_normal(name, taps):
@@ -134,7 +134,10 @@ def test_get_normal(name, taps):
     distance can differ by up to 1.2e-7.  The stencil's unnormalised
     normal has length 2*eps (6 taps) or 4*eps (4 taps) with eps = 1e-3,
     and sums 2 or 4 taps per component: 2-4 x 1.2e-7 / (2-4e-3) bounds
-    the difference of the normalised normal by 1.2e-4."""
+    the difference of the normalised normal by 1.2e-4.  The exact
+    gradient (0 taps) has no such division: measured 1.8e-7; it is NaN
+    where JAX's is (inside the all-nodes scene's cylinder), compared as
+    NaN."""
     js, jp, ts, tp = _pair(name)
     pts = _points(8192, seed=1)
     jcfg = JCfg(normal_taps=taps, max_dist=100.0)
@@ -146,13 +149,22 @@ def test_get_normal(name, taps):
     jn = jint.get_normal(js, jp, jcfg, JVec3(*(jnp.asarray(c) for c in pts)))
     tn = tint.get_normal(ts, tp, tcfg,
                          TVec3(*(torch.from_numpy(c) for c in pts)))
-    diff = np.abs(np.stack([b.numpy() - np.asarray(a)
-                            for a, b in zip(jn, tn)]))
-    assert float(diff.max()) <= 1.5e-4
+    want = np.stack([np.asarray(a) for a in jn])
+    got = np.stack([b.numpy() for b in tn])
+    np.testing.assert_array_equal(np.isnan(got), np.isnan(want))
+    assert float(np.nanmax(np.abs(got - want))) <= 1.5e-4
 
 
 def test_get_normal_exact_gradient_not_ported():
+    """The exact gradient (`normal_taps=0`) is ported: on simple.scene's
+    unit sphere at (0, 1, 0) the normal at p is (p - centre) / |p -
+    centre|, to an ulp."""
     ts = tgraph.loads_scene(_texts("simple.scene"))
-    p = TVec3(torch.zeros(4), torch.ones(4), torch.zeros(4))
-    with pytest.raises(NotImplementedError):
-        tint.get_normal(ts, ts.init_params("cpu"), TCfg(normal_taps=0), p)
+    pts = np.float32([[2.0, 0.0, 0.0, -0.3], [1.0, 3.0, -1.0, 1.2],
+                      [0.0, 0.0, 0.0, 0.9]])
+    p = TVec3(*(torch.from_numpy(c) for c in pts))
+    n = tint.get_normal(ts, ts.init_params("cpu"), TCfg(normal_taps=0), p)
+    q = pts - np.float32([[0.0], [1.0], [0.0]])
+    want = q / np.linalg.norm(q, axis=0)
+    np.testing.assert_allclose(np.stack([c.numpy() for c in n]), want,
+                               rtol=0, atol=2e-7)

@@ -69,10 +69,11 @@ _STRICT = dict(relax=0.0, taps=6, lazy_miss=False, march_unroll=4,
                regen_cadence=0)
 _PRODUCTION = dict(relax=2.0, taps=4, lazy_miss=True, march_unroll=32,
                    regen_cadence=16)
+_EXACT = dict(_STRICT, taps=0)      # the exact normal
 
 
-@pytest.mark.parametrize("knobs", [_STRICT, _PRODUCTION],
-                         ids=["strict", "production"])
+@pytest.mark.parametrize("knobs", [_STRICT, _PRODUCTION, _EXACT],
+                         ids=["strict", "production", "exact_normal"])
 def test_trace_mega_spectral_matches_jax(knobs):
     """48x48, 2 samples, 4 bounces, the JAX schedule run as plain jnp."""
     kw = dict(width=48, height=48, max_steps=192, max_bounces=4,

@@ -96,17 +96,21 @@ def test_train_cli_writes_jax_leaf_order(tmp_path, capsys):
         params["objects"][1][0].numpy())      # the ball's centre, by name
 
 
-def test_train_spectral_refused(tmp_path):
-    """`train --spectral` is ported (tests/test_torch_cli_spectral.py);
-    what it still refuses, out loud, is the exact normal (`--normal-taps
-    0`, not ported)."""
+def test_train_spectral_refused(tmp_path, capsys):
+    """`train --spectral` is ported (tests/test_torch_cli_spectral.py),
+    and so is the exact normal it used to refuse: `--normal-taps 0` takes
+    a step and writes its npz; the CLI still refuses a count of taps it
+    does not know."""
     target = tmp_path / "t.npy"
     np.save(target, np.zeros((8, 8, 3), np.float32))
-    with pytest.raises(NotImplementedError, match="normal_taps=0"):
-        tcli.main(["train", "--spectral", "--device", "cpu", "--width", "8",
-                   "--height", "8", "--normal-taps", "0", "--max-steps",
-                   "16", "--max-bounces", "2", "--spp", "1", "--steps", "1",
-                   "--target", str(target)])
+    flags = ["train", "--spectral", "--device", "cpu", "--width", "8",
+             "--height", "8", "--max-steps", "16", "--max-bounces", "2",
+             "--spp", "1", "--steps", "1", "--target", str(target)]
+    out = tmp_path / "fit.npz"
+    assert tcli.main(flags + ["--normal-taps", "0", "--out", str(out)]) == 0
+    assert out.exists() and "step    0 loss" in capsys.readouterr().out
+    with pytest.raises(SystemExit):
+        tcli.main(flags + ["--normal-taps", "5"])
 
 
 def test_other_layouts_refused():
