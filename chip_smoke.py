@@ -11,10 +11,12 @@ Phases (any failure raises and the script exits non-zero):
      csrc/mega_spectral.cu (the render and the recording entries),
      csrc/wavefront_spectral.cu and csrc/march_fused.cu with nvcc
      (sm_90a), one process per source, started together; time each and
-     print every kernel's registers and spills (ptxas): each source holds
-     a stencil and an exact-normal (`normal_taps=0`, `grad_map`)
-     instantiation of each kernel, and the stencil ones are printed beside
-     the registers and spills they had before (`PTXAS_BEFORE`);
+     print every instantiation's registers and spills (ptxas) and its
+     SASS local loads and stores, calls and indirect branches
+     (cuobjdump) beside the values before the redesign of the render
+     megakernels (`PTXAS_BEFORE`, `SASS_BEFORE`): each source holds a
+     stencil and an exact-normal (`normal_taps=0`, `grad_map`)
+     instantiation of each kernel;
   3. parity — each kernel's wrapper on CUDA tensors against its plain
      PyTorch version on the same tensors, production knobs:
        * RGB (`render_fused_patch` vs `trace_mega_paths`): the main path's
@@ -74,6 +76,17 @@ Phases (any failure raises and the script exits non-zero):
          the spectral render and its wavefront entry, and the three
          recorders; each timed (kernel mean of 3, plain one run that also
          counts the work) with its bound.
+       * the scenes the kernels once refused (`tests/_torch_scenes.py`): a
+         40-node object in the RGB megakernel (4 taps and the exact
+         normal), the spectral one and the recorder, and 12 lights under
+         NEE in the RGB megakernel and the recorder, on 128^2 patches;
+       * lane occupancy at the RGB, spectral and deferred main launches
+         (chain, march and shade, counted by the plain versions), and the
+         same modelled on the pixel queue;
+       * every kernel at its main launch alone (`kernel_times`: mean of
+         3 beside `BEFORE_MS`; csg NEE, the SH sky and the exact normal's
+         launches with bounds scaled from an 8-sample run of their plain
+         versions).
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -146,16 +159,31 @@ Phases (any failure raises and the script exits non-zero):
      `train --env-map` step at 256^2 and 1024^2 beside the same scene
      under its constant sky, one `env train perf:` JSON line.
 
+Every output a parity check sees, every main path's image and every
+`kernel_times` launch is digested (SHA-256) and held against
+`DIGESTS_BEFORE`, taken on the tree before the redesign: under the same
+nvcc (`NVCC_BEFORE`) a differing byte fails the run; under another the
+differences are printed and the plain-version bars decide.  The JSON
+readings go to smoke_out/.
+
+    python3 chip_smoke.py --kernel-times        # build, counts, times,
+                                                # digests; no plain version
+    python3 chip_smoke.py --sweep-min-blocks 4,6,8   # the launch bounds
+
 The line before the last is a JSON object with one entry per kernel of the
-paths (each shading kernel's with a `normal_taps_0` note: its exact-normal
-patch's max error, times and bound, and its launches on the exact-normal
-main path where one runs it); the last line is {"ok": true, "device":
-{...}}.  Imports nothing of JAX.
+paths (each shading kernel's with its time before the redesign,
+`before_ms`, and a `normal_taps_0` note: its exact-normal patch's max
+error, times and bound, and its launches on the exact-normal main path
+where one runs it); the last line is {"ok": true, "device": {...}}.
+Imports nothing of JAX.
 """
 from __future__ import annotations
 
+import hashlib
 import json
 import os
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -258,7 +286,8 @@ def _mean(c, n):
 
 def _paths_fns(dev, scene_name, n, origin_xy=(0, 0), patch_shape=None,
                direct_light=False, **cfg_kw):
-    """(kernel, plain, scene, cfg, params) for the RGB path: the wrapper
+    """(kernel, plain, scene, cfg, params) for the RGB path on a builtin
+    scene or a `.scene` file: the wrapper
     on CUDA tensors and the plain version on the same tensors, each
     returning the (ph, pw, 3) mean over `n` samples from sample 0; `plain`
     takes an optional work-count dict."""
@@ -266,9 +295,10 @@ def _paths_fns(dev, scene_name, n, origin_xy=(0, 0), patch_shape=None,
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
     from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
-    from raymarchrenderer_tpu_torch.scene import builtin
+    from raymarchrenderer_tpu_torch.scene import builtin, load_scene
 
-    scene = getattr(builtin, scene_name)()
+    scene = (load_scene(scene_name) if scene_name.endswith(".scene")
+             else getattr(builtin, scene_name)())
     params = scene.init_params(dev)
     cfg = _main_cfg(**cfg_kw)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
@@ -321,6 +351,7 @@ def _compare(label, got, want, nee=False):
     """Hold the kernel's image against the plain version's; returns the
     max abs error.  `nee` selects the NEE bar."""
     torch.cuda.synchronize()
+    _digest(label, got)
     diff = (got - want).abs()
     frac = float((diff > PIX_TOL).float().mean())
     frac3 = float((diff > 1e-3).float().mean())
@@ -405,6 +436,162 @@ def _buffer_bytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+# ---- readings: output digests, SASS, lane occupancy ------------------------
+
+DIGESTS = {}        # label -> SHA-256 (16 hex digits) of a kernel's output
+
+
+def _digest(label, *tensors):
+    """Record the SHA-256 of the bytes of a kernel launch's outputs."""
+    h = hashlib.sha256()
+    for t in tensors:
+        h.update(t.detach().contiguous().cpu().numpy().tobytes())
+    DIGESTS[label] = h.hexdigest()[:16]
+
+
+def _nvcc_version() -> str:
+    """The last line of `nvcc --version` (its build tag)."""
+    from raymarchrenderer_tpu_torch.kernels.build import find_nvcc
+    out = subprocess.run([find_nvcc(), "--version"], capture_output=True,
+                         text=True, timeout=60).stdout
+    return out.strip().splitlines()[-1]
+
+
+def check_digests(nvcc: str) -> None:
+    """Hold this run's digests against DIGESTS_BEFORE: with the nvcc that
+    made them, every label both runs hold must match byte for byte; with
+    another nvcc the mismatches are printed and the plain-version bars
+    alone decide."""
+    both = sorted(set(DIGESTS) & set(DIGESTS_BEFORE))
+    off = [k for k in both if DIGESTS[k] != DIGESTS_BEFORE[k]]
+    print(f"digests: {len(both) - len(off)} of {len(both)} outputs "
+          f"bit-identical to DIGESTS_BEFORE, {len(off)} differ, "
+          f"{len(set(DIGESTS) - set(DIGESTS_BEFORE))} new; nvcc {nvcc!r} "
+          f"(recorded {NVCC_BEFORE!r})", flush=True)
+    for k in off:
+        print(f"digest differs: {k}: {DIGESTS[k]} (before "
+              f"{DIGESTS_BEFORE[k]})", flush=True)
+    _log_json("digests", DIGESTS)
+    if off and nvcc == NVCC_BEFORE:
+        raise AssertionError(f"{len(off)} kernel outputs differ from "
+                             "DIGESTS_BEFORE under the same nvcc")
+
+
+def _log_json(name, obj) -> None:
+    """Write `obj` to smoke_out/<name>.json in the checkout (the digests
+    and readings are longer than a log's tail keeps)."""
+    out = os.path.join(_ROOT, "smoke_out")
+    os.makedirs(out, exist_ok=True)
+    with open(os.path.join(out, f"{name}.json"), "w") as f:
+        json.dump(obj, f, indent=1, sort_keys=True)
+
+
+SASS_OPS = ("LDL", "STL", "CALL", "BRX")
+
+
+def sass_counts(lib) -> dict:
+    """{mangled kernel: {op: count}} of the local-memory loads and stores,
+    calls and indirect branches in the SASS of a built library, from
+    cuobjdump beside nvcc ({} where the toolkit has none)."""
+    from raymarchrenderer_tpu_torch.kernels.build import find_nvcc
+    exe = os.path.join(os.path.dirname(find_nvcc()), "cuobjdump")
+    if not os.path.exists(exe):
+        exe = shutil.which("cuobjdump")
+    if exe is None:
+        return {}
+    out = subprocess.run([exe, "-sass", str(lib)], capture_output=True,
+                         text=True, timeout=600).stdout
+    counts, name = {}, None
+    for line in out.splitlines():
+        m = re.match(r"\s*Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            counts[name] = dict.fromkeys(SASS_OPS, 0)
+            continue
+        m = re.search(r"/\*[0-9a-f]{4}\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z][A-Z0-9]*)", line)
+        if name is not None and m and m.group(1) in SASS_OPS:
+            counts[name][m.group(1)] += 1
+    return counts
+
+
+def occupancy(label, work, march_unroll):
+    """Lane utilisation of a one-thread-per-pixel launch of 16 x 8 blocks
+    (a warp: 2 rows x 16 columns), from the plain version's counts: chain
+    occupancy, the lanes' bodies over 32 x the bodies of each warp's
+    longest lane; march occupancy, the marching lanes' steps over 32 x
+    `march_unroll` x the warps' bodies; shade occupancy, the shaded hits
+    over 32 x the warps' bodies.  Counts, not times."""
+    b = work["lane_bodies"].to(torch.int64)
+    ph, pw = b.shape
+    b = torch.nn.functional.pad(b, (0, -pw % 16, 0, -ph % 2))
+    warps = b.reshape(b.shape[0] // 2, 2, b.shape[1] // 16, 16)
+    warp_bodies = int(warps.amax(dim=(1, 3)).sum())
+    res = {"chain": int(b.sum()) / (32 * warp_bodies),
+           "march": int(work["march"]) / (32 * march_unroll * warp_bodies),
+           "shade": int(work["shade"]) / (32 * warp_bodies),
+           "lane_bodies": int(b.sum()), "warp_bodies": warp_bodies}
+    print(f"occupancy, {label}: chain {res['chain']:.4f}, march "
+          f"{res['march']:.4f}, shade {res['shade']:.4f} ({res['lane_bodies']}"
+          f" lane bodies, {warp_bodies} warp bodies)", flush=True)
+    OCCUPANCY[label] = res
+    queue_occupancy(label, work, march_unroll,
+                    4 * _min_blocks("spectral" in label)
+                    * torch.cuda.get_device_properties(0).multi_processor_count)
+    return res
+
+
+OCCUPANCY = {}
+
+
+def _min_blocks(spectral: bool) -> int:
+    """A lane machine's launch bound: its resident blocks per SM at its
+    register cap (kMinBlocksSpectral of csrc/mega_spectral.cu, or
+    kMinBlocks of csrc/scene_map.cuh for the RGB one)."""
+    from raymarchrenderer_tpu_torch.kernels.build import CSRC
+    name, const = (("mega_spectral.cu", "kMinBlocksSpectral") if spectral
+                   else ("scene_map.cuh", "kMinBlocks"))
+    text = (CSRC / name).read_text()
+    return int(re.search(rf"constexpr int {const} = (\d+);", text).group(1))
+
+
+def queue_occupancy(label, work, march_unroll, resident_warps):
+    """The three occupancies of a persistent launch on the pixel queue,
+    modelled from the plain version's per-pixel body counts: every lane of
+    `resident_warps` warps takes queue slots in order (2 x 16 tiles,
+    row-major, the kernel's order) as its chains end, all lanes running
+    one body per step; a warp lives until its last lane's last chain ends.
+    The occupancies are the lanes' bodies, marching steps and shaded hits
+    over 32 (x `march_unroll`) x the warps' lifetimes in bodies."""
+    import heapq
+    b = work["lane_bodies"].to(torch.int64)
+    ph, pw = b.shape
+    b = torch.nn.functional.pad(b, (0, -pw % 16, 0, -ph % 2))
+    tiles = b.reshape(b.shape[0] // 2, 2, b.shape[1] // 16, 16)
+    queue = tiles.permute(0, 2, 1, 3).reshape(-1).tolist()
+    n_lanes = 32 * resident_warps
+    heap = [(0, lane) for lane in range(n_lanes)]
+    life = [0] * resident_warps
+    nxt = 0
+    while heap and nxt < len(queue):
+        t, lane = heapq.heappop(heap)
+        t += queue[nxt]
+        nxt += 1
+        life[lane // 32] = max(life[lane // 32], t)
+        heapq.heappush(heap, (t, lane))
+    lives = sum(life)
+    res = {"chain": int(b.sum()) / (32 * lives),
+           "march": int(work["march"]) / (32 * march_unroll * lives),
+           "shade": int(work["shade"]) / (32 * lives),
+           "resident_warps": resident_warps, "warp_bodies": lives}
+    print(f"occupancy on the queue (modelled), {label}: chain "
+          f"{res['chain']:.4f}, march {res['march']:.4f}, shade "
+          f"{res['shade']:.4f} ({resident_warps} resident warps, {lives} "
+          "warp bodies)", flush=True)
+    OCCUPANCY[label + ", queue"] = res
+    return res
+
+
 def parity_paths(dev, card):
     """The RGB kernel: the main path's launch, then the NEE and the
     dispersion + NEE + roulette patches."""
@@ -418,6 +605,7 @@ def parity_paths(dev, card):
         "RGB, sphere_on_floor 1024x1024, 128 spp (the main path's launch)",
         kernel, plain, card, count_apart=False)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
+    occupancy("RGB main launch", work, _knobs()["march_unroll"])
 
     kernel, plain, *_ = _paths_fns(dev, "csg_demo", 8, _NEE_PATCH,
                                    (256, 256), direct_light=True)
@@ -444,6 +632,7 @@ def parity_spectral(dev, card):
         "spectral 1024x1024, 128 spp (the main path's launch)", kernel,
         plain, card, count_apart=False)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
+    occupancy("spectral main launch", work, _knobs()["march_unroll"])
     kernel, plain, *_ = _spectral_fns(dev, 4, _SPEC_PATCH, (128, 128))
     max_err = max(max_err, _compare(
         f"spectral 128x128 patch at {_SPEC_PATCH}, 4 spp", kernel(),
@@ -470,6 +659,7 @@ def _planes_compare(label, got, want):
             tuple(got[k].shape) != tuple(want[k].shape) for k in want):
         raise AssertionError(f"{label}: planes {sorted(got)} vs "
                              f"{sorted(want)} differ in name or shape")
+    _digest(label, *(got[k] for k in sorted(got)))
     hit = (got["hit"] > 0) & (want["hit"] > 0)
     dt = torch.where(hit, (got["t"] - want["t"]).abs(), 0.0)
     dec = float(((got["mid"] != want["mid"])
@@ -572,13 +762,13 @@ def _shadow_plane(dev, h=512, w=1024, seed=5):
             put(rng.uniform(2.0, 12.0, (h, w))))
 
 
-def parity_march(dev, card):
-    """`march_fused`: the train launch's primary plane, sample-folded
-    (4 * 1024, 1024), then a shadow-style plane."""
+def _march_fns(dev):
+    """(kernel, plain, scene, cfg, params, n) of `march_fused` on the train
+    launch's sample-folded primary plane (4 * 1024, 1024) of n rays; both
+    take optional other planes (o, d, dist_mult, active, t_max), `plain`
+    first a work dict."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels.march import march_fused
-    from raymarchrenderer_tpu_torch.kernels.scene_program import (
-        object_buffers)
     from raymarchrenderer_tpu_torch.render.integrator import march, spp_rays
     from raymarchrenderer_tpu_torch.scene import builtin
 
@@ -601,7 +791,15 @@ def parity_march(dev, card):
         return planes(march(scene, params, cfg, o, d, dm, act, t_max=t_max,
                             work=work))
 
-    n = eye.x.numel()
+    return kernel, plain, scene, cfg, params, eye.x.numel()
+
+
+def parity_march(dev, card):
+    """`march_fused`: the train launch's primary plane, sample-folded
+    (4 * 1024, 1024), then a shadow-style plane."""
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        object_buffers)
+    kernel, plain, scene, cfg, params, n = _march_fns(dev)
     max_err, ms, plain_ms, work = _main_launch(
         f"march_fused, the train launch's primary plane "
         f"({TRAIN_SPP}x1024, 1024)", kernel, plain, card, _planes_compare)
@@ -1107,6 +1305,7 @@ def main_path(label, argv, kernel, card):
         if not bool(torch.isfinite(img).all()):
             raise AssertionError(f"{label}: the image has non-finite values")
         mean = float(img.mean())
+        _digest(f"main path: {label}", img)
         if not mean > 0.0:
             raise AssertionError(f"{label}: the image is black")
     rate = 1024 * 1024 * n / 1e6 / render_s
@@ -1119,8 +1318,8 @@ def main_path(label, argv, kernel, card):
 
 def perf(dev, card):
     """Kernels and plain versions at 1024^2 with 8 samples per launch (the
-    CLI's default chunk), and the RGB kernel at 128 (the spectral one's 128
-    is timed in the parity phase); both at 128 with the exact normal."""
+    CLI's default chunk); at 128 samples every kernel is timed alone in
+    `kernel_times`."""
     res = {"card": card}
     for name, fns in (("rgb", lambda n: _paths_fns(dev, "sphere_on_floor",
                                                    n)[:2]),
@@ -1128,18 +1327,9 @@ def perf(dev, card):
         kernel, plain = fns(8)
         res[f"{name}_kernel_ms_n8"] = _cuda_ms(kernel, reps=3)
         res[f"{name}_plain_ms_n8"] = _cuda_ms(plain, reps=1, warmup=False)
-    res["rgb_kernel_ms_n128"] = _cuda_ms(_paths_fns(
-        dev, "sphere_on_floor", 128)[0], reps=3)
-    # the exact normal at the main launches (1024^2, 128 samples)
-    res["rgb_exact_kernel_ms_n128"] = _cuda_ms(_paths_fns(
-        dev, "sphere_on_floor", 128, normal_taps=0)[0], reps=3)
-    res["spectral_exact_kernel_ms_n128"] = _cuda_ms(_spectral_fns(
-        dev, 128, normal_taps=0)[0], reps=3)
     for key in [k for k in res if k.endswith("_ms_n8")]:
         res[key.replace("_ms_n8", "_mpix_spp_per_s_n8")] = (
             1024 * 1024 * 8 / 1e3 / res[key])
-    res["rgb_kernel_mpix_spp_per_s_n128"] = (
-        1024 * 1024 * 128 / 1e3 / res["rgb_kernel_ms_n128"])
     print("perf: " + json.dumps(res), flush=True)
 
 
@@ -1185,6 +1375,7 @@ def _uv_compare(label, got, want):
     """The packed (u, v) banks of the kernel against the plain version's
     on the live slots (thr > 0 in the plain banks): equal on all but 1e-3
     and never more than one bin apart."""
+    _digest("uv: " + label, got[3])
     live = (want[0] + want[1] + want[2]) > 0
     du = ((want[3] >> 16) - (got[3] >> 16)).abs()
     dv = ((want[3] & 0xFFFF) - (got[3] & 0xFFFF)).abs()
@@ -1230,6 +1421,37 @@ def _with_plain_launches(fn):
         march._launch_mega_defer, march._launch_wavefront_paths = saved
 
 
+def _defer_fns(dev, n, **cfg_kw):
+    """(kernel, plain, scene, cfg, params) of the deferred-sky entry at the
+    env main path's launch shape: default.scene under the gradient sky,
+    1024^2, `n` paths from path 0; each returns (raw sum, banks), `plain`
+    takes an optional work dict."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
+    from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
+
+    scene = _env_scene()
+    params = scene.init_params(dev)
+    cfg = _main_cfg(**cfg_kw)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    args = (scene, params, cfg, corners, (0, 0), 1024, 1024, 0, n, False)
+
+    def kernel():
+        return march._launch_mega_defer(*args, **_knobs())
+
+    def plain(work=None):
+        if work is None:
+            return march._mega_defer_plain(*args, **_knobs())
+        px, py = pixel_grid(1024, 1024, dev, (0, 0))
+        c, banks = trace_mega_paths(scene, params, cfg, corners, px, py, 0,
+                                    n_samples=n, defer_sky=True, work=work,
+                                    **_knobs())
+        return c.stack(-1), list(banks)
+
+    return kernel, plain, scene, cfg, params
+
+
 def parity_defer(dev, card):
     """The deferred-sky megakernel: the env main path's own launch
     (default.scene under the gradient sky, 1024^2, 32 paths): the raw sum,
@@ -1242,25 +1464,9 @@ def parity_defer(dev, card):
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         paths_buffers)
-    from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
-    from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
 
-    scene = _env_scene()
-    params = scene.init_params(dev)
-    cfg = _main_cfg()
+    kernel, plain, scene, cfg, params = _defer_fns(dev, 32)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
-    args = (scene, params, cfg, corners, (0, 0), 1024, 1024, 0, 32, False)
-
-    def kernel():
-        return march._launch_mega_defer(*args, **_knobs())
-
-    def plain(work=None):
-        if work is None:
-            return march._mega_defer_plain(*args, **_knobs())
-        px, py = pixel_grid(1024, 1024, dev, (0, 0))
-        return trace_mega_paths(scene, params, cfg, corners, px, py, 0,
-                                n_samples=32, defer_sky=True, work=work,
-                                **_knobs())
 
     def compare(label, got, want):
         err = _compare(label + ", raw sum", got[0], want[0])
@@ -1276,6 +1482,7 @@ def parity_defer(dev, card):
     max_err, ms, plain_ms, work = _main_launch(
         "RGB deferred sky, default.scene + gradient env 1024x1024, 32 "
         "paths (the env main path's launch)", kernel, plain, card, compare)
+    occupancy("deferred main launch", work, _knobs()["march_unroll"])
     out = kernel()
     comp_ms = _cuda_ms(lambda: march.composite_uv(scene, params, *out),
                        reps=3)
@@ -1883,37 +2090,510 @@ def parity_exact(dev, card, sh_scene_path):
     return notes
 
 
+# ---- scene tables sized from the program -----------------------------------
+
+_BIG_PATCH = (448, 448)       # (x, y) of the 128^2 sized-table patches
+
+
+def parity_sized_tables(dev, card):
+    """The scenes the card once refused, each kernel against its plain
+    version on a 128^2 patch: a 40-node object (over the old 16-register
+    cap; its stored slots need more than 48 KiB of shared memory) in the
+    RGB megakernel with 4 taps and with the exact normal, in the spectral
+    megakernel and in the recorder; 12 lights under NEE (over the old
+    8-light table) in the RGB megakernel and the recorder.  Returns the
+    largest image error."""
+    sys.path.insert(0, os.path.join(_ROOT, "tests"))
+    from _torch_scenes import BIG_OBJECT_SCENE, many_lights_scene
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.record import (
+        record_plain, trace_record_fused)
+    from raymarchrenderer_tpu_torch.render.mega import (trace_mega_paths,
+                                                        trace_mega_spectral)
+    from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        band_table)
+    from raymarchrenderer_tpu_torch.scene import loads_scene
+
+    n, spp = 128, 4
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    px, py = pixel_grid(n, n, dev, _BIG_PATCH)
+    max_err = 0.0
+    for label, scene, nee in (
+            ("40-node object", loads_scene(BIG_OBJECT_SCENE), False),
+            ("12 lights + NEE", many_lights_scene(12), True)):
+        params = scene.init_params(dev)
+        for taps in ((4, 0) if not nee else (4,)):
+            cfg = _main_cfg(normal_taps=taps)
+            got = march.render_fused_patch(scene, params, cfg, corners,
+                                           _BIG_PATCH, (n, n), 0,
+                                           n_samples=spp, direct_light=nee,
+                                           **_knobs())
+            want = _mean(trace_mega_paths(
+                scene, params, cfg, corners, px, py, 0, n_samples=spp,
+                direct_light=nee, **_knobs()), spp)
+            max_err = max(max_err, _compare(
+                f"RGB, {label}, {n}x{n} patch at {_BIG_PATCH}, {spp} spp, "
+                f"{taps} taps", got, want, nee=nee))
+        rcfg = _train_cfg(1024)
+        _planes_compare(
+            f"recorder, {label}, {n}x{n} patch at {_BIG_PATCH}, 2 samples",
+            trace_record_fused(scene, params, rcfg, corners, _BIG_PATCH,
+                               (n, n), 0, n_samples=2, direct_light=nee),
+            record_plain(scene, params, rcfg, corners, _BIG_PATCH, (n, n),
+                         0, n_samples=2, direct_light=nee))
+        if nee:
+            continue
+        mats = band_table(scene, dev)
+        cfg = _main_cfg()
+        got = march.render_fused_spectral(scene, params, mats, cfg, corners,
+                                          0, n_samples=spp,
+                                          origin_xy=_BIG_PATCH,
+                                          patch_shape=(n, n), **_knobs())
+        want = _mean(trace_mega_spectral(scene, params, mats, cfg, corners,
+                                         px, py, 0, n_samples=spp,
+                                         **_knobs()), spp)
+        max_err = max(max_err, _compare(
+            f"spectral, {label}, {n}x{n} patch at {_BIG_PATCH}, {spp} spp",
+            got, want))
+    print(f"sized tables: every kernel met its bar [{card}]", flush=True)
+    return max_err
+
+
+# ---- each kernel at its main launch, alone ---------------------------------
+
+# the main launches whose plain version takes minutes at 128 samples: their
+# bound counts the work of a 1024^2 run of 8 samples (8 paths) and scales it
+_SCALED = ("mega_paths_csg_nee", "mega_paths_sh", "mega_paths_exact",
+           "mega_spectral_exact", "mega_paths_defer_exact")
+
+
+def _main_kernels(dev, sh_scene_path):
+    """{name: (kernel, plain, n samples or paths, scene, cfg, buffers, out
+    bytes)} of every kernel at its main path's launch; `plain(n, work)`
+    runs the plain version at n samples (paths) from 0, counting `work`."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        object_buffers, paths_buffers, spectral_buffers)
+    pix = 1024 * 1024
+    res = {}
+
+    def paths(name, scene_name, n=128, **kw):
+        kernel, _, scene, cfg, params = _paths_fns(dev, scene_name, n, **kw)
+        res[name] = (kernel,
+                     lambda m, w: _paths_fns(dev, scene_name, m, **kw)[1](w),
+                     n, scene, cfg, paths_buffers(scene, params, dev),
+                     12 * pix)
+
+    def spectral(name, **kw):
+        kernel, _, scene, cfg, (params, mats) = _spectral_fns(dev, 128, **kw)
+        res[name] = (kernel, lambda m, w: _spectral_fns(dev, m, **kw)[1](w),
+                     128, scene, cfg,
+                     spectral_buffers(scene, params, mats, dev), 12 * pix)
+
+    def defer(name, **kw):
+        kernel, _, scene, cfg, params = _defer_fns(dev, 32, **kw)
+        res[name] = (kernel, lambda m, w: _defer_fns(dev, m, **kw)[1](w),
+                     32, scene, cfg, paths_buffers(scene, params, dev),
+                     pix * (12 + 16 * 32))
+
+    paths("mega_paths", "sphere_on_floor")
+    paths("mega_paths_csg_nee", "csg_demo", direct_light=True)
+    paths("mega_paths_sh", sh_scene_path)
+    defer("mega_paths_defer")
+    spectral("mega_spectral")
+    paths("mega_paths_exact", "sphere_on_floor", normal_taps=0)
+    spectral("mega_spectral_exact", normal_taps=0)
+    defer("mega_paths_defer_exact", normal_taps=0)
+    kernel, _, scene, cfg, params = _record_fns(dev, "sphere_on_floor", 1024,
+                                                TRAIN_SPP)
+    res["record_paths"] = (kernel, None, TRAIN_SPP, scene, cfg, (), 0)
+    kernel, _, scene, cfg, _ = _record_spectral_fns(dev, 1024, TRAIN_SPP)
+    res["record_spectral"] = (kernel, None, TRAIN_SPP, scene, cfg, (), 0)
+    kernel, _, scene, cfg, *_ = _wavefront_fns(dev, "sphere_on_floor", 1024)
+    res["record_wavefront"] = (kernel, None, 1, scene, cfg, (), 0)
+    kernel, _, scene, cfg, params, _ = _march_fns(dev)
+    res["march_fused"] = (kernel, None, TRAIN_SPP, scene, cfg,
+                          object_buffers(scene, params, dev), 0)
+    _, _, scene, cfg, params = _paths_fns(dev, "sphere_on_floor", 1)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    res["wavefront_paths"] = (
+        lambda: march._launch_wavefront_paths(
+            scene, params, cfg, corners, (0, 0), 1024, 1024, 0,
+            _WAVE_MAIN_SPP, False), None, _WAVE_MAIN_SPP, scene, cfg, (), 0)
+    sk, _, sscene, scfg, (sparams, smats) = _spectral_fns(dev, 1)
+    res["wavefront_spectral"] = (
+        lambda: march.render_fused_spectral(
+            sscene, sparams, smats, scfg, corners, 0,
+            n_samples=_WAVE_MAIN_SPP, mode="wavefront"), None,
+        _WAVE_MAIN_SPP, sscene, scfg, (), 0)
+    return res
+
+
+def _tensors(out):
+    """A kernel's outputs (a tensor, a dict of planes, or nested tuples and
+    lists of them) as a flat list, dict entries by name."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        return [out[k] for k in sorted(out)]
+    return [t for o in out for t in _tensors(o)]
+
+
+def kernel_times(dev, card, sh_scene_path, bounds=False):
+    """Every kernel at its main path's launch, alone: the mean ms of 3 by
+    CUDA events after one warm-up call, whose output is digested as
+    "main: NAME", beside its time before the redesign (`BEFORE_MS`).  With
+    `bounds`, the launches of `_SCALED` also get their bound, from their
+    plain version's work on a 1024^2 run of 8 samples (8 paths) scaled to
+    the launch's 128 samples (32 paths).  Prints one `kernel times:` JSON
+    line and returns {name: reading}."""
+    res = {}
+    for name, (kernel, plain, n, scene, cfg, bufs, out_bytes) in \
+            _main_kernels(dev, sh_scene_path).items():
+        out = kernel()
+        torch.cuda.synchronize()
+        _digest("main: " + name, *_tensors(out))
+        del out
+        ms = _cuda_ms(kernel, reps=3, warmup=False)
+        r = {"ms": ms, "before_ms": BEFORE_MS.get(name)}
+        note = ("" if r["before_ms"] is None else
+                f" (before {r['before_ms']:.3f} ms, "
+                f"{100.0 * (ms / r['before_ms'] - 1.0):+.2f}%)")
+        if bounds and name in _SCALED:
+            m = 8
+            work = {}
+            plain(m, work)
+            torch.cuda.synchronize()
+            scale = n // m
+            scaled = {k: int(work[k]) * scale for k in ("march", "shade")}
+            r["bound_ms"], r["bound_by"], _ = _bound(
+                scene, cfg, scaled, 15 * 4 + _buffer_bytes(*bufs), out_bytes)
+            r["bound_scaled_from"] = m
+            note += (f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
+                     f"work of {m} scaled by {scale})")
+        print(f"time: {name} at its main launch: {ms:.3f} ms{note} [{card}]",
+              flush=True)
+        res[name] = r
+    print("kernel times: " + json.dumps({"card": card, **res}), flush=True)
+    return res
+
+
+# the launches the launch-bound sweep times, by source
+_SWEPT = {"mega_paths": ("mega_paths", "mega_paths_sh", "mega_paths_csg_nee",
+                         "mega_paths_defer", "mega_paths_exact",
+                         "mega_paths_defer_exact", "record_paths"),
+          "mega_spectral": ("mega_spectral", "mega_spectral_exact",
+                            "record_spectral")}
+
+
+def _variant_source(csrc, dst, min_blocks, queue):
+    """csrc/ copied to `dst` with the launch bounds kMinBlocks
+    (scene_map.cuh) and kMinBlocksSpectral (mega_spectral.cu) set to
+    `min_blocks` and, unless `queue` is None, every RGB policy's kQueue to
+    `queue` (mega_paths.cu)."""
+    shutil.copytree(csrc, dst)
+    for name, pat, val in (
+            ("scene_map.cuh", r"constexpr int kMinBlocks = \d+;",
+             f"constexpr int kMinBlocks = {min_blocks};"),
+            ("mega_spectral.cu", r"constexpr int kMinBlocksSpectral = \d+;",
+             f"constexpr int kMinBlocksSpectral = {min_blocks};"),
+            ("mega_paths.cu", r"static constexpr bool kQueue = \w+;",
+             None if queue is None else
+             f"static constexpr bool kQueue = {str(queue).lower()};")):
+        if val is None:
+            continue
+        path = os.path.join(dst, name)
+        text = open(path).read()
+        new, n = re.subn(pat, val, text)
+        if n == 0:
+            raise AssertionError(f"{pat} not found in {name}")
+        open(path, "w").write(new)
+
+
+def sweep_min_blocks(dev, card, values):
+    """The render megakernels' launch bounds re-read: csrc/ copied once per
+    variant, both lane machines' bounds set to each of `values`, and for
+    mega_paths.cu every RGB policy's kQueue set both ways (the persistent
+    pixel queue or one lane per pixel); each variant's mega_paths.cu or
+    mega_spectral.cu built (every nvcc started together), then each of its
+    kernels at its main launch timed (mean of 3 by CUDA events after a
+    warm-up) through the wrappers with that build's entry points.  Every
+    build must give the same output bytes.  Prints one `sweep:` JSON
+    line."""
+    import ctypes
+    from raymarchrenderer_tpu_torch.kernels import build, march
+    from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
+    tmp = tempfile.TemporaryDirectory()
+    jobs = []               # (variant label, source stem, .cu, .so)
+    for v in values:
+        for src, queue in (("mega_paths", True), ("mega_paths", False),
+                           ("mega_spectral", None)):
+            label = f"kMinBlocks {v}" + ("" if queue is None else
+                                         f", kQueue {str(queue).lower()}")
+            dst = os.path.join(tmp.name, f"v{len(jobs)}")
+            _variant_source(build.CSRC, dst, v, queue)
+            jobs.append((label, src, os.path.join(dst, src + ".cu"),
+                         os.path.join(dst, src + ".so")))
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(jobs)) as pool:
+        logs = list(pool.map(lambda j: build.compile_source(j[2], j[3]),
+                             jobs))
+    print(f"sweep: {len(jobs)} builds in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    entries = {"mega_paths": (march.MEGA_PATHS, march.MEGA_PATHS_DEFER,
+                              march.RECORD_PATHS),
+               "mega_spectral": (march.MEGA_SPECTRAL, march.RECORD_SPECTRAL)}
+    res = {"card": card}
+    digests = {}
+    with tempfile.TemporaryDirectory() as stmp:
+        sh_scene = os.path.join(stmp, "sh.scene")
+        write_sh_scene(sh_scene)
+        kernels = _main_kernels(dev, sh_scene)
+        for (label, src, _, so), log in zip(jobs, logs):
+            lib = ctypes.CDLL(so)
+            for k in entries[src]:
+                fn = getattr(lib, k.entry)
+                fn.argtypes, fn.restype = k.argtypes, ctypes.c_int
+                k._fn = fn
+            row = {_instantiation(fn): (use["registers"],
+                                        use.get("spill_stores", 0),
+                                        use.get("spill_loads", 0))
+                   for fn, use in ptxas_usage(log).items()}
+            for name in _SWEPT[src]:
+                kernel = kernels[name][0]
+                out = kernel()
+                torch.cuda.synchronize()
+                h = hashlib.sha256()
+                for t in _tensors(out):
+                    h.update(t.detach().contiguous().cpu().numpy().tobytes())
+                del out
+                if digests.setdefault(name, h.hexdigest()) != h.hexdigest():
+                    raise AssertionError(f"{label}: {name}'s output differs "
+                                         "from the first build's")
+                row[name] = _cuda_ms(kernel, reps=3, warmup=False)
+                print(f"sweep: {label}, {name}: {row[name]:.3f} ms [{card}]",
+                      flush=True)
+            res[f"{src}, {label}"] = row
+    for ks in entries.values():
+        for k in ks:
+            k._fn = None
+    tmp.cleanup()
+    print("sweep: " + json.dumps(res), flush=True)
+    _log_json("sweep", res)
+    return res
+
 
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
            exact=None):
-    """One kernel of the `kernels` line; `exact` is its `normal_taps_0`
+    """One kernel of the `kernels` line, with its time at the main launch
+    before the redesign (`before_ms`); `exact` is its `normal_taps_0`
     note (the exact-normal instantiation on its parity patch, and its
     launches on the exact-normal main path where one runs it)."""
     entry = {"name": name, "route": "cuda",
              "source": f"raymarchrenderer_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches,
              "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
+             "before_ms": BEFORE_MS.get(name)}
     if exact is not None:
         entry["normal_taps_0"] = exact
     return entry
 
 
-# registers, spill stores and spill loads (bytes) of the stencil (4 and 6
-# taps) instantiations before the exact normal joined their sources
-# (PERF.md section 6, NVIDIA H100 80GB HBM3, 700.00 W); the build phase
-# prints whether each kept them
+# Readings of the kernels before the redesign of the render megakernels
+# (the tree before it, `python3 chip_smoke.py` and `--kernel-times` on an
+# NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6): each kernel's time
+# at its main launch (CUDA events, mean of 3), the SHA-256 of each output
+# the kernels made (they must stay bit-identical under the same nvcc), the
+# nvcc that built them, and each instantiation's SASS counts.
+BEFORE_MS = {
+    "march_fused": 2.262,
+    "mega_paths": 373.533,
+    "mega_paths_csg_nee": 1557.706,
+    "mega_paths_defer": 126.047,
+    "mega_paths_defer_exact": 130.092,
+    "mega_paths_exact": 398.237,
+    "mega_paths_sh": 438.527,
+    "mega_spectral": 309.276,
+    "mega_spectral_exact": 316.855,
+    "record_paths": 20.515,
+    "record_spectral": 18.642,
+    "record_wavefront": 7.143,
+    "wavefront_paths": 62.785,
+    "wavefront_spectral": 36.901,
+}
+DIGESTS_BEFORE = {
+    "RGB + NEE, csg_demo 256x256 patch at (384, 512), 8 spp":
+        "cfe3e143238745a3",
+    "RGB + dispersion + NEE + RR, csg_demo 128x128 patch at (448, 448), 2 spp":
+        "e80579569a3aef67",
+    "RGB SH sky, 256x256 patch at (384, 384), 16 spp":
+        "0d965a9df614866f",
+    "RGB deferred sky + NEE, two-sphere scene 256x256 patch at (320, 384), 8 spp, exact composite, raw sum":
+        "bdf01384660345c5",
+    "RGB deferred sky + NEE, two-sphere scene 256x256 patch at (320, 384), 8 spp, mxu composite, raw sum":
+        "bdf01384660345c5",
+    "RGB deferred sky, default.scene + gradient env 1024x1024, 32 paths (the env main path's launch), raw sum":
+        "5ae4b5beff42613a",
+    "RGB deferred sky, default.scene + gradient env 1024x1024, 32 paths (the env main path's launch), thr_b bank":
+        "38da2ca683b8eff1",
+    "RGB deferred sky, default.scene + gradient env 1024x1024, 32 paths (the env main path's launch), thr_g bank":
+        "1f070e0ba2394cc0",
+    "RGB deferred sky, default.scene + gradient env 1024x1024, 32 paths (the env main path's launch), thr_r bank":
+        "b1afba0d8799ecb8",
+    "RGB wavefront + NEE + dispersion + RR, csg_demo 128x128 patch, 3 spp, 16 bounces":
+        "595ed71dfbd260bb",
+    "RGB wavefront, sphere_on_floor 1024x1024, 8 spp, 16 bounces (the wavefront main path's launch)":
+        "08f950085e1d13d0",
+    "RGB, sphere_on_floor 1024x1024, 128 spp (the main path's launch)":
+        "4f8f4a4af7a08452",
+    "exact normal, RGB + NEE + dispersion + RR, csg_demo 128x128 patch at (384, 512), 4 spp":
+        "db6e5d2686e777fe",
+    "exact normal, RGB SH sky, 128x128 patch at (384, 384), 8 spp":
+        "ccfc3275058b7046",
+    "exact normal, RGB deferred sky, default.scene + gradient env 128x128 patch at (384, 384), 8 paths, raw sum":
+        "9cd9aca4b470338c",
+    "exact normal, RGB deferred sky, default.scene + gradient env 128x128 patch at (384, 384), 8 paths, thr_b bank":
+        "7503a2ac4968ad42",
+    "exact normal, RGB deferred sky, default.scene + gradient env 128x128 patch at (384, 384), 8 paths, thr_g bank":
+        "70ca22c7c9ca1011",
+    "exact normal, RGB deferred sky, default.scene + gradient env 128x128 patch at (384, 384), 8 paths, thr_r bank":
+        "5a3bb988013e589e",
+    "exact normal, RGB wavefront + NEE + RR, csg_demo 128x128 patch at (384, 384), 3 spp, 16 bounces":
+        "0223ea307f5b874f",
+    "exact normal, recorder + NEE, csg_demo 128x128 patch at (384, 512), 2 samples":
+        "c03d4022680604eb",
+    "exact normal, spectral 128x128 patch at (448, 512), 4 spp":
+        "3d0776bec2b7a1a7",
+    "exact normal, spectral recorder 128x128 patch at (448, 512), 4 samples":
+        "07aca42fb948ec38",
+    "exact normal, spectral wavefront 128x128 patch at (448, 512), 3 spp, 16 bounces":
+        "3fd3cad8e585b3cc",
+    "exact normal, wavefront recorder + NEE + RR, csg_demo 128x128 patch at (384, 512)":
+        "d9a4c3b21a868761",
+    "main path: rgb SH sky (default.scene with environment.sh)":
+        "fbf0a86d99f175c7",
+    "main path: rgb csg --direct-light":
+        "b4e87206def14dca",
+    "main path: rgb sphere_on_floor":
+        "4f8f4a4af7a08452",
+    "main path: rgb sphere_on_floor --normal-taps 0":
+        "57c63414fd35255c",
+    "main path: spectral":
+        "3a10033a3b644274",
+    "main path: spectral --normal-taps 0":
+        "74d4669e9d141e90",
+    "main: march_fused":
+        "b68b6b870510ba2a",
+    "main: mega_paths":
+        "4f8f4a4af7a08452",
+    "main: mega_paths_csg_nee":
+        "b4e87206def14dca",
+    "main: mega_paths_defer":
+        "4c3c3805cf441296",
+    "main: mega_paths_defer_exact":
+        "fd9a00a35d353fec",
+    "main: mega_paths_exact":
+        "57c63414fd35255c",
+    "main: mega_paths_sh":
+        "fbf0a86d99f175c7",
+    "main: mega_spectral":
+        "3a10033a3b644274",
+    "main: mega_spectral_exact":
+        "74d4669e9d141e90",
+    "main: record_paths":
+        "8c625eba85904c84",
+    "main: record_spectral":
+        "2b87c228a805b01e",
+    "main: record_wavefront":
+        "3382bc1959af3c99",
+    "main: wavefront_paths":
+        "08f950085e1d13d0",
+    "main: wavefront_spectral":
+        "d663c7648dd4dfc4",
+    "march_fused, a shadow-style plane (512, 1024): per-lane t_max, dist_mult -1 inside the ball, inactive lanes":
+        "f10ce9cbdd2c8e5e",
+    "march_fused, the train launch's primary plane (4x1024, 1024)":
+        "b68b6b870510ba2a",
+    "recorder + NEE, csg_demo 256x256 patch at (384, 512), 2 samples":
+        "cb5502946f59f860",
+    "recorder + dispersion + NEE + RR, csg_demo 128x128 patch at (448, 448), 1 sample":
+        "b810f69dbbf72589",
+    "recorder, sphere_on_floor 1024x1024, 4 samples, 4 bounces (the train path's launch)":
+        "8c625eba85904c84",
+    "spectral 1024x1024, 128 spp (the main path's launch)":
+        "3a10033a3b644274",
+    "spectral 128x128 patch at (448, 512), 4 spp":
+        "bc7dc1a79aae578b",
+    "spectral recorder, 128x128 patch at (448, 512), 4 samples":
+        "9f68b9c0e1bdf83f",
+    "spectral recorder, spectral_demo 1024x1024, 4 samples, 4 bounces (the spectral train path's launch)":
+        "2b87c228a805b01e",
+    "spectral wavefront, 1024x1024, 8 spp, 16 bounces (the wavefront main path's launch)":
+        "d663c7648dd4dfc4",
+    "spectral wavefront, 128x128 patch at (448, 512), 3 spp, 16 bounces":
+        "55dfbfd5d465309b",
+    "uv: RGB deferred sky + NEE, two-sphere scene 256x256 patch at (320, 384), 8 spp, exact composite":
+        "7506da47e2a3a81c",
+    "uv: RGB deferred sky + NEE, two-sphere scene 256x256 patch at (320, 384), 8 spp, mxu composite":
+        "7506da47e2a3a81c",
+    "uv: RGB deferred sky, default.scene + gradient env 1024x1024, 32 paths (the env main path's launch)":
+        "3ab8b0b719f1f8b9",
+    "uv: exact normal, RGB deferred sky, default.scene + gradient env 128x128 patch at (384, 384), 8 paths":
+        "ca34c94bf3ce4226",
+    "wavefront recorder + NEE + RR, csg_demo 256x256 patch at (384, 512)":
+        "476677e8f8ac6559",
+    "wavefront recorder, sphere_on_floor 1024x1024 bounce-0 planes, 1 sample, 4 bounces":
+        "3382bc1959af3c99",
+}
+NVCC_BEFORE = "Build cuda_12.9.r12.9/compiler.36037853_0"
+SASS_BEFORE = {
+    "march_fused_kernel": {"LDL": 39, "STL": 25, "CALL": 14, "BRX": 7},
+    "mega_paths_kernel<Banks>": {"LDL": 82, "STL": 95, "CALL": 43, "BRX": 21},
+    "mega_paths_kernel<Banks> exact": {"LDL": 74, "STL": 48, "CALL": 43, "BRX": 21},
+    "mega_paths_kernel<DeferSky>": {"LDL": 81, "STL": 89, "CALL": 43, "BRX": 21},
+    "mega_paths_kernel<DeferSky> exact": {"LDL": 74, "STL": 60, "CALL": 43, "BRX": 21},
+    "mega_paths_kernel<NoBanks>": {"LDL": 82, "STL": 90, "CALL": 43, "BRX": 21},
+    "mega_paths_kernel<NoBanks> exact": {"LDL": 74, "STL": 59, "CALL": 43, "BRX": 21},
+    "mega_paths_kernel<ShSky>": {"LDL": 76, "STL": 86, "CALL": 42, "BRX": 19},
+    "mega_paths_kernel<ShSky> exact": {"LDL": 68, "STL": 55, "CALL": 42, "BRX": 19},
+    "mega_spectral_kernel<NoBanks>": {"LDL": 87, "STL": 69, "CALL": 43, "BRX": 21},
+    "mega_spectral_kernel<NoBanks> exact": {"LDL": 80, "STL": 38, "CALL": 43, "BRX": 21},
+    "record_spectral_kernel<Banks>": {"LDL": 84, "STL": 69, "CALL": 43, "BRX": 21},
+    "record_spectral_kernel<Banks> exact": {"LDL": 80, "STL": 38, "CALL": 43, "BRX": 21},
+    "record_wavefront_kernel": {"LDL": 109, "STL": 75, "CALL": 39, "BRX": 21},
+    "record_wavefront_kernel exact": {"LDL": 156, "STL": 97, "CALL": 47, "BRX": 11},
+    "wavefront_paths_kernel": {"LDL": 153, "STL": 103, "CALL": 47, "BRX": 16},
+    "wavefront_paths_kernel exact": {"LDL": 132, "STL": 131, "CALL": 50, "BRX": 10},
+    "wavefront_spectral_kernel": {"LDL": 116, "STL": 79, "CALL": 44, "BRX": 21},
+    "wavefront_spectral_kernel exact": {"LDL": 118, "STL": 76, "CALL": 53, "BRX": 16},
+}
+
+# registers, spill stores and spill loads (bytes) of each instantiation
+# before the redesign; the build phase prints whether each kept them
 PTXAS_BEFORE = {
-    "mega_paths_kernel<NoBanks>": (80, 56, 68),
-    "mega_paths_kernel<Banks>": (80, 68, 72),
-    "mega_paths_kernel<DeferSky>": (80, 40, 68),
-    "mega_paths_kernel<ShSky>": (80, 148, 160),
-    "record_wavefront_kernel": (40, 572, 824),
-    "wavefront_paths_kernel": (64, 160, 220),
-    "wavefront_spectral_kernel": (40, 252, 268),
-    "mega_spectral_kernel<NoBanks>": (80, 4, 12),
-    "record_spectral_kernel<Banks>": (80, 4, 12),
     "march_fused_kernel": (40, 40, 40),
+    "mega_paths_kernel<Banks>": (80, 68, 72),
+    "mega_paths_kernel<Banks> exact": (80, 216, 224),
+    "mega_paths_kernel<DeferSky>": (80, 40, 68),
+    "mega_paths_kernel<DeferSky> exact": (80, 372, 380),
+    "mega_paths_kernel<NoBanks>": (80, 56, 68),
+    "mega_paths_kernel<NoBanks> exact": (80, 340, 348),
+    "mega_paths_kernel<ShSky>": (80, 136, 148),
+    "mega_paths_kernel<ShSky> exact": (80, 488, 496),
+    "mega_spectral_kernel<NoBanks>": (80, 4, 12),
+    "mega_spectral_kernel<NoBanks> exact": (80, 0, 0),
+    "record_spectral_kernel<Banks>": (80, 4, 12),
+    "record_spectral_kernel<Banks> exact": (78, 0, 0),
+    "record_wavefront_kernel": (40, 572, 824),
+    "record_wavefront_kernel exact": (48, 324, 364),
+    "wavefront_paths_kernel": (64, 160, 220),
+    "wavefront_paths_kernel exact": (80, 776, 856),
+    "wavefront_spectral_kernel": (40, 252, 268),
+    "wavefront_spectral_kernel exact": (56, 168, 176),
 }
 
 
@@ -1933,19 +2613,12 @@ def _instantiation(fn):
             + (" exact" if exact else ""))
 
 
-def main() -> int:
-    # 1. device
-    if not torch.cuda.is_available():
-        print("chip_smoke: torch.cuda.is_available() is false; this needs a "
-              "CUDA card", file=sys.stderr)
-        return 2
-    dev = torch.device("cuda", 0)
-    card = _card()
-    print(card, flush=True)     # nvidia-smi's name, power.limit
-    print(f"torch {torch.__version__} cuda {torch.version.cuda}", flush=True)
-
-    # 2. build, one nvcc per source, all started together (the entries of
-    # one source share its library: one builds, the others wait)
+def build_kernels(card):
+    """Phase 2: every source built by its own nvcc, all started together
+    (the entries of one source share its library: one builds, the others
+    wait); prints each instantiation's ptxas registers and spills and its
+    SASS local-memory loads and stores, calls and indirect branches,
+    beside PTXAS_BEFORE and SASS_BEFORE.  Returns the kernels."""
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     t0 = time.perf_counter()
@@ -1959,17 +2632,86 @@ def main() -> int:
           f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
               f"{k.source.name} {k.build_seconds:.2f} s" for k in kernels
               if k.build_log) + f") [{card}]", flush=True)
-    for k in kernels:
-        for fn, use in ptxas_usage(k.build_log).items():
-            got = (use["registers"], use.get("spill_stores", 0),
-                   use.get("spill_loads", 0))
-            label = _instantiation(fn)
+    readings = {}
+    libs = {}
+    for k in kernels:            # the kernel that built each library first
+        if k.build_log or k.library_path() not in libs:
+            libs[k.library_path()] = k
+    for lib, k in libs.items():
+        sass = {_instantiation(fn): c for fn, c in sass_counts(lib).items()}
+        usage = {_instantiation(fn): use
+                 for fn, use in ptxas_usage(k.build_log).items()}
+        for label in sorted(set(usage) | set(sass)):
+            use = usage.get(label)
+            got = None if use is None else (
+                use["registers"], use.get("spill_stores", 0),
+                use.get("spill_loads", 0))
             before = PTXAS_BEFORE.get(label)
-            note = ("" if before is None else " (as before)" if got == before
-                    else f" (before: {before[0]}/{before[1]}/{before[2]})")
-            print(f"ptxas: {k.source.name} {label}: {got[0]} registers, "
-                  f"{got[1]} bytes spill stores, {got[2]} bytes spill "
-                  f"loads{note}", flush=True)
+            if got is None:     # a library built before this run
+                note = "registers not logged"
+            else:
+                note = (f"{got[0]} registers, {got[1]} bytes spill stores, "
+                        f"{got[2]} bytes spill loads")
+                note += ("" if before is None else " (as before)"
+                         if got == before else
+                         f" (before: {before[0]}/{before[1]}/{before[2]})")
+            ops = sass.get(label)
+            if ops is not None:
+                sb = SASS_BEFORE.get(label)
+                note += "; SASS " + ", ".join(
+                    f"{op} {ops[op]}" for op in SASS_OPS) + (
+                    "" if sb is None else " (before " + ", ".join(
+                        f"{op} {sb[op]}" for op in SASS_OPS) + ")")
+            print(f"ptxas: {k.source.name} {label}: {note}", flush=True)
+            readings[label] = {"ptxas": got, "sass": ops}
+    _log_json("build", readings)
+    return kernels
+
+
+def main(argv=None) -> int:
+    import argparse
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--kernel-times", action="store_true",
+                    help="build, print the registers, spills and SASS "
+                    "counts, time every kernel at its main launch alone and "
+                    "digest its output; no plain version runs")
+    ap.add_argument("--sweep-min-blocks", metavar="N,N,...",
+                    help="time the render megakernels built with each "
+                    "launch bound kMinBlocks in the list (no plain version)")
+    opts = ap.parse_args(argv)
+    # 1. device
+    if not torch.cuda.is_available():
+        print("chip_smoke: torch.cuda.is_available() is false; this needs a "
+              "CUDA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = _card()
+    print(card, flush=True)     # nvidia-smi's name, power.limit
+    nvcc = _nvcc_version()
+    print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc "
+          f"{nvcc}", flush=True)
+
+    if opts.sweep_min_blocks:
+        sweep_min_blocks(dev, card, [int(v) for v in
+                                     opts.sweep_min_blocks.split(",")])
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
+
+    # 2. build
+    from raymarchrenderer_tpu_torch.kernels import march
+    build_kernels(card)
+    if opts.kernel_times:
+        with tempfile.TemporaryDirectory() as tmp:
+            sh_scene = os.path.join(tmp, "sh.scene")
+            write_sh_scene(sh_scene)
+            _log_json("kernel_times", kernel_times(dev, card, sh_scene))
+        check_digests(nvcc)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
 
     # 3. parity (its launches do not count for the main paths)
     p_err, p_ms, p_plain, p_bound = parity_paths(dev, card)
@@ -1991,6 +2733,9 @@ def main() -> int:
     wp_err, wp_ms, wp_plain, wp_bound = parity_wavefront_paths(dev, card)
     ws_err, ws_ms, ws_plain, ws_bound = parity_wavefront_spectral(dev, card)
     exact_notes = parity_exact(dev, card, sh_scene)
+    p_err = max(p_err, parity_sized_tables(dev, card))
+    times = kernel_times(dev, card, sh_scene, bounds=True)
+    _log_json("kernel_times", times)
 
     # 4. main paths
     s_launches = main_path("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL,
@@ -2070,6 +2815,8 @@ def main() -> int:
     train_perf(dev, card)
     spectral_train_perf(dev, card)
     env_train_perf(dev, card)
+    _log_json("occupancy", OCCUPANCY)
+    check_digests(nvcc)
 
     print(json.dumps({"kernels": [
         _entry("mega_paths", "mega_paths.cu",

@@ -42,17 +42,16 @@ struct MarchArgs {
 };
 
 __global__ void __launch_bounds__(kBlockThreads) march_fused_kernel(
-    MarchArgs a, const int* __restrict__ prog, const float* __restrict__ fdata,
+    MarchArgs a, SceneDims dims, const int* __restrict__ prog, const float* __restrict__ fdata,
     const float* __restrict__ ox, const float* __restrict__ oy, const float* __restrict__ oz,
     const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
     const float* __restrict__ dist_mult, const int* __restrict__ active,
     const float* __restrict__ t_max, float* __restrict__ t_out, int* __restrict__ mid_out,
     int* __restrict__ hit_out) {
+  // the object program, once per block in shared memory
+  const SceneRef s = stage_scene(prog, fdata, dims);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= a.n) return;
-  SceneRef s;
-  s.prog = prog;
-  s.f = fdata;
   int mid;
   bool hit;
   t_out[i] = march_ray(s, a.m, mk(ox[i], oy[i], oz[i]), mk(dx[i], dy[i], dz[i]), dist_mult[i],
@@ -61,12 +60,14 @@ __global__ void __launch_bounds__(kBlockThreads) march_fused_kernel(
   hit_out[i] = hit ? 1 : 0;
 }
 
-// Plain C entry point for ctypes.  `args` is a host pointer; every other
+// Plain C entry point for ctypes.  `args` and `dims` (the sizes of the
+// scene's buffers, scene_map.cuh SceneDims) are host pointers; every other
 // pointer is a device pointer on CUDA device `device`: the object program
 // and its parameters, nine input planes of args->n lanes (o, d, dist_mult,
 // active as int32, t_max) and three outputs (t float32, mid and hit
 // int32).  Returns the first CUDA error (0 on success).
-extern "C" int rmr_march_fused(const MarchArgs* args, const int* prog, const float* fdata,
+extern "C" int rmr_march_fused(const MarchArgs* args, const SceneDims* dims, const int* prog,
+                               const float* fdata,
                                const float* ox, const float* oy, const float* oz,
                                const float* dx, const float* dy, const float* dz,
                                const float* dist_mult, const int* active, const float* t_max,
@@ -75,7 +76,11 @@ extern "C" int rmr_march_fused(const MarchArgs* args, const int* prog, const flo
   if (err != cudaSuccess) return (int)err;
   if (args->n <= 0) return (int)cudaSuccess;
   const int grid = (args->n + kBlockThreads - 1) / kBlockThreads;
-  march_fused_kernel<<<grid, kBlockThreads, 0, stream>>>(*args, prog, fdata, ox, oy, oz, dx, dy,
-                                                         dz, dist_mult, active, t_max, t, mid, hit);
+  const size_t bytes = scene_smem_bytes(*dims, false);
+  err = allow_smem(march_fused_kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  march_fused_kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, prog, fdata, ox, oy, oz,
+                                                             dx, dy, dz, dist_mult, active, t_max,
+                                                             t, mid, hit);
   return (int)cudaGetLastError();
 }

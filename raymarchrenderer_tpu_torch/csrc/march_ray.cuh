@@ -26,14 +26,14 @@ struct MarchParams {
 // index, seeded with max_dist and -1, an object taken where strictly
 // nearer.
 __device__ __forceinline__ float map_with_mid(const SceneRef& s, float max_dist, V3 p, int& mid) {
-  const int n_obj = s.prog[0];
+  const int n_obj = s.prog()[0];
   float d = max_dist;
   mid = -1;
   for (int i = 0; i < n_obj; ++i) {
     const float di = eval_object(s, i, p);
     if (di < d) {
       d = di;
-      mid = s.prog[kHeader + kObjWords * i + 3];
+      mid = s.prog()[kHeader + kObjWords * i + 3];
     }
   }
   return d;

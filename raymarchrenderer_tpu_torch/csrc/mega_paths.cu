@@ -7,15 +7,25 @@
 // `trace_mega_paths`, and the wrapper is
 // raymarchrenderer_tpu_torch/kernels/march.py `render_fused_patch`.
 //
-// Design.  One thread per pixel of the patch, each running its own copy of
-// the lane-state machine until its state reaches EXH, as mega_spectral.cu
-// does: the peeled first march step, then bodies of `march_unroll` steps
+// Design.  Each lane runs one pixel's own copy of the lane-state machine
+// until its state reaches EXH, as mega_spectral.cu does: the peeled first
+// march step, then bodies of `march_unroll` steps
 // with a cheap pass (lazy miss test, shadow resolve, regeneration) every
 // `regen_cadence` steps, and one shade + resolve + regen pass per body.  An
 // exhausted lane is inert in every pass of the Pallas tile loop, and every
 // random draw is keyed on the lane's own (px, py, sample, bounce) stream,
 // so the thread reproduces its lane exactly; with `lazy_miss` the pass
 // boundaries are semantics, so the schedule is kept, not approximated.
+// The deferred-sky and recording instantiations run a persistent grid:
+// only as many blocks as stay resident, each lane taking the patch's
+// pixels one after another from a global queue (scene_map.cuh), so a warp
+// no longer lives as long as the longest of 32 fixed chains; the constant
+// and SH skies keep one lane per pixel (`kQueue`).  Either way a pixel's
+// chain runs in one thread, op for op, and each output slot has one
+// writer, so the output is the same bytes.
+// The scene (objects, materials, lights, sky) is staged once per block in
+// shared memory, and the object interpreter forwards node values in
+// registers (scene_map.cuh).
 //
 //  * Materials are data, like the objects: kernels/scene_program.py
 //    compiles each material graph into register-machine instructions, and
@@ -30,14 +40,15 @@
 //    stream, and recomputes light li's segment when the chain reaches it:
 //    the same ops on the same inputs, so the same values, at a state size
 //    that does not grow with the light count.  The light table sits in
-//    shared memory, kMaxLights entries.
+//    shared memory with the rest of the scene (scene_map.cuh
+//    `stage_scene`), as many lights as the scene has.
 //  * Russian roulette (`rr_start_bounce >= 0`) and dispersion (the path
 //    counter over (sample, channel) pairs) as in the plain version.
 //  * The sky is a policy of the lane machine (a template argument, like
 //    the recorder's banks below, so each instantiation keeps only its own
 //    code): `NoBanks` multiplies a miss by the constant sky, `ShSky` by
-//    the SH sky evaluated in-kernel (`sh_eval`, the 48 coefficients in
-//    shared memory), and `DeferSky` (entry `rmr_mega_paths_defer`, the
+//    the SH sky evaluated in-kernel (`sh_eval`, the 48 coefficients of the
+//    staged tail), and `DeferSky` (entry `rmr_mega_paths_defer`, the
 //    TPU kernel's mega + defer_sky branch, raymarchrenderer_tpu/kernels/
 //    march.py:130-165) parks a miss as kWaitMiss; the next regeneration
 //    banks the path's throughput and its packed equirect (u, v) (the JAX
@@ -57,10 +68,10 @@
 // 7.7 ms against 0.004 ms for the bytes, and the kernel takes about 370 ms
 // (PERF.md; NVIDIA H100 80GB HBM3, 700 W): it is latency-bound, and more
 // resident warps help (the launch bounds in scene_map.cuh).
-// This first version is kept simple and exact: no FMA contraction (built
-// with --fmad=false, no fast math), 1/sqrtf for normalisation, and the
-// scene and materials interpreted.  Per-scene code generation, FMA
-// contraction and persistent threads are left for later work.
+// It stays exact: no FMA contraction (built with --fmad=false, no fast
+// math), 1/sqrtf for normalisation, and the scene and materials
+// interpreted.  Per-scene code generation and FMA contraction are left for
+// later work.
 //
 // The recording entry `rmr_record_paths` replaces the TPU kernel
 // `_record_mega` (raymarchrenderer_tpu/kernels/record.py:289, the
@@ -91,8 +102,8 @@
 // neighbours, so it runs one thread per ray of the given planes, looping
 // over the bounces: the march of march_ray.cuh (shared with
 // march_fused.cu), the material machine above from the hit's rng_base,
-// the NEE shadow rays toward the light table in shared memory, the
-// roulette; nothing is padded.  Bound: 36 bytes of ray planes in and 12
+// the NEE shadow rays toward the light table in shared memory (staged with
+// the scene), the roulette; nothing is padded.  Bound: 36 bytes of ray planes in and 12
 // per bounce out per ray (plus 4 per light and bounce with NEE); the
 // operations (the plain version's `work`) bind: 0.054 ms on the train
 // launch's 1024^2 primary planes, against 7.0 ms measured (PERF.md;
@@ -121,22 +132,29 @@ constexpr int kWaitMiss = -1;  // a parked miss of the deferred sky
 // The lane machine's policies: what a lane banks and which sky a missed
 // bounce ray meets.  `kOn` turns on the recording (banks of march
 // residuals, no sky, no image); `kSky` is the sky of a render; `kExact`
-// the exact normal (ExactNormal<policy>, normal_taps = 0).  Each is a
-// template argument, so every instantiation compiles only its own code.
+// the exact normal (ExactNormal<policy>, normal_taps = 0); `kQueue` a
+// persistent grid on the pixel queue (scene_map.cuh) instead of one
+// thread per pixel: where the lanes' chains vary most (the deferred sky's
+// paths end on their first miss; the recorder's launches are short), the
+// queue pays; on the constant and SH skies one thread per pixel is faster
+// (PERF.md).  Each is a template argument, so every instantiation
+// compiles only its own code.
 
 // The render with the constant sky: no banks.
 struct NoBanks {
   static constexpr bool kOn = false;
   static constexpr int kSky = kSkyConst;
   static constexpr bool kExact = false;
+  static constexpr bool kQueue = false;
 };
 
-// The render with the SH sky, its coefficients in shared memory
-// (`s_sky_sh`).
+// The render with the SH sky, its coefficients in the staged tail
+// (`sh_coeffs`).
 struct ShSky {
   static constexpr bool kOn = false;
   static constexpr int kSky = kSkySh;
   static constexpr bool kExact = false;
+  static constexpr bool kQueue = false;
 };
 
 // The render with an env image (the deferred sky): a missed bounce ray
@@ -147,6 +165,7 @@ struct DeferSky {
   static constexpr bool kOn = false;
   static constexpr int kSky = kSkyDefer;
   static constexpr bool kExact = false;
+  static constexpr bool kQueue = true;
   float* thr_r;
   float* thr_g;
   float* thr_b;
@@ -160,6 +179,7 @@ struct Banks {
   static constexpr bool kOn = true;
   static constexpr int kSky = kSkyConst;  // unread: a recording meets no sky
   static constexpr bool kExact = false;
+  static constexpr bool kQueue = true;
   float* t;
   int* mid;
   int* hit;
@@ -168,9 +188,6 @@ struct Banks {
   size_t pix;    // the lane's pixel in the patch
   int paths;     // P: samples, or (sample, channel) pairs with dispersion
 };
-
-// the SH sky's coefficients, loaded once per block by the ShSky kernel
-__shared__ float s_sky_sh[kShFloats];
 
 }  // namespace
 
@@ -191,9 +208,7 @@ struct Lane {
 
 struct Ctx {
   PathArgs a;
-  SceneRef s;
-  const float* lights;  // [pos * 3L, power * L, radius * L]
-  float sky;
+  SceneRef s;  // the light table and the sky in its tail (paths_shade.cuh)
   uint32_t px, py;
   Camera cam;
 };
@@ -216,8 +231,8 @@ __device__ __forceinline__ V3 lane_channels(const Ctx& c, int s_idx) {
 // sky; a recording and the deferred sky leave it).
 template <class R>
 __device__ __forceinline__ void sky_miss(const Ctx& c, Lane& L) {
-  if constexpr (!R::kOn && R::kSky == kSkyConst) L.thr = scale(L.thr, c.sky);
-  if constexpr (!R::kOn && R::kSky == kSkySh) L.thr = mul(L.thr, sh_eval(s_sky_sh, L.d));
+  if constexpr (!R::kOn && R::kSky == kSkyConst) L.thr = scale(L.thr, sky_power(c.s));
+  if constexpr (!R::kOn && R::kSky == kSkySh) L.thr = mul(L.thr, sh_eval(sh_coeffs(c.s), L.d));
 }
 
 // The state a missed bounce ray parks in.
@@ -291,9 +306,10 @@ __device__ __forceinline__ void mark_misses(const Ctx& c, Lane& L) {
 __device__ void light_segment(const Ctx& c, Lane& L, int li) {
   Rng lrng = rng_fork(L.nee_rng, 101u + (uint32_t)li);
   const int n = c.a.n_lights;
-  const V3 lpos = mk(c.lights[3 * li], c.lights[3 * li + 1], c.lights[3 * li + 2]);
-  const float lpower = c.lights[3 * n + li];
-  const float lradius = c.lights[4 * n + li];
+  const float* lights = light_table(c.s);
+  const V3 lpos = mk(lights[3 * li], lights[3 * li + 1], lights[3 * li + 2]);
+  const float lpower = lights[3 * n + li];
+  const float lradius = lights[4 * n + li];
   const float u1 = rng_next(lrng);
   const float u2 = rng_next(lrng);
   const V3 target = add(lpos, scale(uniform_sphere(u1, u2), lradius));
@@ -478,11 +494,12 @@ __device__ void body(const Ctx& c, Lane& L, const R& r) {
   regen<R>(c, L);
 }
 
-// The whole per-pixel program: the sum over the lane's paths (a recording
-// lane returns zero and leaves its banks).
+// A lane's start on the pixel of `c`: the first path's primary ray, then
+// the peeled first march step; `body` runs until the state reaches EXH,
+// with the sum over the lane's paths in L.acc (a recording lane's stays
+// zero: it leaves its banks).
 template <class R>
-__device__ V3 trace_pixel(const Ctx& c, const R& r) {
-  Lane L;
+__device__ __forceinline__ void start_lane(const Ctx& c, Lane& L) {
   L.o = c.cam.eye;
   L.d = primary_ray(c.cam, c.a.seed, c.px, c.py, prim_stream(c, 0), c.a.width, c.a.height);
   L.thr = lane_channels(c, 0);
@@ -504,100 +521,134 @@ __device__ V3 trace_pixel(const Ctx& c, const R& r) {
   L.li = 0;
   L.nee_rng = rng_make(0u, 0u, 0u, 0u, 0u);
   march_step<R>(c, L);  // the peeled first step
-  while (L.state < kExh) body(c, L, r);
-  return L.acc;
 }
 
 // ---- launch ----------------------------------------------------------------
 
 // One kernel for every entry: R = NoBanks or ShSky renders into `out`,
 // DeferSky renders the raw sum without the sky into `out` and banks the
-// misses, Banks records into its banks.
+// misses, Banks records into its banks.  Each lane runs one pixel's whole
+// chain at a time, as a thread of a one-pixel-per-thread launch would:
+// with R::kQueue the grid is persistent and a lane takes the next pixel
+// from the queue when its chain ends, else lane q of the grid has queue
+// slot q.
 template <class R>
-__global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_paths_kernel(PathArgs a, const float* __restrict__ corners,
-                                  const float* __restrict__ fdata, const int* __restrict__ prog,
-                                  float* __restrict__ out, R banks) {
-  // the sky and the light table, once per block in shared memory
-  __shared__ float s_tail[1 + 5 * kMaxLights];
-  const float* ftail = fdata + prog[2];
-  const int n_tail = 1 + 5 * a.n_lights;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  for (int i = tid; i < n_tail; i += blockDim.x * blockDim.y) s_tail[i] = ftail[i];
-  if constexpr (!R::kOn && R::kSky == kSkySh) {
-    // the coefficients follow the scene's whole light table
-    const float* sh = ftail + 1 + 5 * prog[prog[1] + 1];
-    for (int i = tid; i < kShFloats; i += blockDim.x * blockDim.y) s_sky_sh[i] = sh[i];
-  }
-  __syncthreads();
-  const int lx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
-  if (lx >= a.pw || ly >= a.ph) return;
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
+    mega_paths_kernel(PathArgs a, SceneDims dims, const float* __restrict__ corners,
+                      const float* __restrict__ fdata, const int* __restrict__ prog,
+                      float* __restrict__ out, R banks, int* __restrict__ queue) {
+  // the scene, its light table and its sky, once per block in shared memory
+  const SceneRef s = stage_scene(prog, fdata, dims);
   Ctx c;
   c.a = a;
-  c.s.prog = prog;
-  c.s.f = fdata;
-  c.sky = s_tail[0];
-  c.lights = s_tail + 1;
-  c.px = (uint32_t)(a.ox + lx);
-  c.py = (uint32_t)(a.oy + ly);
+  c.s = s;
   c.cam = load_camera(corners);
-  if constexpr (R::kOn) {
-    R r = banks;
-    r.pix = (size_t)ly * a.pw + lx;
-    trace_pixel(c, r);
-  } else if constexpr (R::kSky == kSkyDefer) {
-    R r = banks;
-    r.pix = (size_t)ly * a.pw + lx;
-    const V3 acc = trace_pixel(c, r);
-    float* o = out + 3 * r.pix;
-    o[0] = acc.x * a.inv_n;
-    o[1] = acc.y * a.inv_n;
-    o[2] = acc.z * a.inv_n;
+  const int n_slots = queue_len(a.pw, a.ph);
+  R r = banks;
+  Lane L;
+  size_t pix = 0;
+  // start the lane on queue slot q's pixel; false outside the patch
+  auto start = [&](int q) {
+    int lx, ly;
+    if (!queue_pixel(a.pw, a.ph, q, lx, ly)) return false;
+    c.px = (uint32_t)(a.ox + lx);
+    c.py = (uint32_t)(a.oy + ly);
+    pix = (size_t)ly * a.pw + lx;
+    if constexpr (R::kOn || R::kSky == kSkyDefer) r.pix = pix;
+    start_lane<R>(c, L);
+    return true;
+  };
+  auto finish = [&]() {
+    if constexpr (!R::kOn) {
+      float* o = out + 3 * pix;
+      o[0] = L.acc.x * a.inv_n;
+      o[1] = L.acc.y * a.inv_n;
+      o[2] = L.acc.z * a.inv_n;
+    }
+  };
+  if constexpr (!R::kQueue) {
+    const int q = blockIdx.x * kBlockThreads + threadIdx.x;
+    if (q >= n_slots || !start(q)) return;
+    while (L.state < kExh) body(c, L, r);
+    finish();
   } else {
-    const V3 acc = trace_pixel(c, banks);
-    float* o = out + 3 * ((size_t)ly * a.pw + lx);
-    o[0] = acc.x * a.inv_n;
-    o[1] = acc.y * a.inv_n;
-    o[2] = acc.z * a.inv_n;
+    bool live = false, drained = false;
+    for (;;) {
+      const bool ask = !live && !drained;
+      const int q = take_slot(queue, ask);
+      if (ask) {
+        if (q >= n_slots) {
+          drained = true;
+        } else {
+          live = start(q);
+        }
+      }
+      if (__all_sync(0xffffffffu, drained && !live)) break;
+      if (!live) continue;
+      body(c, L, r);
+      if (L.state >= kExh) {
+        live = false;
+        finish();
+      }
+    }
   }
 }
 
 // Launch the lane machine of policy R, or of ExactNormal<R> when
-// normal_taps is 0.
+// normal_taps is 0, with the scene's shared memory: on a persistent grid
+// fed by the zeroed counter `queue` (R::kQueue), else one lane per queue
+// slot; returns the CUDA error.
 template <class R>
-void launch_mega(const PathArgs* args, const float* corners, const float* fdata, const int* prog,
-                 float* out, const R& banks, cudaStream_t stream) {
-  const dim3 block(16, kBlockThreads / 16);
-  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  if (args->normal_taps == 0) {
-    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out,
-                                                  ExactNormal<R>(banks));
+cudaError_t launch_mega(const PathArgs* args, const SceneDims* dims, const float* corners,
+                        const float* fdata, const int* prog, float* out, const R& banks,
+                        int* queue, cudaStream_t stream, int device) {
+  const bool exact = args->normal_taps == 0;
+  const size_t bytes = scene_smem_bytes(*dims, exact);
+  const int n_slots = queue_len(args->pw, args->ph);
+  int grid = (n_slots + kBlockThreads - 1) / kBlockThreads;
+  if (exact) {
+    auto kernel = mega_paths_kernel<ExactNormal<R>>;
+    cudaError_t err = allow_smem(kernel, bytes);
+    if (err == cudaSuccess && R::kQueue) {
+      err = persistent_grid(kernel, bytes, device, n_slots, grid);
+    }
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, corners, fdata, prog, out,
+                                                   ExactNormal<R>(banks), queue);
   } else {
-    mega_paths_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out, banks);
+    auto kernel = mega_paths_kernel<R>;
+    cudaError_t err = allow_smem(kernel, bytes);
+    if (err == cudaSuccess && R::kQueue) {
+      err = persistent_grid(kernel, bytes, device, n_slots, grid);
+    }
+    if (err != cudaSuccess) return err;
+    kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, corners, fdata, prog, out, banks,
+                                                   queue);
   }
+  return cudaGetLastError();
 }
 
-// Plain C entry point for ctypes.  `args` is a host pointer; the buffers
-// are device pointers on CUDA device `device`; `out` is (ph, pw, 3)
-// float32.  The library carries its own (static) CUDA runtime, so it
+// Plain C entry point for ctypes.  `args` and `dims` are host pointers
+// (`dims` the sizes of the scene's buffers, scene_map.cuh SceneDims); the
+// buffers are device pointers on CUDA device `device`; `out` is (ph, pw,
+// 3) float32.  The library carries its own (static) CUDA runtime, so it
 // selects the device itself before launching on `stream`.  Returns the
-// first CUDA error (0 on success), and cudaErrorInvalidValue for more
-// lights than the shared light table holds.  `sky_kind` picks the
-// constant or the SH sky; an env image (kSkyDefer) takes
-// rmr_mega_paths_defer and is refused here.
-extern "C" int rmr_mega_paths(const PathArgs* args, const float* corners, const float* fdata,
-                              const int* prog, float* out, int sky_kind, cudaStream_t stream,
-                              int device) {
-  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+// first CUDA error (0 on success), and cudaErrorInvalidValue for a scene
+// whose tables exceed the block's shared memory.  `queue` is one int32
+// on the device, zero before the launch (the pixel queue's counter).
+// `sky_kind` picks the constant or the SH sky; an env image (kSkyDefer)
+// takes rmr_mega_paths_defer and is refused here.
+extern "C" int rmr_mega_paths(const PathArgs* args, const SceneDims* dims, const float* corners,
+                              const float* fdata, const int* prog, float* out, int sky_kind,
+                              int* queue, cudaStream_t stream, int device) {
+  if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   if (sky_kind != kSkyConst && sky_kind != kSkySh) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (sky_kind == kSkySh) {
-    launch_mega(args, corners, fdata, prog, out, ShSky(), stream);
-  } else {
-    launch_mega(args, corners, fdata, prog, out, NoBanks(), stream);
+    return (int)launch_mega(args, dims, corners, fdata, prog, out, ShSky(), queue, stream, device);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_mega(args, dims, corners, fdata, prog, out, NoBanks(), queue, stream, device);
 }
 
 // The deferred-sky entry (replaces the TPU kernel's mega + defer_sky
@@ -608,12 +659,13 @@ extern "C" int rmr_mega_paths(const PathArgs* args, const float* corners, const 
 // `thr_r`, `thr_g`, `thr_b` (float32) and its packed (u, v) into `uv`
 // (int32), each (P, ph, pw), P = n_samples (3 * n_samples with
 // dispersion), at its path's slot; the caller zero-fills them first, so
-// thr = 0 marks a slot whose path ended on a hit.
-extern "C" int rmr_mega_paths_defer(const PathArgs* args, const float* corners,
-                                    const float* fdata, const int* prog, float* out,
-                                    float* thr_r, float* thr_g, float* thr_b, int* uv,
-                                    cudaStream_t stream, int device) {
-  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+// thr = 0 marks a slot whose path ended on a hit.  `queue` as for
+// rmr_mega_paths.
+extern "C" int rmr_mega_paths_defer(const PathArgs* args, const SceneDims* dims,
+                                    const float* corners, const float* fdata, const int* prog,
+                                    float* out, float* thr_r, float* thr_g, float* thr_b,
+                                    int* uv, int* queue, cudaStream_t stream, int device) {
+  if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   DeferSky banks;
@@ -623,8 +675,7 @@ extern "C" int rmr_mega_paths_defer(const PathArgs* args, const float* corners,
   banks.uv = uv;
   banks.plane = (size_t)args->ph * args->pw;
   banks.pix = 0;
-  launch_mega(args, corners, fdata, prog, out, banks, stream);
-  return (int)cudaGetLastError();
+  return (int)launch_mega(args, dims, corners, fdata, prog, out, banks, queue, stream, device);
 }
 
 // The recording entry: as rmr_mega_paths, but the lanes bank their march
@@ -632,11 +683,12 @@ extern "C" int rmr_mega_paths_defer(const PathArgs* args, const float* corners,
 // (max_bounces * P, ph, pw) with P = n_samples (3 * n_samples with
 // dispersion), and with NEE their shadow visibility into `sd` (float32,
 // (max_bounces * P * n_lights, ph, pw)); the caller fills them with the
-// miss values first.  No image is written.
-extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, const float* fdata,
-                                const int* prog, float* t, int* mid, int* hit, float* sd,
-                                cudaStream_t stream, int device) {
-  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+// miss values first.  No image is written.  `queue` as for
+// rmr_mega_paths.
+extern "C" int rmr_record_paths(const PathArgs* args, const SceneDims* dims, const float* corners,
+                                const float* fdata, const int* prog, float* t, int* mid, int* hit,
+                                float* sd, int* queue, cudaStream_t stream, int device) {
+  if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Banks banks;
@@ -647,8 +699,8 @@ extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, cons
   banks.plane = (size_t)args->ph * args->pw;
   banks.pix = 0;
   banks.paths = args->dispersion ? 3 * args->n_samples : args->n_samples;
-  launch_mega(args, corners, fdata, prog, nullptr, banks, stream);
-  return (int)cudaGetLastError();
+  return (int)launch_mega(args, dims, corners, fdata, prog, nullptr, banks, queue, stream,
+                          device);
 }
 
 // ---- the wavefront recorder (kernels/record.py trace_record_wavefront) ----
@@ -668,24 +720,18 @@ extern "C" int rmr_record_paths(const PathArgs* args, const float* corners, cons
 // out.  kExact: the exact normal (normal_taps = 0).
 template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) record_wavefront_kernel(
-    PathArgs a, int n, const float* __restrict__ fdata, const int* __restrict__ prog,
+    PathArgs a, SceneDims dims, int n, const float* __restrict__ fdata,
+    const int* __restrict__ prog,
     const float* __restrict__ ex, const float* __restrict__ ey, const float* __restrict__ ez,
     const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
     const int* __restrict__ px, const int* __restrict__ py, const int* __restrict__ sample,
     float* __restrict__ t_bank, int* __restrict__ mid_bank, int* __restrict__ hit_bank,
     float* __restrict__ sd_bank) {
-  // the light table, once per block in shared memory (the sky is unused)
-  __shared__ float s_tail[1 + 5 * kMaxLights];
-  const float* ftail = fdata + prog[2];
-  const int n_tail = 1 + 5 * a.n_lights;
-  for (int k = threadIdx.x; k < n_tail; k += blockDim.x) s_tail[k] = ftail[k];
-  __syncthreads();
+  // the scene and its light table, once per block in shared memory
+  const SceneRef s = stage_scene(prog, fdata, dims);
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
-  SceneRef s;
-  s.prog = prog;
-  s.f = fdata;
-  const float* lights = s_tail + 1;
+  const float* lights = light_table(s);
   MarchParams mp;
   mp.max_steps = a.max_steps;
   mp.relax = a.relax;
@@ -760,23 +806,23 @@ __global__ void __launch_bounds__(kBlockThreads) record_wavefront_kernel(
 // (max_bounces * n_lights, n)); the caller fills them with the miss values
 // (and sd with 3.4e38) first.  Reads the march, shading, NEE and roulette
 // fields of `args`.
-extern "C" int rmr_record_wavefront(const PathArgs* args, int n, const float* fdata,
-                                    const int* prog, const float* ex, const float* ey,
-                                    const float* ez, const float* dx, const float* dy,
-                                    const float* dz, const int* px, const int* py,
-                                    const int* sample, float* t, int* mid, int* hit, float* sd,
-                                    cudaStream_t stream, int device) {
-  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+extern "C" int rmr_record_wavefront(const PathArgs* args, const SceneDims* dims, int n,
+                                    const float* fdata, const int* prog, const float* ex,
+                                    const float* ey, const float* ez, const float* dx,
+                                    const float* dy, const float* dz, const int* px,
+                                    const int* py, const int* sample, float* t, int* mid,
+                                    int* hit, float* sd, cudaStream_t stream, int device) {
+  if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (n <= 0) return (int)cudaSuccess;
   const int grid = (n + kBlockThreads - 1) / kBlockThreads;
-  if (args->normal_taps == 0) {
-    record_wavefront_kernel<true><<<grid, kBlockThreads, 0, stream>>>(
-        *args, n, fdata, prog, ex, ey, ez, dx, dy, dz, px, py, sample, t, mid, hit, sd);
-  } else {
-    record_wavefront_kernel<false><<<grid, kBlockThreads, 0, stream>>>(
-        *args, n, fdata, prog, ex, ey, ez, dx, dy, dz, px, py, sample, t, mid, hit, sd);
-  }
+  const bool exact = args->normal_taps == 0;
+  const size_t bytes = scene_smem_bytes(*dims, exact);
+  auto kernel = exact ? record_wavefront_kernel<true> : record_wavefront_kernel<false>;
+  err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, n, fdata, prog, ex, ey, ez, dx, dy,
+                                                 dz, px, py, sample, t, mid, hit, sd);
   return (int)cudaGetLastError();
 }

@@ -20,8 +20,9 @@
 //
 // The scene is data: the wrapper compiles each object's node list into an
 // int32 program (kernels/scene_program.py) and its parameters into a
-// float32 buffer, with the band table as this kernel's tail;
-// `scene_map.cuh` interprets it, shared with the RGB kernel mega_paths.cu.
+// float32 buffer, with the band table as this kernel's tail; each block
+// stages both in shared memory and `scene_map.cuh` interprets them,
+// shared with the RGB kernel mega_paths.cu.
 // All 20 object node types are covered.
 //
 // Bound on the H100: FP32 issue and warp divergence (neighbouring pixels
@@ -63,6 +64,13 @@
 using namespace rmr;
 
 namespace {
+
+// The spectral lane machine's launch bound: at least twelve blocks of 128
+// threads resident per SM, which caps a thread's registers at 40.  Its
+// lane state is smaller than the RGB one's (scene_map.cuh kMinBlocks, 8),
+// and the kMinBlocks sweep put its render and recorder fastest at 12
+// (PERF.md).
+constexpr int kMinBlocksSpectral = 12;
 
 // lane states, as in render/mega.py
 constexpr int kMarch = 0;
@@ -202,10 +210,10 @@ __device__ void shade(const Ctx& c, Lane& L, const R& r) {
     normal = get_normal<R::kExact>(c.s, a.max_dist, a.normal_eps, a.normal_taps, hitp);
     // the band table tail: ints [n_mats, kind * n_mats], floats
     // [min_wave * n_mats, max_wave * n_mats, power * n_mats]
-    const int* tail = c.s.prog + c.s.prog[1];
+    const int* tail = c.s.prog() + c.s.prog()[1];
     const int n_mats = tail[0];
     mid = mid < 0 ? 0 : (mid > n_mats - 1 ? n_mats - 1 : mid);
-    const float* band = c.s.f + c.s.prog[2];
+    const float* band = c.s.f() + c.s.prog()[2];
     mn = band[mid];
     mx = band[n_mats + mid];
     pw = band[2 * n_mats + mid];
@@ -292,16 +300,18 @@ __device__ V3 trace_pixel(const Ctx& c, const R& r) {
 
 // R = NoBanks, or ExactNormal<NoBanks> for normal_taps = 0
 template <class R>
-__global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_spectral_kernel(SpecArgs a, const float* __restrict__ corners,
-                                     const float* __restrict__ fdata,
-                                     const int* __restrict__ prog, float* __restrict__ out) {
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksSpectral)
+    mega_spectral_kernel(SpecArgs a, SceneDims dims, const float* __restrict__ corners,
+                         const float* __restrict__ fdata, const int* __restrict__ prog,
+                         float* __restrict__ out) {
+  // the scene and its band table, once per block in shared memory
+  const SceneRef s = stage_scene(prog, fdata, dims);
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   if (lx >= a.pw || ly >= a.ph) return;
   Ctx c;
   c.a = a;
-  c.s.prog = prog;
-  c.s.f = fdata;
+  c.s = s;
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
@@ -312,40 +322,42 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks) mega_spectral_kerne
   o[2] = acc.z * a.inv_n;
 }
 
-// Plain C entry point for ctypes.  `args` is a host pointer; the buffers
+// Plain C entry point for ctypes.  `args` and `dims` (the sizes of the
+// scene's buffers, scene_map.cuh SceneDims) are host pointers; the buffers
 // are device pointers on CUDA device `device`; `out` is (ph, pw, 3)
 // float32.  The library carries its own (static) CUDA runtime, so it
 // selects the device itself before launching on `stream`.  Returns the
 // first CUDA error (0 on success).
-extern "C" int rmr_mega_spectral(const SpecArgs* args, const float* corners, const float* fdata,
-                                 const int* prog, float* out, cudaStream_t stream, int device) {
+extern "C" int rmr_mega_spectral(const SpecArgs* args, const SceneDims* dims, const float* corners,
+                                 const float* fdata, const int* prog, float* out,
+                                 cudaStream_t stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  if (args->normal_taps == 0) {
-    using Exact = ExactNormal<NoBanks>;
-    mega_spectral_kernel<Exact><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
-  } else {
-    mega_spectral_kernel<NoBanks><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
-  }
+  const bool exact = args->normal_taps == 0;
+  const size_t bytes = scene_smem_bytes(*dims, exact);
+  auto kernel = exact ? mega_spectral_kernel<ExactNormal<NoBanks>> : mega_spectral_kernel<NoBanks>;
+  err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, bytes, stream>>>(*args, *dims, corners, fdata, prog, out);
   return (int)cudaGetLastError();
 }
 
 // The recording kernel: the same lane machine with banks (R = Banks, or
 // ExactNormal<Banks> for normal_taps = 0).
 template <class R>
-__global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
-    record_spectral_kernel(SpecArgs a, const float* __restrict__ corners,
+__global__ void __launch_bounds__(kBlockThreads, kMinBlocksSpectral)
+    record_spectral_kernel(SpecArgs a, SceneDims dims, const float* __restrict__ corners,
                            const float* __restrict__ fdata, const int* __restrict__ prog,
                            R banks) {
+  const SceneRef s = stage_scene(prog, fdata, dims);
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   if (lx >= a.pw || ly >= a.ph) return;
   Ctx c;
   c.a = a;
-  c.s.prog = prog;
-  c.s.f = fdata;
+  c.s = s;
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
@@ -357,9 +369,9 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
 // march residuals into `t` (float32), `mid` and `hit` (int32), each
 // (max_bounces * n_samples, ph, pw), slot bounce * n_samples + sample; the
 // caller fills them with the miss values first.  No image is written.
-extern "C" int rmr_record_spectral(const SpecArgs* args, const float* corners, const float* fdata,
-                                   const int* prog, float* t, int* mid, int* hit,
-                                   cudaStream_t stream, int device) {
+extern "C" int rmr_record_spectral(const SpecArgs* args, const SceneDims* dims,
+                                   const float* corners, const float* fdata, const int* prog,
+                                   float* t, int* mid, int* hit, cudaStream_t stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Banks banks;
@@ -370,11 +382,19 @@ extern "C" int rmr_record_spectral(const SpecArgs* args, const float* corners, c
   banks.pix = 0;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  if (args->normal_taps == 0) {
-    record_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog,
-                                                       ExactNormal<Banks>(banks));
+  const bool exact = args->normal_taps == 0;
+  const size_t bytes = scene_smem_bytes(*dims, exact);
+  if (exact) {
+    auto kernel = record_spectral_kernel<ExactNormal<Banks>>;
+    err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, block, bytes, stream>>>(*args, *dims, corners, fdata, prog,
+                                           ExactNormal<Banks>(banks));
   } else {
-    record_spectral_kernel<<<grid, block, 0, stream>>>(*args, corners, fdata, prog, banks);
+    auto kernel = record_spectral_kernel<Banks>;
+    err = allow_smem(kernel, bytes);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<grid, block, bytes, stream>>>(*args, *dims, corners, fdata, prog, banks);
   }
   return (int)cudaGetLastError();
 }

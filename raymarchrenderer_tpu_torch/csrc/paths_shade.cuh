@@ -16,7 +16,6 @@ namespace rmr {
 
 // material program layout (kernels/scene_program.py must agree)
 constexpr int kMaxMatRegs = 32;
-constexpr int kMaxLights = 8;
 constexpr int kMatWords = 7;    // first word, n_instr, rng_base, color, dir, inside, hit
 constexpr int kInstrWords = 12;  // opcode, 4 outputs, 7 inputs
 
@@ -46,6 +45,17 @@ struct PathArgs {
   float omega0, normal_eps, surface_offset, exit_offset, inside_offset;
   float rr_min_prob, inv_n;
 };
+
+// The RGB tail floats of the staged scene: the sky power, the light table
+// [pos * 3L, power * L, radius * L] of the scene's L lights, then the SH
+// sky's (16, 3) coefficients (an SH sky only).
+__device__ __forceinline__ float sky_power(const SceneRef& s) { return s.f()[s.prog()[2]]; }
+__device__ __forceinline__ const float* light_table(const SceneRef& s) {
+  return s.f() + s.prog()[2] + 1;
+}
+__device__ __forceinline__ const float* sh_coeffs(const SceneRef& s) {
+  return light_table(s) + 5 * s.prog()[s.prog()[1] + 1];
+}
 
 // ---- materials (scene/nodes.py, scene/graph.py _eval_material) -----------
 
@@ -113,20 +123,20 @@ __device__ ShadeOut eval_material(const SceneRef& s, int mid, const ShadeIn& in,
   const V3 zero = splat(0.0f);
   ShadeOut out;
   out.color = out.dir = out.inside = out.hit = zero;
-  const int* tail = s.prog + s.prog[1];
+  const int* tail = s.prog() + s.prog()[1];
   if (mid < 0 || mid >= tail[0]) return out;
   const int* md = tail + 2 + kMatWords * mid;
   rng.ctr = (uint32_t)md[2];
   V3 regs[kMaxMatRegs];
   for (int r = 0; r < kMaxMatRegs; ++r) regs[r] = zero;
   for (int k = 0; k < md[1]; ++k) {
-    const int* w = s.prog + md[0] + kInstrWords * k;
+    const int* w = s.prog() + md[0] + kInstrWords * k;
     const int* ins = w + 5;
     auto arg = [&](int j) -> V3 {
       const int code = ins[j];
       if (code >= 0) return regs[code];
       if (code == -1) return zero;
-      const float* q = s.f + (-code - 2);
+      const float* q = s.f() + (-code - 2);
       return mk(q[0], q[1], q[2]);
     };
     V3 o[4] = {zero, zero, zero, zero};

@@ -1,34 +1,57 @@
-// Shared device code of the megakernels (mega_spectral.cu, mega_paths.cu):
-// vec3 math, the counter-based RNG, the scene's object interpreter
-// (map_dist, map_mid, get_normal and its exact gradient grad_map) and
-// uniform sphere sampling.
+// Shared device code of every kernel: vec3 math, the counter-based RNG,
+// the scene's object interpreter (map_dist, map_mid, get_normal and its
+// exact gradient grad_map), uniform sphere sampling, the staging of a
+// scene into shared memory and the launch bounds.
 //
 // The object program layout is written by kernels/scene_program.py, and
 // the two must agree:
 //
-//   int32:   [n_objects, tail_int_offset, tail_float_offset, 0]    header
-//            [first_word, n_nodes, distance_reg, mat_index] * n_objects
-//            [opcode, out_reg, in0, in1, in2, in3] * nodes
+//   int32:   [n_objects, tail_int_offset, tail_float_offset, n_regs]  header
+//            [first_word, n_nodes, distance_word, mat_index] * n_objects
+//            [opcode | marks, out_reg, in0, in1, in2, in3] * nodes
 //            ... each kernel's own tail at tail_int_offset
 //   float32: object parameters (vec3 each), each kernel's own tail at
 //            tail_float_offset
 //
 // An input word is a register (>= 0), the sample point (-1), or a vec3 at
-// float offset `-word - 2`.  Every op follows the plain PyTorch version
-// (scene/nodes.py, core/*.py) in order; the kernels are built with
-// --fmad=false and without fast math, so each multiply and add rounds on
-// its own as there.
+// float offset `-word - 2`.  Every node that writes has a register of its
+// own (n_regs: the most one object writes).  The forwarding marks above
+// the opcode (kFwdIn << k: input k is the previous node's value; kFwdOut:
+// nothing but the next node or the distance reads this value) and above
+// the distance register (kFwdDist: the distance is the last node's value)
+// let the interpreter carry a value from one node to the next in
+// registers: a one-node object touches no register slot at all.  Every op
+// follows the plain PyTorch version (scene/nodes.py, core/*.py) in order;
+// the kernels are built with --fmad=false and without fast math, so each
+// multiply and add rounds on its own as there.
+//
+// Shared memory.  Each block stages the scene's program words and data
+// floats (the tail included: lights, SH coefficients, band table,
+// material parameters) in its dynamic shared memory once, so every read
+// of them is a broadcast, and every thread's register slots follow them
+// (`SceneDims`, `scene_smem_bytes`): the stored (unforwarded) node values,
+// or, in an exact-normal instantiation, every node's value, its adjoint
+// and its live bits.  The sizes come from the scene, so neither the node
+// count nor the light count is capped by a constant; a scene whose tables
+// exceed the block's shared memory is refused with its size by the
+// wrappers.
 #pragma once
 
+#include <stddef.h>
 #include <stdint.h>
 
 namespace rmr {
 
 // object program layout
-constexpr int kMaxRegs = 16;
 constexpr int kHeader = 4;
 constexpr int kObjWords = 4;
 constexpr int kNodeWords = 6;
+// the forwarding marks (kernels/scene_program.py FWD_*)
+constexpr int kOpMask = 0xFF;
+constexpr int kFwdIn = 1 << 8;
+constexpr int kFwdOut = 1 << 12;
+constexpr int kFwdDist = 1 << 16;
+constexpr int kRegMask = 0xFFFF;
 
 enum Op {
   OP_SPHERE = 0, OP_BOX, OP_PLANE, OP_TORUS, OP_CYLINDER, OP_CAPSULE,
@@ -41,13 +64,16 @@ constexpr uint32_t kW1 = 0x85EBCA6Bu;
 constexpr uint32_t kW2 = 0xC2B2AE35u;
 constexpr uint32_t kW3 = 0x27D4EB2Fu;
 
-// Launch shape of both megakernels: blocks of 16 x 8 threads, and at least
-// six of them resident per SM (`__launch_bounds__`), which caps a thread's
-// registers at 80.  The kernels are latency-bound by divergent, interpreted
-// map evaluations, so resident warps pay; six keeps the spectral kernel at
-// the occupancy it had before it shared this header (PERF.md).
+// Launch shape of every kernel: blocks of 128 threads; the RGB lane
+// machine asks for at least eight of them resident per SM
+// (`__launch_bounds__`), which caps a thread's registers at 64 (the
+// spectral one sets its own, mega_spectral.cu).  The kernels are
+// latency-bound by divergent, interpreted map evaluations, so resident
+// warps pay more than the spills they cost: re-read after the scene moved
+// to shared memory, 8 beat 4, 5, 6, 10, 12 and 16 on the RGB render and
+// recording launches (PERF.md, `chip_smoke.py --sweep-min-blocks`).
 constexpr int kBlockThreads = 128;
-constexpr int kMinBlocks = 6;
+constexpr int kMinBlocks = 8;
 
 constexpr float kTwoPi = 6.28318530717958647692f;  // f32(2 * pi), as 2.0 * _PI rounds
 constexpr float kPi = 3.14159265358979323846f;
@@ -127,15 +153,88 @@ __device__ __forceinline__ float rng_next(Rng& r) {
 
 // ---- scene interpreter (scene/graph.py map / map_dist) ---------------------
 
+// The block's dynamic shared memory: the staged scene (`stage_scene`).
+// Addressed through this symbol (never through a pointer kept in a
+// register or passed to a call), so every read of it is a shared-memory
+// load and a SceneRef holds two offsets.
+extern __shared__ __align__(16) float rmr_smem[];
+
+// A scene as the interpreter reads it, in rmr_smem: the program words from
+// word 0, the data floats from word `fo`, and this thread's register
+// slots: slot k's component j at word ro + (3 k + j) * kBlockThreads.
 struct SceneRef {
-  const int* prog;
-  const float* f;
+  int fo, ro;
+  __device__ __forceinline__ const int* prog() const {
+    return reinterpret_cast<const int*>(rmr_smem);
+  }
+  __device__ __forceinline__ const float* f() const { return rmr_smem + fo; }
+  __device__ __forceinline__ float* r() const { return rmr_smem + ro; }
 };
 
-__device__ __forceinline__ V3 fetch(const SceneRef& s, const V3* regs, V3 p, int code) {
-  if (code >= 0) return regs[code];
+// The sizes a launch stages (kernels/scene_program.py `scene_dims`): the
+// program words, the data floats, the stencil interpreter's register
+// slots (stored values) and the registers of the exact normal's sweep.
+struct SceneDims {
+  int n_words, n_floats, n_stored, n_regs;
+};
+
+// The block's dynamic shared memory for a scene (scene_program.py
+// `shared_bytes` must agree): the program and data, then per thread 3
+// floats per stored slot, or with the exact normal 7 words per register
+// (value, adjoint, live bits).
+inline size_t scene_smem_bytes(const SceneDims& d, bool exact) {
+  const size_t per_thread = exact ? 7 * (size_t)d.n_regs : 3 * (size_t)d.n_stored;
+  return 4 * ((size_t)d.n_words + (size_t)d.n_floats + kBlockThreads * per_thread);
+}
+
+#ifdef __CUDACC__
+// A kernel's launch with `bytes` of dynamic shared memory: above the
+// default 48 KiB the kernel opts in first (cudaErrorInvalidValue beyond
+// the device's limit).  Returns the CUDA error.
+template <class K>
+inline cudaError_t allow_smem(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
+#endif
+
+// Copy the scene's program and data into the block's dynamic shared memory
+// (every thread of the block takes part) and return the SceneRef of this
+// thread.  Every launch runs blocks of kBlockThreads threads.
+__device__ __forceinline__ SceneRef stage_scene(const int* __restrict__ prog,
+                                                const float* __restrict__ fdata,
+                                                const SceneDims& d) {
+  int* sp = reinterpret_cast<int*>(rmr_smem);
+  float* sf = rmr_smem + d.n_words;
+  const int n_threads = blockDim.x * blockDim.y;
+  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
+  for (int i = tid; i < d.n_words; i += n_threads) sp[i] = prog[i];
+  for (int i = tid; i < d.n_floats; i += n_threads) sf[i] = fdata[i];
+  __syncthreads();
+  SceneRef s;
+  s.fo = d.n_words;
+  s.ro = d.n_words + d.n_floats + tid;
+  return s;
+}
+
+__device__ __forceinline__ V3 reg_get(const SceneRef& s, int k) {
+  const float* q = s.r() + 3 * k * kBlockThreads;
+  return mk(q[0], q[kBlockThreads], q[2 * kBlockThreads]);
+}
+__device__ __forceinline__ void reg_put(const SceneRef& s, int k, V3 v) {
+  float* q = s.r() + 3 * k * kBlockThreads;
+  q[0] = v.x;
+  q[kBlockThreads] = v.y;
+  q[2 * kBlockThreads] = v.z;
+}
+
+// input `code` of a node: the previous node's value when forwarded, else a
+// register slot, the point or a parameter
+__device__ __forceinline__ V3 fetch(const SceneRef& s, V3 p, V3 prev, int code, int fwd) {
+  if (fwd) return prev;
+  if (code >= 0) return reg_get(s, code);
   if (code == -1) return p;
-  const float* q = s.f + (-code - 2);
+  const float* q = s.f() + (-code - 2);
   return mk(q[0], q[1], q[2]);
 }
 
@@ -237,33 +336,36 @@ __device__ __forceinline__ V3 node_value(int op, V3 a, V3 b, V3 c, V3 e) {
   return out;
 }
 
-// Run object `obj`'s nodes at p into `regs`; returns its distance.
-__device__ __forceinline__ float run_object(const SceneRef& s, int obj, V3 p, V3* regs) {
-  const int* od = s.prog + kHeader + kObjWords * obj;
+// Run object `obj`'s nodes at p; returns its distance.  The stencil
+// interpreter (kStoreAll false) stores only the values the marks do not
+// forward; the exact normal's reverse sweep (kStoreAll) stores every
+// node's value in its register slot.
+template <bool kStoreAll>
+__device__ __forceinline__ float run_object(const SceneRef& s, int obj, V3 p) {
+  const int* od = s.prog() + kHeader + kObjWords * obj;
   const int first = od[0];
   const int n_nodes = od[1];
+  V3 prev = p;
   for (int k = 0; k < n_nodes; ++k) {
-    const int* nd = s.prog + first + kNodeWords * k;
-    // the inputs in order, as eval_object read them before the exact
-    // normal shared this loop (the order moves march_fused's spills)
-    const V3 a = fetch(s, regs, p, nd[2]);
-    const V3 b = fetch(s, regs, p, nd[3]);
-    const V3 c = fetch(s, regs, p, nd[4]);
-    const V3 e = fetch(s, regs, p, nd[5]);
-    const V3 out = node_value(nd[0], a, b, c, e);
-    if (nd[1] >= 0) regs[nd[1]] = out;
+    const int* nd = s.prog() + first + kNodeWords * k;
+    const int w = nd[0];
+    const V3 a = fetch(s, p, prev, nd[2], w & kFwdIn);
+    const V3 b = fetch(s, p, prev, nd[3], w & (kFwdIn << 1));
+    const V3 c = fetch(s, p, prev, nd[4], w & (kFwdIn << 2));
+    const V3 e = fetch(s, p, prev, nd[5], w & (kFwdIn << 3));
+    prev = node_value(w & kOpMask, a, b, c, e);
+    if (nd[1] >= 0 && (kStoreAll || !(w & kFwdOut))) reg_put(s, nd[1], prev);
   }
-  return regs[od[2]].x;
+  return (od[2] & kFwdDist) ? prev.x : reg_get(s, od[2] & kRegMask).x;
 }
 
-__device__ float eval_object(const SceneRef& s, int obj, V3 p) {
-  V3 regs[kMaxRegs];
-  return run_object(s, obj, p, regs);
+__device__ __forceinline__ float eval_object(const SceneRef& s, int obj, V3 p) {
+  return run_object<false>(s, obj, p);
 }
 
 // distance only: running fminf seeded from object 0
 __device__ float map_dist(const SceneRef& s, float max_dist, V3 p) {
-  const int n_obj = s.prog[0];
+  const int n_obj = s.prog()[0];
   if (n_obj == 0) return max_dist;
   float d = eval_object(s, 0, p);
   for (int i = 1; i < n_obj; ++i) d = fminf(d, eval_object(s, i, p));
@@ -272,14 +374,14 @@ __device__ float map_dist(const SceneRef& s, float max_dist, V3 p) {
 
 // material index at p: seeded with max_dist / -1, strict < take
 __device__ int map_mid(const SceneRef& s, float max_dist, V3 p) {
-  const int n_obj = s.prog[0];
+  const int n_obj = s.prog()[0];
   float d = max_dist;
   int mid = -1;
   for (int i = 0; i < n_obj; ++i) {
     float di = eval_object(s, i, p);
     if (di < d) {
       d = di;
-      mid = s.prog[kHeader + kObjWords * i + 3];
+      mid = s.prog()[kHeader + kObjWords * i + 3];
     }
   }
   return mid;
@@ -345,20 +447,33 @@ __device__ __forceinline__ float floor_div(float a, float b) {
 __device__ __forceinline__ float& comp(V3& v, int k) { return (&v.x)[k]; }
 __device__ __forceinline__ float at(const V3& v, int k) { return (&v.x)[k]; }
 
-// The adjoint registers of one object: values, live bits (3 per register)
-// and the point's adjoint.
+// The adjoint registers of one object, in this thread's shared-memory
+// slots after the n_regs value registers: register k's adjoint component j
+// at v[(3 k + j) * kBlockThreads] and its live bits (one per component) at
+// live[k * kBlockThreads]; and the point's adjoint.
 struct Adj {
-  V3 v[kMaxRegs];
-  uint64_t live;
+  float* v;
+  int* live;
   V3 dp;
 };
+
+__device__ __forceinline__ Adj adj_file(const SceneRef& s) {
+  const int n_regs = s.prog()[3];
+  Adj A;
+  A.v = s.r() + 3 * n_regs * kBlockThreads;
+  A.live = reinterpret_cast<int*>(s.r() + 6 * n_regs * kBlockThreads);
+  A.dp = splat(0.0f);
+  return A;
+}
 
 // add `val` to component k of input `code`'s adjoint (constants have none)
 __device__ __forceinline__ void acc(Adj& A, int code, int k, float val) {
   if (code >= 0) {
-    const uint64_t bit = 1ull << (3 * code + k);
-    comp(A.v[code], k) = (A.live & bit) ? comp(A.v[code], k) + val : val;
-    A.live |= bit;
+    float& slot = A.v[(3 * code + k) * kBlockThreads];
+    int& lv = A.live[code * kBlockThreads];
+    const int bit = 1 << k;
+    slot = (lv & bit) ? slot + val : val;
+    lv |= bit;
   } else if (code == -1) {
     comp(A.dp, k) = comp(A.dp, k) + val;
   }
@@ -369,13 +484,19 @@ __device__ __forceinline__ void acc3(Adj& A, int code, V3 val) {
   acc(A, code, 2, val.z);
 }
 
+// a node's input in the reverse sweep, where every node's value is stored
+__device__ __forceinline__ V3 fetch_stored(const SceneRef& s, V3 p, int code) {
+  return fetch(s, p, p, code, 0);
+}
+
 // The reverse of one node: its inputs' adjoints from its output's.
-__device__ void node_adjoint(const SceneRef& s, const V3* regs, V3 p, const int* nd, Adj& A) {
+__device__ void node_adjoint(const SceneRef& s, V3 p, const int* nd, Adj& A) {
   const int out = nd[1];
   if (out < 0) return;
-  const int lm = (int)((A.live >> (3 * out)) & 7u);
+  const int lm = A.live[out * kBlockThreads] & 7;
   if (lm == 0) return;  // nothing reads this node
-  const V3 g = A.v[out];
+  const float* gv = A.v + 3 * out * kBlockThreads;
+  const V3 g = mk(gv[0], gv[kBlockThreads], gv[2 * kBlockThreads]);
   // a splat node's scalar adjoint: the sum of its read components
   float gs = 0.0f;
   bool first = true;
@@ -386,10 +507,11 @@ __device__ void node_adjoint(const SceneRef& s, const V3* regs, V3 p, const int*
     }
   }
   const int ia = nd[2], ib = nd[3], ic = nd[4], ie = nd[5];
-  const V3 a = fetch(s, regs, p, ia);
-  const V3 b = fetch(s, regs, p, ib);
-  const V3 c = fetch(s, regs, p, ic);
-  switch (nd[0]) {
+  const V3 a = fetch_stored(s, p, ia);
+  const V3 b = fetch_stored(s, p, ib);
+  const V3 c = fetch_stored(s, p, ic);
+  const int op = nd[0] & kOpMask;
+  switch (op) {
     case OP_SPHERE: {
       const V3 gq = length_adj(gs, sub(a, b));
       acc3(A, ia, gq);
@@ -508,10 +630,10 @@ __device__ void node_adjoint(const SceneRef& s, const V3* regs, V3 p, const int*
         const float gk = at(g, k);
         const float ak = at(a, k);
         const float bk = at(b, k);
-        if (nd[0] == OP_UNION) {
+        if (op == OP_UNION) {
           acc(A, ia, k, ext_adj(gk, ak, bk, false));
           acc(A, ib, k, ext_adj(gk, bk, ak, false));
-        } else if (nd[0] == OP_SUBTRACT) {
+        } else if (op == OP_SUBTRACT) {
           acc(A, ia, k, ext_adj(gk, ak, -bk, true));
           acc(A, ib, k, -ext_adj(gk, -bk, ak, true));
         } else {
@@ -564,7 +686,7 @@ __device__ void node_adjoint(const SceneRef& s, const V3* regs, V3 p, const int*
         const float gk = at(g, k);
         const float ak = at(a, k);
         const float bk = at(b, k);
-        switch (nd[0]) {
+        switch (op) {
           case OP_ADD:
             acc(A, ia, k, gk);
             acc(A, ib, k, gk);
@@ -602,7 +724,7 @@ __device__ void node_adjoint(const SceneRef& s, const V3* regs, V3 p, const int*
 // the kernels keep their own registers around it; only the exact-normal
 // instantiations contain it.
 __device__ __noinline__ V3 grad_map(const SceneRef& s, float max_dist, V3 p) {
-  const int n_obj = s.prog[0];
+  const int n_obj = s.prog()[0];
   if (n_obj == 0) return splat(0.0f);
   float dmin = eval_object(s, 0, p);
   int n_tie = 1;  // objects at the running minimum
@@ -614,20 +736,21 @@ __device__ __noinline__ V3 grad_map(const SceneRef& s, float max_dist, V3 p) {
   V3 dp = splat(0.0f);
   int rank = 0;  // tied objects at or after i
   for (int i = n_obj - 1; i >= 0; --i) {
-    V3 regs[kMaxRegs];
-    const float di = run_object(s, i, p, regs);
+    const float di = run_object<true>(s, i, p);
     float cot = 0.0f;
     if (di == dmin) {
       rank += 1;
       cot = ldexpf(1.0f, -(rank == n_tie ? n_tie - 1 : rank));
     }
-    const int* od = s.prog + kHeader + kObjWords * i;
-    Adj A;
-    A.live = 1ull << (3 * od[2]);
-    A.v[od[2]].x = cot;
-    A.dp = splat(0.0f);
+    const int* od = s.prog() + kHeader + kObjWords * i;
+    const int dist = od[2] & kRegMask;
+    Adj A = adj_file(s);
+    const int n_live = od[1] < s.prog()[3] ? od[1] : s.prog()[3];
+    for (int k = 0; k < n_live; ++k) A.live[k * kBlockThreads] = 0;
+    A.live[dist * kBlockThreads] = 1;
+    A.v[3 * dist * kBlockThreads] = cot;
     for (int k = od[1] - 1; k >= 0; --k) {
-      node_adjoint(s, regs, p, s.prog + od[0] + kNodeWords * k, A);
+      node_adjoint(s, p, s.prog() + od[0] + kNodeWords * k, A);
     }
     dp = add(dp, A.dp);
   }
@@ -670,6 +793,66 @@ struct ExactNormal : B {
   ExactNormal() = default;
   explicit ExactNormal(const B& b) : B(b) {}
 };
+
+// ---- the pixel queue of the persistent megakernels --------------------------
+//
+// The render megakernels launch only as many blocks as stay resident
+// (`persistent_grid`) and hand the patch's pixels out from a global counter
+// that the wrapper zeroes for every launch: a lane whose pixel's chain has
+// ended writes it and takes the next.  Queue slot q is lane q % 32 of tile
+// q / 32, a tile being 2 rows x 16 columns of the patch (the warp shape of
+// a 16 x 8 block), tiles row-major; the lanes of a warp that ask together
+// take consecutive slots, so they stay neighbours.
+constexpr int kTileW = 16;
+constexpr int kTileH = 2;
+
+__host__ __device__ __forceinline__ int queue_len(int pw, int ph) {
+  return ((pw + kTileW - 1) / kTileW) * ((ph + kTileH - 1) / kTileH) * 32;
+}
+
+// the pixel (lx, ly) of queue slot q; false where it falls outside the patch
+__device__ __forceinline__ bool queue_pixel(int pw, int ph, int q, int& lx, int& ly) {
+  const int tiles_x = (pw + kTileW - 1) / kTileW;
+  const int tile = q >> 5;
+  const int k = q & 31;
+  lx = (tile % tiles_x) * kTileW + (k & (kTileW - 1));
+  ly = (tile / tiles_x) * kTileH + (k >> 4);
+  return lx < pw && ly < ph;
+}
+
+// A queue slot for every lane of the warp that asks, by one atomicAdd per
+// warp (every lane of the warp calls this together).
+__device__ __forceinline__ int take_slot(int* queue, bool ask) {
+  const unsigned asks = __ballot_sync(0xffffffffu, ask);
+  const int lane = (threadIdx.y * blockDim.x + threadIdx.x) & 31;
+  int base = 0;
+  if (asks != 0u) {
+    const int leader = __ffs(asks) - 1;
+    if (lane == leader) base = atomicAdd(queue, __popc(asks));
+    base = __shfl_sync(0xffffffffu, base, leader);
+  }
+  return base + __popc(asks & ((1u << lane) - 1u));
+}
+
+#ifdef __CUDACC__
+// The grid of a persistent kernel: as many blocks of kBlockThreads as stay
+// resident on the card with `bytes` of dynamic shared memory each, and no
+// more than `n_slots` lanes need.  Returns the CUDA error.
+template <class K>
+inline cudaError_t persistent_grid(K kernel, size_t bytes, int device, int n_slots, int& grid) {
+  int per_sm = 0, n_sm = 0;
+  cudaError_t err =
+      cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, kBlockThreads, bytes);
+  if (err != cudaSuccess) return err;
+  err = cudaDeviceGetAttribute(&n_sm, cudaDevAttrMultiProcessorCount, device);
+  if (err != cudaSuccess) return err;
+  const int need = (n_slots + kBlockThreads - 1) / kBlockThreads;
+  const int resident = (per_sm > 0 ? per_sm : 1) * n_sm;
+  grid = need < resident ? need : resident;
+  if (grid < 1) grid = 1;
+  return cudaSuccess;
+}
+#endif
 
 // ---- sampling (core/sampling.py) -------------------------------------------
 

@@ -15,7 +15,7 @@
 // interpreter of paths_shade.cuh from its rng_base, next-event estimation
 // (one shadow march per light toward a jittered point, capped at the
 // light's distance, `light_ray`), the roulette, and on a miss the sky:
-// the constant, the SH sky (`sh_eval`, 48 coefficients in shared memory)
+// the constant, the SH sky (`sh_eval`, 48 coefficients of the staged tail)
 // or, for an env image, the miss event banked for the composite.  Under
 // dispersion a sample is three one-channel paths sharing its primary ray,
 // with shade streams s * 4 + ci + 1.  A path that has ended changes
@@ -52,10 +52,7 @@ struct Ctx {
   PathArgs a;
   SceneRef s;
   MarchParams mp;
-  const float* lights;  // [pos * 3L, power * L, radius * L]
-  const float* sh;      // the SH sky's coefficients (kSkySh)
-  int sky_kind;
-  float sky;
+  int sky_kind;  // the light table and the sky in the scene's tail
   uint32_t px, py;
 };
 
@@ -86,9 +83,9 @@ __device__ Path trace_path(const Ctx& c, V3 eye, V3 d0, uint32_t sid, V3 ch) {
         out.miss_dir = d;
         color = mul(color, splat(0.0f));
       } else if (c.sky_kind == kSkySh) {
-        color = mul(color, sh_eval(c.sh, d));
+        color = mul(color, sh_eval(sh_coeffs(c.s), d));
       } else {
-        color = mul(color, splat(c.sky));
+        color = mul(color, splat(sky_power(c.s)));
       }
       break;
     }
@@ -114,12 +111,13 @@ __device__ Path trace_path(const Ctx& c, V3 eye, V3 d0, uint32_t sid, V3 ch) {
       V3 total = splat(0.0f);
       for (int li = 0; li < a.n_lights; ++li) {
         V3 ldir;
-        const float dist_l = light_ray(c.lights, a.n_lights, li, nrng, in.hit, ldir);
+        const float dist_l = light_ray(light_table(c.s), a.n_lights, li, nrng, in.hit, ldir);
         int smid;
         bool shit;
         const float sd = march_ray(c.s, c.mp, o_sh, ldir, 1.0f, dist_l, true, smid, shit);
         const float cos_t = fmaxf(dot(ldir, in.normal), 0.0f);
-        const float fall = c.lights[3 * a.n_lights + li] / fmaxf(dist_l * dist_l, 1e-8f);
+        const float fall =
+            light_table(c.s)[3 * a.n_lights + li] / fmaxf(dist_l * dist_l, 1e-8f);
         const V3 contrib = scale(mul(throughput, so.color), cos_t * fall / kPi);
         total = add(total, sd >= dist_l ? contrib : splat(0.0f));
       }
@@ -159,28 +157,18 @@ struct MissBanks {
 
 template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) wavefront_paths_kernel(
-    PathArgs a, int sky_kind, const float* __restrict__ corners, const float* __restrict__ fdata,
-    const int* __restrict__ prog, float* __restrict__ out, MissBanks banks) {
-  // the sky, the light table and the SH coefficients, once per block
-  __shared__ float s_tail[1 + 5 * kMaxLights + kShFloats];
-  const float* ftail = fdata + prog[2];
-  const int n_tail = 1 + 5 * a.n_lights;
-  const int tid = threadIdx.y * blockDim.x + threadIdx.x;
-  const int n_threads = blockDim.x * blockDim.y;
-  for (int i = tid; i < n_tail; i += n_threads) s_tail[i] = ftail[i];
-  if (sky_kind == kSkySh) {
-    // the coefficients follow the scene's whole light table
-    const float* sh = ftail + 1 + 5 * prog[prog[1] + 1];
-    for (int i = tid; i < kShFloats; i += n_threads) s_tail[1 + 5 * kMaxLights + i] = sh[i];
-  }
-  __syncthreads();
+    PathArgs a, SceneDims dims, int sky_kind, const float* __restrict__ corners,
+    const float* __restrict__ fdata, const int* __restrict__ prog, float* __restrict__ out,
+    MissBanks banks) {
+  // the scene, the sky, the light table and the SH coefficients, once per
+  // block in shared memory
+  const SceneRef scene = stage_scene(prog, fdata, dims);
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   if (lx >= a.pw || ly >= a.ph) return;
   Ctx c;
   c.a = a;
-  c.s.prog = prog;
-  c.s.f = fdata;
+  c.s = scene;
   c.mp.max_steps = a.max_steps;
   c.mp.relax = a.relax;
   c.mp.max_dist = a.max_dist;
@@ -188,9 +176,6 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_paths_kernel(
   c.mp.step_multiply = a.step_multiply;
   c.mp.relax_omega = a.relax_omega;
   c.sky_kind = sky_kind;
-  c.sky = s_tail[0];
-  c.lights = s_tail + 1;
-  c.sh = s_tail + 1 + 5 * kMaxLights;
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   const Camera cam = load_camera(corners);
@@ -241,14 +226,16 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_paths_kernel(
 // for a constant or SH sky; for an env image (`sky_kind` kSkyDefer) the
 // raw sum over path slots 0 .. n_samples - 1 from path `sample0`, with
 // `thr_r` .. `dir_z` each (K >= n_samples, ph, pw) float32, zero-filled by
-// the caller.  Returns the first CUDA error (0 on success), and
-// cudaErrorInvalidValue for more lights than the shared table holds or a
-// deferred sky without banks.
-extern "C" int rmr_wavefront_paths(const PathArgs* args, int sky_kind, const float* corners,
-                                   const float* fdata, const int* prog, float* out, float* thr_r,
-                                   float* thr_g, float* thr_b, float* dir_x, float* dir_y,
-                                   float* dir_z, cudaStream_t stream, int device) {
-  if (args->n_lights < 0 || args->n_lights > kMaxLights) return (int)cudaErrorInvalidValue;
+// the caller.  `dims` (a host pointer) holds the sizes of the scene's
+// buffers (scene_map.cuh SceneDims).  Returns the first CUDA error (0 on
+// success), and cudaErrorInvalidValue for a scene whose tables exceed the
+// block's shared memory or a deferred sky without banks.
+extern "C" int rmr_wavefront_paths(const PathArgs* args, const SceneDims* dims, int sky_kind,
+                                   const float* corners, const float* fdata, const int* prog,
+                                   float* out, float* thr_r, float* thr_g, float* thr_b,
+                                   float* dir_x, float* dir_y, float* dir_z, cudaStream_t stream,
+                                   int device) {
+  if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   MissBanks banks;
   float* planes[6] = {thr_r, thr_g, thr_b, dir_x, dir_y, dir_z};
   for (int i = 0; i < 6; ++i) {
@@ -260,12 +247,11 @@ extern "C" int rmr_wavefront_paths(const PathArgs* args, int sky_kind, const flo
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  if (args->normal_taps == 0) {
-    wavefront_paths_kernel<true><<<grid, block, 0, stream>>>(*args, sky_kind, corners, fdata, prog,
-                                                             out, banks);
-  } else {
-    wavefront_paths_kernel<false><<<grid, block, 0, stream>>>(*args, sky_kind, corners, fdata,
-                                                              prog, out, banks);
-  }
+  const bool exact = args->normal_taps == 0;
+  const size_t bytes = scene_smem_bytes(*dims, exact);
+  auto kernel = exact ? wavefront_paths_kernel<true> : wavefront_paths_kernel<false>;
+  err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, bytes, stream>>>(*args, *dims, sky_kind, corners, fdata, prog, out, banks);
   return (int)cudaGetLastError();
 }

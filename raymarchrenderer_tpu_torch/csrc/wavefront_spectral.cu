@@ -36,14 +36,13 @@ namespace {
 // kExact: the exact normal (normal_taps = 0)
 template <bool kExact>
 __global__ void __launch_bounds__(kBlockThreads) wavefront_spectral_kernel(
-    SpecArgs a, const float* __restrict__ corners, const float* __restrict__ fdata,
-    const int* __restrict__ prog, float* __restrict__ out) {
+    SpecArgs a, SceneDims dims, const float* __restrict__ corners,
+    const float* __restrict__ fdata, const int* __restrict__ prog, float* __restrict__ out) {
+  // the scene and its band table, once per block in shared memory
+  const SceneRef s = stage_scene(prog, fdata, dims);
   const int lx = blockIdx.x * blockDim.x + threadIdx.x;
   const int ly = blockIdx.y * blockDim.y + threadIdx.y;
   if (lx >= a.pw || ly >= a.ph) return;
-  SceneRef s;
-  s.prog = prog;
-  s.f = fdata;
   MarchParams mp;
   mp.max_steps = a.max_steps;
   mp.relax = a.relax;
@@ -53,9 +52,9 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_spectral_kernel(
   mp.relax_omega = a.relax_omega;
   // the band table tail: ints [n_mats, kind * n_mats], floats
   // [min_wave * n_mats, max_wave * n_mats, power * n_mats]
-  const int* tail = prog + prog[1];
+  const int* tail = s.prog() + s.prog()[1];
   const int n_mats = tail[0];
-  const float* band = fdata + prog[2];
+  const float* band = s.f() + s.prog()[2];
   const uint32_t px = (uint32_t)(a.ox + lx);
   const uint32_t py = (uint32_t)(a.oy + ly);
   const Camera cam = load_camera(corners);
@@ -99,19 +98,21 @@ __global__ void __launch_bounds__(kBlockThreads) wavefront_spectral_kernel(
 // Plain C entry point for ctypes.  `args` is a host pointer; the buffers
 // are device pointers on CUDA device `device`; `out` is (ph, pw, 3)
 // float32, the mean (times inv_n) over `n_samples` samples from
-// `sample0`.  Reads no schedule knob.  Returns the first CUDA error (0 on
-// success).
-extern "C" int rmr_wavefront_spectral(const SpecArgs* args, const float* corners,
-                                      const float* fdata, const int* prog, float* out,
-                                      cudaStream_t stream, int device) {
+// `sample0`.  Reads no schedule knob.  `dims` (a host pointer) holds the
+// sizes of the scene's buffers (scene_map.cuh SceneDims).  Returns the
+// first CUDA error (0 on success).
+extern "C" int rmr_wavefront_spectral(const SpecArgs* args, const SceneDims* dims,
+                                      const float* corners, const float* fdata, const int* prog,
+                                      float* out, cudaStream_t stream, int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const dim3 block(16, kBlockThreads / 16);
   const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  if (args->normal_taps == 0) {
-    wavefront_spectral_kernel<true><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
-  } else {
-    wavefront_spectral_kernel<false><<<grid, block, 0, stream>>>(*args, corners, fdata, prog, out);
-  }
+  const bool exact = args->normal_taps == 0;
+  const size_t bytes = scene_smem_bytes(*dims, exact);
+  auto kernel = exact ? wavefront_spectral_kernel<true> : wavefront_spectral_kernel<false>;
+  err = allow_smem(kernel, bytes);
+  if (err != cudaSuccess) return (int)err;
+  kernel<<<grid, block, bytes, stream>>>(*args, *dims, corners, fdata, prog, out);
   return (int)cudaGetLastError();
 }

@@ -49,9 +49,9 @@ import torch
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3
 from raymarchrenderer_tpu_torch.diff.march import _leaves
 from raymarchrenderer_tpu_torch.kernels.build import CudaKernel
+from raymarchrenderer_tpu_torch.kernels import scene_program
 from raymarchrenderer_tpu_torch.kernels.scene_program import (
-    MAX_LIGHTS, SKY_DEFER, object_buffers, paths_buffers, sky_kind,
-    spectral_buffers)
+    SKY_DEFER, object_buffers, paths_buffers, sky_kind, spectral_buffers)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (march, spp_rays,
                                                           trace_rgb)
@@ -104,53 +104,92 @@ class MarchArgs(ctypes.Structure):
                                       "relax_omega")]
 
 
+class SceneDims(ctypes.Structure):
+    """Mirror of `struct SceneDims` in csrc/scene_map.cuh."""
+    _fields_ = [(n, ctypes.c_int) for n in ("n_words", "n_floats",
+                                            "n_stored", "n_regs")]
+
+
+# the shared memory a block may opt in to on an H100 (227 KiB), where the
+# device properties do not say
+_SMEM_OPTIN = 232448
+
+
+def scene_dims(scene: Scene, prog, data, exact: bool) -> SceneDims:
+    """The `SceneDims` of a launch on `prog`'s CUDA device.  Raises, with
+    the size, when the block's shared memory cannot hold the scene's
+    program, data and every thread's register slots."""
+    dims = scene_program.scene_dims(scene, prog, data)
+    need = scene_program.shared_bytes(dims, exact)
+    limit = getattr(torch.cuda.get_device_properties(prog.device),
+                    "shared_memory_per_block_optin", _SMEM_OPTIN)
+    if need > limit:
+        raise ValueError(
+            f"the scene needs {need} bytes of shared memory per block "
+            f"({dims[0]} program words, {dims[1]} data floats, and "
+            f"{scene_program.BLOCK_THREADS} threads' register slots: "
+            f"{dims[3] if exact else dims[2]} "
+            f"{'registers' if exact else 'stored values'} each), more than "
+            f"the {limit} bytes a block of this card can have")
+    return SceneDims(*dims)
+
+
 _P = ctypes.c_void_p
+_D = ctypes.POINTER(SceneDims)
+# Every entry takes the launch scalars, then the scene's `SceneDims`, ...,
+# and ends with the stream and the device index; the persistent RGB
+# megakernel's entries take their pixel queue's counter (`_queue`) before
+# the stream.
+# args, dims, corners, data, program, the output
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
-    [ctypes.POINTER(SpecArgs), _P, _P, _P, _P, _P, ctypes.c_int])
-# args, corners, data, program, the output, the sky kind
-# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy)
+    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, ctypes.c_int])
+# args, dims, corners, data, program, the output, the sky kind
+# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy), the queue
 MEGA_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_mega_paths",
-    [ctypes.POINTER(PathArgs), _P, _P, _P, _P, ctypes.c_int, _P,
+    [ctypes.POINTER(PathArgs), _D, _P, _P, _P, _P, ctypes.c_int, _P, _P,
      ctypes.c_int])
-# the deferred-sky entry of mega_paths.cu: args, corners, data, program,
-# the raw-sum output, then the thr_r, thr_g, thr_b and packed-uv banks
+# the deferred-sky entry of mega_paths.cu: args, dims, corners, data,
+# program, the raw-sum output, then the thr_r, thr_g, thr_b and packed-uv
+# banks, the queue
 MEGA_PATHS_DEFER = CudaKernel(
     "mega_paths.cu", "rmr_mega_paths_defer",
-    [ctypes.POINTER(PathArgs)] + [_P] * 8 + [_P, ctypes.c_int])
-# the RGB wavefront kernel: args, the sky kind, corners, data, program,
-# the output, then the thr_r, thr_g, thr_b, dir_x, dir_y, dir_z banks
-# (null without an env image)
+    [ctypes.POINTER(PathArgs), _D] + [_P] * 9 + [_P, ctypes.c_int])
+# the RGB wavefront kernel: args, dims, the sky kind, corners, data,
+# program, the output, then the thr_r, thr_g, thr_b, dir_x, dir_y, dir_z
+# banks (null without an env image)
 WAVEFRONT_PATHS = CudaKernel(
     "wavefront_paths.cu", "rmr_wavefront_paths",
-    [ctypes.POINTER(PathArgs), ctypes.c_int] + [_P] * 10 + [_P,
-                                                            ctypes.c_int])
-# the spectral wavefront kernel: args, corners, data, program, the output
+    [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 10 + [
+        _P, ctypes.c_int])
+# the spectral wavefront kernel: args, dims, corners, data, program, the
+# output
 WAVEFRONT_SPECTRAL = CudaKernel(
     "wavefront_spectral.cu", "rmr_wavefront_spectral",
-    [ctypes.POINTER(SpecArgs), _P, _P, _P, _P, _P, ctypes.c_int])
+    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, ctypes.c_int])
 # the recording entry of the same source (one library with MEGA_PATHS):
-# args, corners, data, program, then the t, mid, hit and sd banks
+# args, dims, corners, data, program, then the t, mid, hit and sd banks,
+# the queue
 RECORD_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_record_paths",
-    [ctypes.POINTER(PathArgs), _P, _P, _P, _P, _P, _P, _P, _P,
-     ctypes.c_int])
-# the recording entry of mega_spectral.cu: args, corners, data, program,
-# then the t, mid and hit banks
+    [ctypes.POINTER(PathArgs), _D] + [_P] * 8 + [_P, ctypes.c_int])
+# the recording entry of mega_spectral.cu: args, dims, corners, data,
+# program, then the t, mid and hit banks
 RECORD_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_record_spectral",
-    [ctypes.POINTER(SpecArgs), _P, _P, _P, _P, _P, _P, _P, ctypes.c_int])
-# the wavefront recording entry of mega_paths.cu: args, the ray count,
-# data, program, the nine ray planes, the t, mid, hit and sd banks
+    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, _P, _P,
+     ctypes.c_int])
+# the wavefront recording entry of mega_paths.cu: args, dims, the ray
+# count, data, program, the nine ray planes, the t, mid, hit and sd banks
 RECORD_WAVEFRONT = CudaKernel(
     "mega_paths.cu", "rmr_record_wavefront",
-    [ctypes.POINTER(PathArgs), ctypes.c_int] + [_P] * 15 + [_P,
-                                                            ctypes.c_int])
-# args, program, data, the nine input planes, the three outputs
+    [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 15 + [
+        _P, ctypes.c_int])
+# args, dims, program, data, the nine input planes, the three outputs
 MARCH_FUSED = CudaKernel(
     "march_fused.cu", "rmr_march_fused",
-    [ctypes.POINTER(MarchArgs)] + [_P] * 14 + [_P, ctypes.c_int])
+    [ctypes.POINTER(MarchArgs), _D] + [_P] * 14 + [_P, ctypes.c_int])
 
 
 def _inv(n_samples: int, normalize: bool) -> float:
@@ -200,14 +239,21 @@ def stream_args(device):
     return torch.cuda.current_stream(index).cuda_stream, index
 
 
-def _launch(kernel, args, corners, prog, data, ph, pw):
+def _queue(device):
+    """The pixel queue's counter of one persistent launch: a zeroed int32
+    on the device, new for every launch."""
+    return torch.zeros(1, dtype=torch.int32, device=device)
+
+
+def _launch(kernel, args, dims, corners, prog, data, ph, pw):
     """Launch `kernel` on PyTorch's current stream of the corners' device;
     returns the (ph, pw, 3) float32 output."""
     device = corners.device
     corners = corners.contiguous()
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    kernel.launch(ctypes.byref(args), corners.data_ptr(), data.data_ptr(),
-                  prog.data_ptr(), out.data_ptr(), *stream_args(device))
+    kernel.launch(ctypes.byref(args), ctypes.byref(dims), corners.data_ptr(),
+                  data.data_ptr(), prog.data_ptr(), out.data_ptr(),
+                  *stream_args(device))
     return out
 
 
@@ -219,7 +265,8 @@ def _launch_mega_spectral(scene, params, mats, cfg, corners, sample0,
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, march_unroll,
         regen_cadence, lazy_miss))
-    return _launch(MEGA_SPECTRAL, args, corners, prog, data, ph, pw)
+    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    return _launch(MEGA_SPECTRAL, args, dims, corners, prog, data, ph, pw)
 
 
 def _launch_wavefront_spectral(scene, params, mats, cfg, corners, sample0,
@@ -228,7 +275,9 @@ def _launch_wavefront_spectral(scene, params, mats, cfg, corners, sample0,
     prog, data = spectral_buffers(scene, params, mats, corners.device)
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, 1, 0, False))
-    return _launch(WAVEFRONT_SPECTRAL, args, corners, prog, data, ph, pw)
+    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    return _launch(WAVEFRONT_SPECTRAL, args, dims, corners, prog, data, ph,
+                   pw)
 
 
 def wavefront_spectral_plain(scene: Scene, params, mats, cfg: RenderConfig,
@@ -305,13 +354,10 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
 def paths_launch(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
                  n_samples, direct_light, march_unroll, normalize,
                  lazy_miss, regen_cadence):
-    """The checks and the (PathArgs, program, data) of a launch of
-    `csrc/mega_paths.cu`, rendering or recording."""
+    """The checks and the (PathArgs, SceneDims, program, data) of a launch
+    of `csrc/mega_paths.cu` or `csrc/wavefront_paths.cu`, rendering or
+    recording."""
     nee = bool(direct_light) and scene.n_lights > 0
-    if nee and scene.n_lights > MAX_LIGHTS:
-        raise ValueError(f"the RGB kernel takes at most {MAX_LIGHTS} lights "
-                         f"with direct_light, the scene has "
-                         f"{scene.n_lights}")
     _check_launch(corners, cfg, params["objects"], params["materials"],
                   params["lights"], params["env"])
     prog, data = paths_buffers(scene, params, corners.device)
@@ -322,20 +368,23 @@ def paths_launch(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
         inside_offset=cfg.inside_offset, rr_min_prob=cfg.rr_min_prob,
         **_common_fields(cfg, origin_xy, ph, pw, sample0, n_samples,
                          normalize, march_unroll, regen_cadence, lazy_miss))
-    return args, prog, data
+    return args, scene_dims(scene, prog, data, cfg.normal_taps == 0), prog, \
+        data
 
 
 def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
                        sample0, n_samples, direct_light, march_unroll,
                        normalize, lazy_miss, regen_cadence):
-    args, prog, data = paths_launch(
+    args, dims, prog, data = paths_launch(
         scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_samples,
         direct_light, march_unroll, normalize, lazy_miss, regen_cadence)
     device = corners.device
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    MEGA_PATHS.launch(ctypes.byref(args), corners.contiguous().data_ptr(),
-                      data.data_ptr(), prog.data_ptr(), out.data_ptr(),
-                      sky_kind(scene), *stream_args(device))
+    queue = _queue(device)
+    MEGA_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
+                      corners.contiguous().data_ptr(), data.data_ptr(),
+                      prog.data_ptr(), out.data_ptr(), sky_kind(scene),
+                      queue.data_ptr(), *stream_args(device))
     return out
 
 
@@ -352,7 +401,7 @@ def _launch_mega_defer(scene, params, cfg, corners, origin_xy, ph, pw,
     without the sky, and the (thr_r, thr_g, thr_b, uv) banks, each
     (n_paths, ph, pw), zero-filled first (thr = 0 marks a slot whose path
     ended on a hit)."""
-    args, prog, data = paths_launch(
+    args, dims, prog, data = paths_launch(
         scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_samples,
         direct_light, march_unroll, False, lazy_miss, regen_cadence)
     device = corners.device
@@ -360,11 +409,12 @@ def _launch_mega_defer(scene, params, cfg, corners, origin_xy, ph, pw,
     banks = _banks((torch.float32,) * 3 + (torch.int32,), n_paths, ph, pw,
                    device)
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    MEGA_PATHS_DEFER.launch(ctypes.byref(args),
+    queue = _queue(device)
+    MEGA_PATHS_DEFER.launch(ctypes.byref(args), ctypes.byref(dims),
                             corners.contiguous().data_ptr(), data.data_ptr(),
                             prog.data_ptr(), out.data_ptr(),
                             *(b.data_ptr() for b in banks),
-                            *stream_args(device))
+                            queue.data_ptr(), *stream_args(device))
     return out, banks
 
 
@@ -413,7 +463,7 @@ def _launch_wavefront_paths(scene, params, cfg, corners, origin_xy, ph, pw,
     traced from path `sample0`, and the return is (raw sum, the six
     (defer_k, ph, pw) banks thr_r, thr_g, thr_b, dir_x, dir_y, dir_z,
     zero-filled first)."""
-    args, prog, data = paths_launch(
+    args, dims, prog, data = paths_launch(
         scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_slots,
         direct_light, 1, normalize and not defer_k, False, 0)
     device = corners.device
@@ -421,7 +471,8 @@ def _launch_wavefront_paths(scene, params, cfg, corners, origin_xy, ph, pw,
         if defer_k else []
     ptrs = [b.data_ptr() for b in banks] or [None] * 6
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    WAVEFRONT_PATHS.launch(ctypes.byref(args), sky_kind(scene),
+    WAVEFRONT_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
+                           sky_kind(scene),
                            corners.contiguous().data_ptr(), data.data_ptr(),
                            prog.data_ptr(), out.data_ptr(), *ptrs,
                            *stream_args(device))
@@ -694,7 +745,9 @@ def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
                      relax=int(cfg.relax_omega > 1.0), max_dist=cfg.max_dist,
                      hit_eps=cfg.hit_eps, step_multiply=cfg.step_multiply,
                      relax_omega=cfg.relax_omega)
-    MARCH_FUSED.launch(ctypes.byref(args), prog.data_ptr(), data.data_ptr(),
+    dims = scene_dims(scene, prog, data, False)
+    MARCH_FUSED.launch(ctypes.byref(args), ctypes.byref(dims),
+                       prog.data_ptr(), data.data_ptr(),
                        *(p.data_ptr() for p in planes), t.data_ptr(),
                        mid.data_ptr(), hit.data_ptr(), *stream_args(device))
     return t, mid, hit > 0

@@ -44,9 +44,9 @@ from raymarchrenderer_tpu_torch.core.sampling import uniform_sphere
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
 from raymarchrenderer_tpu_torch.kernels.march import (
     DEFAULT_LAZY_MISS, DEFAULT_MARCH_UNROLL, DEFAULT_REGEN_CADENCE,
-    MAX_LIGHTS, RECORD_PATHS, RECORD_SPECTRAL, RECORD_WAVEFRONT, PathArgs,
-    SpecArgs, _check_launch, _common_fields, _leaves, paths_launch,
-    stream_args)
+    RECORD_PATHS, RECORD_SPECTRAL, RECORD_WAVEFRONT, PathArgs, SpecArgs,
+    _check_launch, _common_fields, _leaves, _queue, paths_launch,
+    scene_dims, stream_args)
 from raymarchrenderer_tpu_torch.kernels.scene_program import (
     paths_buffers, spectral_buffers)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
@@ -75,7 +75,7 @@ def record_knobs(device, nee: bool):
 def _launch_record(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
                    n_samples, direct_light, knobs):
     march_unroll, regen_cadence, lazy_miss = knobs
-    args, prog, data = paths_launch(
+    args, dims, prog, data = paths_launch(
         scene, params, cfg, corners, origin_xy, ph, pw, sample0, n_samples,
         direct_light, march_unroll, False, lazy_miss, regen_cadence)
     device = corners.device
@@ -83,10 +83,12 @@ def _launch_record(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
     t, mid, hit = _miss_banks(cfg, (bp, ph, pw), device)
     sd = torch.full((bp * args.n_lights, ph, pw), SD_LIT,
                     dtype=torch.float32, device=device)
-    RECORD_PATHS.launch(ctypes.byref(args), corners.contiguous().data_ptr(),
+    queue = _queue(device)
+    RECORD_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
+                        corners.contiguous().data_ptr(),
                         data.data_ptr(), prog.data_ptr(), t.data_ptr(),
                         mid.data_ptr(), hit.data_ptr(), sd.data_ptr(),
-                        *stream_args(device))
+                        queue.data_ptr(), *stream_args(device))
     return (t, mid, hit, sd) if args.n_lights else (t, mid, hit)
 
 
@@ -217,7 +219,8 @@ def _launch_record_spectral(scene, params, mats, cfg, corners, origin_xy,
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, S, False, unroll, cadence, lazy))
     banks = _miss_banks(cfg, (cfg.max_bounces * S, ph, pw), corners.device)
-    RECORD_SPECTRAL.launch(ctypes.byref(args),
+    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    RECORD_SPECTRAL.launch(ctypes.byref(args), ctypes.byref(dims),
                            corners.contiguous().data_ptr(), data.data_ptr(),
                            prog.data_ptr(), *(b.data_ptr() for b in banks),
                            *stream_args(corners.device))
@@ -291,10 +294,6 @@ def _launch_record_wavefront(scene, params, cfg, eye, d0, px, py, sample,
                              direct_light):
     device = d0.x.device
     nee = bool(direct_light) and scene.n_lights > 0
-    if nee and scene.n_lights > MAX_LIGHTS:
-        raise ValueError(f"the RGB kernel takes at most {MAX_LIGHTS} lights "
-                         f"with direct_light, the scene has "
-                         f"{scene.n_lights}")
     for leaf in _leaves(params):
         if leaf.device != device:
             raise ValueError("scene tensors and rays are on different "
@@ -317,7 +316,9 @@ def _launch_record_wavefront(scene, params, cfg, eye, d0, px, py, sample,
         rr_start_bounce=cfg.rr_start_bounce, exit_offset=cfg.exit_offset,
         inside_offset=cfg.inside_offset, rr_min_prob=cfg.rr_min_prob,
         **_common_fields(cfg, (0, 0), 1, n, 0, 1, False, 1, 0, False))
-    RECORD_WAVEFRONT.launch(ctypes.byref(args), n, data.data_ptr(),
+    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    RECORD_WAVEFRONT.launch(ctypes.byref(args), ctypes.byref(dims), n,
+                            data.data_ptr(),
                             prog.data_ptr(), *(p.data_ptr() for p in planes),
                             *(b.data_ptr() for b in banks),
                             *stream_args(device))

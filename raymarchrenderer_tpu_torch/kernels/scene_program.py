@@ -1,17 +1,30 @@
-"""Compile a `Scene` into the flat buffers the CUDA megakernels interpret.
+"""Compile a `Scene` into the flat buffers the CUDA kernels interpret.
 
-Both kernels share the object program (`csrc/scene_map.cuh`), and each
+Every kernel shares the object program (`csrc/scene_map.cuh`), and each
 appends its own tail:
 
-    int32:   [n_objects, tail_int_offset, tail_float_offset, 0]   header
-             [first_word, n_nodes, distance_reg, mat_index] * n_objects
-             [opcode, out_reg, in0, in1, in2, in3] * object nodes
+    int32:   [n_objects, tail_int_offset, tail_float_offset, n_regs]  header
+             [first_word, n_nodes, distance_word, mat_index] * n_objects
+             [opcode | marks, out_reg, in0, in1, in2, in3] * object nodes
              tail ints
     float32: object parameters (a vec3 each), then tail floats
 
 An object input word is a register (>= 0), the sample point (-1), or a
 parameter vec3 at float offset `-word - 2` (a scalar parameter is stored
-splatted, which is what `_param_to_vec3` does).
+splatted, which is what `_param_to_vec3` does).  Every node that writes
+gets a register of its own, so `n_regs` (the most nodes one object writes)
+registers hold every node's value, which the exact normal's reverse sweep
+reads.  The forwarding marks let the interpreter keep a value in registers
+instead: above the opcode, bit `FWD_IN << k` says that input k reads the
+node just before (its register word stays, for the reverse sweep), bit
+`FWD_OUT` that nothing but the next node or the object's distance reads
+the node's value (it is never stored), and `FWD_DIST` in an object's
+distance word (above the register) that the distance is the last node's
+value.  The stored values need `stored_slots` register slots per thread
+(1 + the largest register a stored value takes, 0 when every value is
+forwarded).  The kernels stage both buffers in shared memory with every
+thread's register slots after them (`shared_bytes`), so neither the node
+count nor the light count has a cap of its own.
 
 `csrc/march_fused.cu` reads the object program alone (no tail), as the
 JAX package's `march_fused` ships only `params["objects"]`.
@@ -55,7 +68,8 @@ OPCODES = {
     "math_add": (14, 2), "math_subtract": (15, 2), "math_multiply": (16, 2),
     "math_divide": (17, 2), "math_sine": (18, 1), "math_cosine": (19, 1),
 }
-MAX_REGS = 16          # kMaxRegs in csrc/scene_map.cuh
+# the forwarding marks (kFwdIn, kFwdOut, kFwdDist in csrc/scene_map.cuh)
+FWD_IN, FWD_OUT, FWD_DIST = 1 << 8, 1 << 12, 1 << 16
 # FP32 operations of each object node as csrc/scene_map.cuh evaluates it,
 # counting an add, multiply, divide, min, max, abs, fmod, sqrt, sin or cos
 # as one (for the kernels' operation bound, `map_flops`)
@@ -92,8 +106,8 @@ MAT_OPCODES = {
 # (color, dir, inside, hit)
 NEW_FMT_OPCODES = {"shader_diffuse": (15, 1, 2), "shader_glossy": (16, 2, 2),
                    "shader_mix": (17, 3, 1)}
-MAX_MAT_REGS = 32      # kMaxMatRegs in csrc/mega_paths.cu
-MAX_LIGHTS = 8         # kMaxLights in csrc/mega_paths.cu
+MAX_MAT_REGS = 32      # kMaxMatRegs in csrc/paths_shade.cuh
+BLOCK_THREADS = 128    # kBlockThreads in csrc/scene_map.cuh
 _MAT_WORDS, _INSTR_WORDS, _ZERO = 7, 12, -1
 
 
@@ -104,9 +118,11 @@ def compile_program(scene: Scene):
     words = [n_obj, 0, 0, 0]
     obj_words, node_words, param_slots = [], [], []
     first = _HEADER + _OBJ_WORDS * n_obj
+    n_regs = 0
     for oi, obj in enumerate(scene.objects):
         regs, n_written = {}, 0
         start = first + len(node_words)
+        ins_of, outs = [], []
         for node in obj.nodes:
             if node.name not in OPCODES:
                 raise KeyError(f"unknown object node {node.name!r}")
@@ -136,17 +152,79 @@ def compile_program(scene: Scene):
                 out = n_written
                 n_written += 1
                 regs[node.outputs[0]] = out
-                if out >= MAX_REGS:
-                    raise ValueError(f"object {oi} needs more than "
-                                     f"{MAX_REGS} registers")
-            node_words += [op, out] + ins + [-1] * (4 - len(ins))
+            ins_of.append(ins)
+            outs.append((op, out))
         if obj.distance not in regs:
             raise KeyError(f"object {oi}: distance register "
                            f"{obj.distance!r} is never written")
-        obj_words += [start, len(obj.nodes), regs[obj.distance],
+        dist = regs[obj.distance]
+        marks = _forwarding(ins_of, [o for _, o in outs], dist)
+        for (op, out), ins, m in zip(outs, ins_of, marks[0]):
+            node_words += [op | m, out] + ins + [-1] * (4 - len(ins))
+        obj_words += [start, len(obj.nodes), dist | marks[1],
                       scene.mat_index(obj.mat_id)]
+        n_regs = max(n_regs, n_written)
+    words[3] = n_regs
     words += obj_words + node_words
     return words, param_slots
+
+
+def _forwarding(ins_of, outs, dist):
+    """The forwarding marks of one object: (each node's marks, the
+    distance word's mark).  Input k of node i is forwarded when it reads
+    node i - 1's register; node i's value is not stored when only node
+    i + 1 reads it and it is the distance only as the last node."""
+    n = len(outs)
+    marks = []
+    for i in range(n):
+        m = 0
+        prev = outs[i - 1] if i else -1
+        for k, code in enumerate(ins_of[i]):
+            if prev >= 0 and code == prev:
+                m |= FWD_IN << k
+        out = outs[i]
+        if out >= 0:
+            later = any(out in ins for ins in ins_of[i + 2:])
+            if not later and (out != dist or i == n - 1):
+                m |= FWD_OUT
+        marks.append(m)
+    last = outs[-1] if outs else -1
+    return marks, (FWD_DIST if n and dist == last else 0)
+
+
+def stored_slots(words) -> int:
+    """Register slots the stencil interpreter stores into for the program
+    `words` (1 + the largest register of a value that is not forwarded;
+    0 when every value is)."""
+    n_obj = words[0]
+    slots = 0
+    for i in range(n_obj):
+        first, n_nodes = words[_HEADER + _OBJ_WORDS * i:
+                               _HEADER + _OBJ_WORDS * i + 2]
+        for k in range(n_nodes):
+            w, out = words[first + _NODE_WORDS * k:
+                           first + _NODE_WORDS * k + 2]
+            if out >= 0 and not w & FWD_OUT:
+                slots = max(slots, out + 1)
+    return slots
+
+
+def scene_dims(scene: Scene, prog: torch.Tensor, data: torch.Tensor):
+    """(n_words, n_floats, stored slots, n_regs) of a scene's buffers: the
+    kernels' `SceneDims`."""
+    words = compile_program(scene)[0]
+    return (int(prog.numel()), int(data.numel()), stored_slots(words),
+            words[3])
+
+
+def shared_bytes(dims, exact: bool) -> int:
+    """Dynamic shared memory of one block (csrc/scene_map.cuh
+    `scene_smem_bytes`): the program words and data floats, then every
+    thread's register slots: 3 floats per stored slot, or, with the exact
+    normal, 3 value, 3 adjoint and 1 live word per register."""
+    n_words, n_floats, stored, n_regs = dims
+    per_thread = 7 * n_regs if exact else 3 * stored
+    return 4 * (n_words + n_floats + BLOCK_THREADS * per_thread)
 
 
 def map_flops(scene: Scene) -> int:
@@ -335,8 +413,7 @@ def paths_buffers(scene: Scene, params, device):
     """(int32 program, float32 data) of `csrc/mega_paths.cu` and
     `csrc/wavefront_paths.cu`: the material program, the light table, the
     sky power and, for an SH sky, its coefficients as the tail (the
-    kernels read the lights only with NEE, at most `MAX_LIGHTS` of
-    them)."""
+    kernels read the lights only with NEE)."""
     program = compile_program(scene)
     n_lights = scene.n_lights
     lights = params["lights"]

@@ -89,6 +89,14 @@ def _count(work, key: str, mask) -> None:
         work[key] = work.get(key, 0) + mask.sum()
 
 
+def _count_bodies(work, state) -> None:
+    """Add one to work["lane_bodies"] (an int32 plane of the lanes' shape)
+    at every lane that runs this body, i.e. has not reached EXH."""
+    if work is not None:
+        live = (state < _EXH).to(torch.int32)
+        work["lane_bodies"] = work.get("lane_bodies", 0) + live
+
+
 def check_knobs(march_unroll: int, regen_cadence: int) -> None:
     if march_unroll < 1:
         raise ValueError("march_unroll must be >= 1")
@@ -120,7 +128,8 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     evaluations a one-lane-per-thread kernel makes on these inputs:
     "march" (one per marching lane and step) and "shade" (hits shaded,
     one material lookup plus `normal_taps` evaluations each, 2 for the
-    exact gradient of `normal_taps=0`).
+    exact gradient of `normal_taps=0`), and "lane_bodies", an int32 plane
+    of `px`'s shape: the bodies each lane runs before EXH.
 
     `record_banks`: returns (sum, banks), the plain version of the
     spectral recorder: t float32, mid int32 and hit int32, each
@@ -273,6 +282,7 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
         regen(st)
 
     def body(st):
+        _count_bodies(work, st.state)
         if regen_cadence and regen_cadence < march_unroll:
             n_sub = march_unroll // regen_cadence
             for c in range(n_sub):
@@ -692,6 +702,7 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         regen(st)
 
     def body(st):
+        _count_bodies(work, st.state)
         if regen_cadence and regen_cadence < march_unroll:
             n_sub = march_unroll // regen_cadence
             for c in range(n_sub):

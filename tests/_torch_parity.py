@@ -13,6 +13,7 @@ import json
 import numpy as np
 import pytest
 import torch
+from _torch_scenes import BIG_OBJECT_SCENE, many_lights_scene  # noqa: F401
 
 torch.set_num_threads(1)
 
@@ -284,3 +285,4 @@ ALL_MATERIALS_SCENE = json.dumps({
     "lights": [{"pos": [3, 7, -3], "power": 60.0, "radius": 0.8}],
     "environment": {"power": 0.05},
 })
+

@@ -33,9 +33,9 @@ import pytest
 import torch
 
 from _torch_parity import (ALL_MATERIALS_SCENE, ALL_NODES_SCENE,  # noqa: F401
-                           LATER_FRAC_OFF, MAX_FRAC_OFF,
+                           BIG_OBJECT_SCENE, LATER_FRAC_OFF, MAX_FRAC_OFF,
                            assert_nee_close, bank_parity, cuda_device,
-                           frac_off)
+                           frac_off, many_lights_scene)
 
 from raymarchrenderer_tpu_torch.core.camera import Camera
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3
@@ -178,22 +178,172 @@ def test_paths_kernel_rejects_mixed_devices(cuda_device):
 
 @pytest.mark.requires_cuda
 def test_paths_kernel_rejects_too_many_lights(cuda_device):
-    """The kernel's light table holds kMaxLights lights; the wrapper
-    raises above it when NEE would read them, and renders without NEE."""
-    b = builtin.SceneBuilder()
-    m = b.diffuse([0.5, 0.5, 0.5])
-    b.sphere(m, [0.0, 1.0, 0.0], 1.0)
-    for i in range(march.MAX_LIGHTS + 1):
-        b.light([i - 4.0, 6.0, -3.0], 10.0, 0.3)
-    scene = b.build()
+    """The kernels once held 8 lights in a fixed table and refused more
+    under NEE; the light table is now staged with the scene in shared
+    memory, so 12 lights with NEE render and meet the NEE bar against the
+    plain version, and the render without NEE still runs."""
+    scene = many_lights_scene(12)
     params = scene.init_params(cuda_device)
-    cfg = RenderConfig(width=16, height=16, max_steps=32, max_bounces=2)
-    corners = Camera().corner_rays_flat(cuda_device)
-    with pytest.raises(ValueError, match="at most"):
-        march.render_fused(scene, params, cfg, corners, 0, direct_light=True)
+    cfg = RenderConfig(width=64, height=48, max_steps=192, max_bounces=3,
+                       relax_omega=2.0)
+    corners = Camera(eye=(0.0, 3.0, -7.0)).corner_rays_flat(cuda_device)
+    got = march.render_fused_patch(scene, params, cfg, corners, (0, 0),
+                                   (48, 64), 0, n_samples=2,
+                                   direct_light=True, **_SCHED)
+    px, py = pixel_grid(64, 48, cuda_device, (0, 0))
+    plain = trace_mega_paths(scene, params, cfg, corners, px, py, 0,
+                             n_samples=2, direct_light=True,
+                             **_SCHED).stack(-1) * 0.5
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and float(got.mean()) > 0.0
+    assert_nee_close(plain.cpu().numpy(), got.cpu().numpy())
     img = march.render_fused(scene, params, cfg, corners, 0)
     torch.cuda.synchronize()
     assert bool(torch.isfinite(img).all())
+
+
+_SCHED = dict(lazy_miss=True, march_unroll=32, regen_cadence=16)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kind", ["rgb", "spectral", "defer", "record"])
+def test_persistent_queue_odd_frame_and_reset(cuda_device, kind):
+    """The megakernels on a 37 x 53 patch (1961 pixels, not a multiple of
+    32, nor of the RGB kernel's 2 x 16 queue tiles) at (11, 5) of a 96 x
+    64 frame equal the whole frame's launch on those pixels bit for bit
+    (a pixel's chain does not depend on the lane or the queue slot that
+    runs it), and two launches back to back are equal bit for bit: the
+    deferred sky and the recorder run a persistent grid on the pixel
+    queue, whose counter is new for every launch, so every pixel is
+    rendered again."""
+    scene = _env_scene("glass") if kind == "defer" else builtin.sphere_on_floor()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+                       relax_omega=2.0 if kind != "record" else 1.9)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    mats = band_table(scene, cuda_device)
+
+    def launch(origin, shape):
+        """The launch's outputs as a list of (..., h, w) tensors."""
+        if kind == "spectral":
+            out = march.render_fused_spectral(
+                scene, params, mats, cfg, corners, 0, n_samples=3,
+                origin_xy=origin, patch_shape=shape, **_SCHED)
+            return [out.movedim(-1, 0)]
+        if kind == "rgb":
+            out = march.render_fused_patch(scene, params, cfg, corners,
+                                           origin, shape, 0, n_samples=3,
+                                           **_SCHED)
+            return [out.movedim(-1, 0)]
+        if kind == "defer":
+            out, banks = march._launch_mega_defer(
+                scene, params, cfg, corners, origin, *shape, 0, 3, False,
+                **_SCHED)
+            return [out.movedim(-1, 0), *banks]
+        rec = trace_record_fused(scene, params, cfg, corners, origin, shape,
+                                 0, n_samples=1)
+        return [rec[k] for k in sorted(rec)]
+
+    first, second = launch((11, 5), (37, 53)), launch((11, 5), (37, 53))
+    frame = launch((0, 0), (64, 96))
+    torch.cuda.synchronize()
+    assert first[0].shape[-2:] == (37, 53)
+    assert float(first[0].abs().max()) > 0.0
+    for a, b, f in zip(first, second, frame):
+        assert torch.equal(a, b)
+        assert torch.equal(a, f[..., 5:42, 11:64])
+
+
+@pytest.mark.requires_cuda
+def test_scene_over_shared_memory_raises_with_its_size(cuda_device):
+    """A scene whose tables cannot fit a block's shared memory is refused
+    before the launch, and the message gives the size: an 80-node object
+    needs 7 words per register and thread for the exact normal's sweep
+    (80 * 7 * 4 * 128 bytes), more than an H100 block has; with 4 taps
+    its stored values fit."""
+    from _torch_scenes import _big_object
+    import json
+    obj = _big_object(40)
+    scene = loads_scene(json.dumps({
+        "materials": [{"id": 0, "nodes": [{"name": "shader_diffuse",
+                                           "inputs": [[0.5, 0.5, 0.5]],
+                                           "outputs": ["c", "d"]}],
+                       "color": "c", "dir": "d"}],
+        "objects": [obj]}))
+    params = scene.init_params(cuda_device)
+    corners = Camera().corner_rays_flat(cuda_device)
+    launches = march.MEGA_PATHS.launches
+    with pytest.raises(ValueError, match="bytes of shared memory"):
+        march.render_fused(scene, params, RenderConfig(
+            width=16, height=16, max_steps=32, max_bounces=2,
+            normal_taps=0), corners, 0)
+    assert march.MEGA_PATHS.launches == launches
+    img = march.render_fused(scene, params, RenderConfig(
+        width=16, height=16, max_steps=32, max_bounces=2), corners, 0)
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(img).all())
+
+
+def _big_object_case(name, cuda_device):
+    """(scene, params, direct_light) of the shared-memory sizing cases."""
+    if name == "big_object":
+        scene = loads_scene(BIG_OBJECT_SCENE)
+        return scene, scene.init_params(cuda_device), False
+    scene = many_lights_scene(12)
+    return scene, scene.init_params(cuda_device), True
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("taps", [4, 0], ids=["stencil", "exact_normal"])
+@pytest.mark.parametrize("name", ["big_object", "many_lights"])
+def test_scene_tables_sized_from_the_program(cuda_device, name, taps):
+    """A 40-node object (once over the 16-register cap) and 12 lights under
+    NEE (once over the 8-light cap) in the RGB megakernel, its recorder
+    and, for the object, the spectral megakernel and march_fused, each
+    against its plain version; the tables are sized from the scene's
+    program, above 48 KiB of shared memory for the 40-node object."""
+    scene, params, nee = _big_object_case(name, cuda_device)
+    cfg = RenderConfig(width=64, height=48, max_steps=192, max_bounces=3,
+                       relax_omega=2.0, normal_taps=taps)
+    corners = Camera(eye=(0.0, 3.0, -7.0)).corner_rays_flat(cuda_device)
+    px, py = pixel_grid(64, 48, cuda_device, (0, 0))
+    got = march.render_fused_patch(scene, params, cfg, corners, (0, 0),
+                                   (48, 64), 0, n_samples=2,
+                                   direct_light=nee, **_SCHED)
+    plain = trace_mega_paths(scene, params, cfg, corners, px, py, 0,
+                             n_samples=2, direct_light=nee,
+                             **_SCHED).stack(-1) * 0.5
+    torch.cuda.synchronize()
+    assert bool(torch.isfinite(got).all()) and float(got.mean()) > 0.0
+    if nee:
+        assert_nee_close(plain.cpu().numpy(), got.cpu().numpy())
+    else:
+        assert frac_off(plain.cpu().numpy(), got.cpu().numpy()) < MAX_FRAC_OFF
+    rcfg = RenderConfig(width=64, height=48, max_bounces=3, relax_omega=1.9,
+                        normal_taps=taps)
+    _assert_banks_match(
+        trace_record_fused(scene, params, rcfg, corners, (0, 0), (48, 64),
+                           0, n_samples=1, direct_light=nee),
+        record_plain(scene, params, rcfg, corners, (0, 0), (48, 64), 0,
+                     n_samples=1, direct_light=nee), bounce_axis=0)
+    if nee:
+        return
+    mats = band_table(scene, cuda_device)
+    got = march.render_fused_spectral(scene, params, mats, cfg, corners, 0,
+                                      n_samples=2, **_SCHED)
+    plain = trace_mega_spectral(scene, params, mats, cfg, corners, px, py, 0,
+                                n_samples=2, **_SCHED).stack(-1) * 0.5
+    assert frac_off(plain.cpu().numpy(), got.cpu().numpy()) < MAX_FRAC_OFF
+    o = Vec3(*(torch.full((48, 64), v, device=cuda_device)
+               for v in (0.0, 3.0, -7.0)))
+    d = Vec3(px.float() / 64.0 - 0.5, py.float() / -48.0, torch.ones_like(
+        px, dtype=torch.float32)).normalized()
+    act = torch.ones((48, 64), dtype=torch.bool, device=cuda_device)
+    t, mid, hit = march.march_fused(scene, params, cfg, o, d, 1.0, act)
+    pt, pmid, phit = integrator.march(scene, params, cfg, o, d, 1.0, act)
+    assert torch.equal(mid, pmid) and torch.equal(hit, phit)
+    assert float((t - pt).abs().max()) < 1e-5
 
 
 # (scene, direct_light, config extras, samples)
