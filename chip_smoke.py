@@ -84,9 +84,9 @@ Phases (any failure raises and the script exits non-zero):
          (chain, march and shade, counted by the plain versions), and the
          same modelled on the pixel queue;
        * every kernel at its main launch alone (`kernel_times`: mean of
-         3 beside `BEFORE_MS`; csg NEE, the SH sky and the exact normal's
-         launches with bounds scaled from an 8-sample run of their plain
-         versions).
+         3 beside the times recorded before the redesign, `BEFORE_MS`;
+         csg NEE, the SH sky and the exact normal's launches with bounds
+         scaled from an 8-sample run of their plain versions).
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -171,10 +171,10 @@ readings go to smoke_out/.
     python3 chip_smoke.py --sweep-min-blocks 4,6,8   # the launch bounds
 
 The line before the last is a JSON object with one entry per kernel of the
-paths (each shading kernel's with its time before the redesign,
-`before_ms`, and a `normal_taps_0` note: its exact-normal patch's max
-error, times and bound, and its launches on the exact-normal main path
-where one runs it); the last line is {"ok": true, "device": {...}}.
+paths (each shading kernel's with a `normal_taps_0` note: its
+exact-normal patch's max error, times and bound, and its launches on the
+exact-normal main path where one runs it); the last line is
+{"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -599,7 +599,7 @@ def parity_paths(dev, card):
         paths_buffers)
     kernel, plain, scene, cfg, params = _paths_fns(dev, "sphere_on_floor",
                                                    128)
-    prog, data = paths_buffers(scene, params, dev)
+    prog, data, _ = paths_buffers(scene, params, dev)
     in_bytes = 15 * 4 + _buffer_bytes(prog, data)
     max_err, ms, plain_ms, work = _main_launch(
         "RGB, sphere_on_floor 1024x1024, 128 spp (the main path's launch)",
@@ -626,7 +626,7 @@ def parity_spectral(dev, card):
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         spectral_buffers)
     kernel, plain, scene, cfg, (params, mats) = _spectral_fns(dev, 128)
-    prog, data = spectral_buffers(scene, params, mats, dev)
+    prog, data, _ = spectral_buffers(scene, params, mats, dev)
     in_bytes = 15 * 4 + _buffer_bytes(prog, data)
     max_err, ms, plain_ms, work = _main_launch(
         "spectral 1024x1024, 128 spp (the main path's launch)", kernel,
@@ -715,7 +715,7 @@ def parity_record(dev, card):
         paths_buffers)
     kernel, plain, scene, cfg, params = _record_fns(
         dev, "sphere_on_floor", 1024, TRAIN_SPP)
-    prog, data = paths_buffers(scene, params, dev)
+    prog, data, _ = paths_buffers(scene, params, dev)
     max_err, ms, plain_ms, work = _main_launch(
         f"recorder, sphere_on_floor 1024x1024, {TRAIN_SPP} samples, "
         f"{cfg.max_bounces} bounces (the train path's launch)", kernel,
@@ -803,7 +803,7 @@ def parity_march(dev, card):
     max_err, ms, plain_ms, work = _main_launch(
         f"march_fused, the train launch's primary plane "
         f"({TRAIN_SPP}x1024, 1024)", kernel, plain, card, _planes_compare)
-    prog, data = object_buffers(scene, params, dev)
+    prog, data, _ = object_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
                    12 * n)
     o, d2, dm, act2, tmax = _shadow_plane(dev)
@@ -901,7 +901,7 @@ def parity_record_spectral(dev, card):
         spectral_buffers)
     kernel, plain, scene, cfg, (params, mats) = _record_spectral_fns(
         dev, 1024, TRAIN_SPP)
-    prog, data = spectral_buffers(scene, params, mats, dev)
+    prog, data, _ = spectral_buffers(scene, params, mats, dev)
     max_err, ms, plain_ms, work = _main_launch(
         f"spectral recorder, spectral_demo 1024x1024, {TRAIN_SPP} samples, "
         f"{cfg.max_bounces} bounces (the spectral train path's launch)",
@@ -966,7 +966,7 @@ def parity_wavefront(dev, card):
         paths_buffers)
     kernel, plain, scene, cfg, params, _ = _wavefront_fns(
         dev, "sphere_on_floor", 1024)
-    prog, data = paths_buffers(scene, params, dev)
+    prog, data, _ = paths_buffers(scene, params, dev)
     max_err, ms, plain_ms, work = _main_launch(
         "wavefront recorder, sphere_on_floor 1024x1024 bounce-0 planes, 1 "
         f"sample, {cfg.max_bounces} bounces", kernel, plain, card,
@@ -1489,7 +1489,7 @@ def parity_defer(dev, card):
     del out
     print(f"composite (exact, 32 x 1024^2 lookups): {comp_ms:.3f} ms "
           f"[{card}]", flush=True)
-    prog, data = paths_buffers(scene, params, dev)
+    prog, data, _ = paths_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * (12 + 16 * 32))
 
@@ -1582,7 +1582,7 @@ def parity_wavefront_paths(dev, card):
         lambda: march._launch_wavefront_paths(*args),
         lambda work=None: march.wavefront_paths_plain(*args, work=work),
         card, count_apart=False)
-    prog, data = paths_buffers(scene, params, dev)
+    prog, data, _ = paths_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
     n = _WAVE_SIZE
@@ -1648,7 +1648,7 @@ def parity_wavefront_spectral(dev, card):
         f"spectral wavefront, 1024x1024, {_WAVE_MAIN_SPP} spp, "
         f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
         *fns((0, 0), 1024, _WAVE_MAIN_SPP), card, count_apart=False)
-    prog, data = spectral_buffers(scene, params, mats, dev)
+    prog, data, _ = spectral_buffers(scene, params, mats, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
     kernel, plain = fns(_SPEC_PATCH, _WAVE_SIZE, _WAVE_SPP)
@@ -1969,7 +1969,7 @@ def parity_exact(dev, card, sh_scene_path):
     def in_bytes(scene, params, mats=None):
         bufs = (paths_buffers(scene, params, dev) if mats is None
                 else spectral_buffers(scene, params, mats, dev))
-        return 15 * 4 + _buffer_bytes(*bufs)
+        return 15 * 4 + _buffer_bytes(*bufs[:2])
 
     def nee_compare(label, got, want):
         return _compare(label, got, want, nee=True)
@@ -2245,7 +2245,8 @@ def _tensors(out):
 def kernel_times(dev, card, sh_scene_path, bounds=False):
     """Every kernel at its main path's launch, alone: the mean ms of 3 by
     CUDA events after one warm-up call, whose output is digested as
-    "main: NAME", beside its time before the redesign (`BEFORE_MS`).  With
+    "main: NAME", beside the time recorded before the redesign
+    (`BEFORE_MS`, a constant: not read in this run).  With
     `bounds`, the launches of `_SCALED` also get their bound, from their
     plain version's work on a 1024^2 run of 8 samples (8 paths) scaled to
     the launch's 128 samples (32 paths).  Prints one `kernel times:` JSON
@@ -2258,10 +2259,11 @@ def kernel_times(dev, card, sh_scene_path, bounds=False):
         _digest("main: " + name, *_tensors(out))
         del out
         ms = _cuda_ms(kernel, reps=3, warmup=False)
-        r = {"ms": ms, "before_ms": BEFORE_MS.get(name)}
-        note = ("" if r["before_ms"] is None else
-                f" (before {r['before_ms']:.3f} ms, "
-                f"{100.0 * (ms / r['before_ms'] - 1.0):+.2f}%)")
+        r = {"ms": ms, "recorded_before_ms": BEFORE_MS.get(name)}
+        note = ("" if r["recorded_before_ms"] is None else
+                f" (recorded before the redesign, BEFORE_MS: "
+                f"{r['recorded_before_ms']:.3f} ms, "
+                f"{100.0 * (ms / r['recorded_before_ms'] - 1.0):+.2f}%)")
         if bounds and name in _SCALED:
             m = 8
             work = {}
@@ -2270,7 +2272,8 @@ def kernel_times(dev, card, sh_scene_path, bounds=False):
             scale = n // m
             scaled = {k: int(work[k]) * scale for k in ("march", "shade")}
             r["bound_ms"], r["bound_by"], _ = _bound(
-                scene, cfg, scaled, 15 * 4 + _buffer_bytes(*bufs), out_bytes)
+                scene, cfg, scaled, 15 * 4 + _buffer_bytes(*bufs[:2]),
+                out_bytes)
             r["bound_scaled_from"] = m
             note += (f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
                      f"work of {m} scaled by {scale})")
@@ -2289,22 +2292,16 @@ _SWEPT = {"mega_paths": ("mega_paths", "mega_paths_sh", "mega_paths_csg_nee",
                             "record_spectral")}
 
 
-def _variant_source(csrc, dst, min_blocks, queue):
+def _variant_source(csrc, dst, min_blocks):
     """csrc/ copied to `dst` with the launch bounds kMinBlocks
     (scene_map.cuh) and kMinBlocksSpectral (mega_spectral.cu) set to
-    `min_blocks` and, unless `queue` is None, every RGB policy's kQueue to
-    `queue` (mega_paths.cu)."""
+    `min_blocks`."""
     shutil.copytree(csrc, dst)
     for name, pat, val in (
             ("scene_map.cuh", r"constexpr int kMinBlocks = \d+;",
              f"constexpr int kMinBlocks = {min_blocks};"),
             ("mega_spectral.cu", r"constexpr int kMinBlocksSpectral = \d+;",
-             f"constexpr int kMinBlocksSpectral = {min_blocks};"),
-            ("mega_paths.cu", r"static constexpr bool kQueue = \w+;",
-             None if queue is None else
-             f"static constexpr bool kQueue = {str(queue).lower()};")):
-        if val is None:
-            continue
+             f"constexpr int kMinBlocksSpectral = {min_blocks};")):
         path = os.path.join(dst, name)
         text = open(path).read()
         new, n = re.subn(pat, val, text)
@@ -2315,12 +2312,11 @@ def _variant_source(csrc, dst, min_blocks, queue):
 
 def sweep_min_blocks(dev, card, values):
     """The render megakernels' launch bounds re-read: csrc/ copied once per
-    variant, both lane machines' bounds set to each of `values`, and for
-    mega_paths.cu every RGB policy's kQueue set both ways (the persistent
-    pixel queue or one lane per pixel); each variant's mega_paths.cu or
-    mega_spectral.cu built (every nvcc started together), then each of its
-    kernels at its main launch timed (mean of 3 by CUDA events after a
-    warm-up) through the wrappers with that build's entry points.  Every
+    variant, both lane machines' bounds set to each of `values`; each
+    variant's mega_paths.cu or mega_spectral.cu built (every nvcc started
+    together), then each of its kernels at its main launch timed (mean
+    of 3 by CUDA events after a warm-up) through the wrappers with that
+    build's entry points.  Every
     build must give the same output bytes.  Prints one `sweep:` JSON
     line."""
     import ctypes
@@ -2329,12 +2325,10 @@ def sweep_min_blocks(dev, card, values):
     tmp = tempfile.TemporaryDirectory()
     jobs = []               # (variant label, source stem, .cu, .so)
     for v in values:
-        for src, queue in (("mega_paths", True), ("mega_paths", False),
-                           ("mega_spectral", None)):
-            label = f"kMinBlocks {v}" + ("" if queue is None else
-                                         f", kQueue {str(queue).lower()}")
+        for src in ("mega_paths", "mega_spectral"):
+            label = f"kMinBlocks {v}"
             dst = os.path.join(tmp.name, f"v{len(jobs)}")
-            _variant_source(build.CSRC, dst, v, queue)
+            _variant_source(build.CSRC, dst, v)
             jobs.append((label, src, os.path.join(dst, src + ".cu"),
                          os.path.join(dst, src + ".so")))
     t0 = time.perf_counter()
@@ -2388,16 +2382,15 @@ def sweep_min_blocks(dev, card, values):
 
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
            exact=None):
-    """One kernel of the `kernels` line, with its time at the main launch
-    before the redesign (`before_ms`); `exact` is its `normal_taps_0`
+    """One kernel of the `kernels` line (every number read in this run,
+    the bound computed from it); `exact` is its `normal_taps_0`
     note (the exact-normal instantiation on its parity patch, and its
     launches on the exact-normal main path where one runs it)."""
     entry = {"name": name, "route": "cuda",
              "source": f"raymarchrenderer_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches,
              "max_abs_err": max_err, "ms": ms, "plain_ms": plain_ms,
-             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None,
-             "before_ms": BEFORE_MS.get(name)}
+             "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
     if exact is not None:
         entry["normal_taps_0"] = exact
     return entry

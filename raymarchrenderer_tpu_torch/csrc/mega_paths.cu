@@ -634,21 +634,23 @@ cudaError_t launch_mega(const PathArgs* args, const SceneDims* dims, const float
 // 3) float32.  The library carries its own (static) CUDA runtime, so it
 // selects the device itself before launching on `stream`.  Returns the
 // first CUDA error (0 on success), and cudaErrorInvalidValue for a scene
-// whose tables exceed the block's shared memory.  `queue` is one int32
-// on the device, zero before the launch (the pixel queue's counter).
-// `sky_kind` picks the constant or the SH sky; an env image (kSkyDefer)
-// takes rmr_mega_paths_defer and is refused here.
+// whose tables exceed the block's shared memory.  `sky_kind` picks the
+// constant or the SH sky, whose policies run one lane per pixel and no
+// queue; an env image (kSkyDefer) takes rmr_mega_paths_defer and is
+// refused here.
 extern "C" int rmr_mega_paths(const PathArgs* args, const SceneDims* dims, const float* corners,
                               const float* fdata, const int* prog, float* out, int sky_kind,
-                              int* queue, cudaStream_t stream, int device) {
+                              cudaStream_t stream, int device) {
   if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   if (sky_kind != kSkyConst && sky_kind != kSkySh) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (sky_kind == kSkySh) {
-    return (int)launch_mega(args, dims, corners, fdata, prog, out, ShSky(), queue, stream, device);
+    return (int)launch_mega(args, dims, corners, fdata, prog, out, ShSky(), nullptr, stream,
+                            device);
   }
-  return (int)launch_mega(args, dims, corners, fdata, prog, out, NoBanks(), queue, stream, device);
+  return (int)launch_mega(args, dims, corners, fdata, prog, out, NoBanks(), nullptr, stream,
+                          device);
 }
 
 // The deferred-sky entry (replaces the TPU kernel's mega + defer_sky
@@ -659,8 +661,8 @@ extern "C" int rmr_mega_paths(const PathArgs* args, const SceneDims* dims, const
 // `thr_r`, `thr_g`, `thr_b` (float32) and its packed (u, v) into `uv`
 // (int32), each (P, ph, pw), P = n_samples (3 * n_samples with
 // dispersion), at its path's slot; the caller zero-fills them first, so
-// thr = 0 marks a slot whose path ended on a hit.  `queue` as for
-// rmr_mega_paths.
+// thr = 0 marks a slot whose path ended on a hit.  `queue` is one int32
+// on the device, zero before the launch (the pixel queue's counter).
 extern "C" int rmr_mega_paths_defer(const PathArgs* args, const SceneDims* dims,
                                     const float* corners, const float* fdata, const int* prog,
                                     float* out, float* thr_r, float* thr_g, float* thr_b,
@@ -684,7 +686,7 @@ extern "C" int rmr_mega_paths_defer(const PathArgs* args, const SceneDims* dims,
 // dispersion), and with NEE their shadow visibility into `sd` (float32,
 // (max_bounces * P * n_lights, ph, pw)); the caller fills them with the
 // miss values first.  No image is written.  `queue` as for
-// rmr_mega_paths.
+// rmr_mega_paths_defer.
 extern "C" int rmr_record_paths(const PathArgs* args, const SceneDims* dims, const float* corners,
                                 const float* fdata, const int* prog, float* t, int* mid, int* hit,
                                 float* sd, int* queue, cudaStream_t stream, int device) {

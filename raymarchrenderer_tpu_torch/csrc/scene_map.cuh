@@ -171,7 +171,7 @@ struct SceneRef {
   __device__ __forceinline__ float* r() const { return rmr_smem + ro; }
 };
 
-// The sizes a launch stages (kernels/scene_program.py `scene_dims`): the
+// The sizes a launch stages (kernels/scene_program.py `_assemble`): the
 // program words, the data floats, the stencil interpreter's register
 // slots (stored values) and the registers of the exact normal's sweep.
 struct SceneDims {

@@ -115,13 +115,13 @@ class SceneDims(ctypes.Structure):
 _SMEM_OPTIN = 232448
 
 
-def scene_dims(scene: Scene, prog, data, exact: bool) -> SceneDims:
-    """The `SceneDims` of a launch on `prog`'s CUDA device.  Raises, with
-    the size, when the block's shared memory cannot hold the scene's
-    program, data and every thread's register slots."""
-    dims = scene_program.scene_dims(scene, prog, data)
+def scene_dims(dims, device, exact: bool) -> SceneDims:
+    """The `SceneDims` of a launch on the CUDA `device` from the buffers'
+    sizes `dims`.  Raises, with the size, when the block's shared memory
+    cannot hold the scene's program, data and every thread's register
+    slots."""
     need = scene_program.shared_bytes(dims, exact)
-    limit = getattr(torch.cuda.get_device_properties(prog.device),
+    limit = getattr(torch.cuda.get_device_properties(device),
                     "shared_memory_per_block_optin", _SMEM_OPTIN)
     if need > limit:
         raise ValueError(
@@ -137,18 +137,18 @@ def scene_dims(scene: Scene, prog, data, exact: bool) -> SceneDims:
 _P = ctypes.c_void_p
 _D = ctypes.POINTER(SceneDims)
 # Every entry takes the launch scalars, then the scene's `SceneDims`, ...,
-# and ends with the stream and the device index; the persistent RGB
-# megakernel's entries take their pixel queue's counter (`_queue`) before
-# the stream.
+# and ends with the stream and the device index; the persistent entries
+# of the RGB megakernel (deferred sky, recorder) take their pixel queue's
+# counter (`_queue`) before the stream.
 # args, dims, corners, data, program, the output
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
     [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, ctypes.c_int])
 # args, dims, corners, data, program, the output, the sky kind
-# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy), the queue
+# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy)
 MEGA_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_mega_paths",
-    [ctypes.POINTER(PathArgs), _D, _P, _P, _P, _P, ctypes.c_int, _P, _P,
+    [ctypes.POINTER(PathArgs), _D, _P, _P, _P, _P, ctypes.c_int, _P,
      ctypes.c_int])
 # the deferred-sky entry of mega_paths.cu: args, dims, corners, data,
 # program, the raw-sum output, then the thr_r, thr_g, thr_b and packed-uv
@@ -261,21 +261,21 @@ def _launch_mega_spectral(scene, params, mats, cfg, corners, sample0,
                           n_samples, origin_xy, ph, pw, normalize,
                           lazy_miss, regen_cadence, march_unroll):
     _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data = spectral_buffers(scene, params, mats, corners.device)
+    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, march_unroll,
         regen_cadence, lazy_miss))
-    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
     return _launch(MEGA_SPECTRAL, args, dims, corners, prog, data, ph, pw)
 
 
 def _launch_wavefront_spectral(scene, params, mats, cfg, corners, sample0,
                                n_samples, origin_xy, ph, pw, normalize):
     _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data = spectral_buffers(scene, params, mats, corners.device)
+    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, 1, 0, False))
-    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
     return _launch(WAVEFRONT_SPECTRAL, args, dims, corners, prog, data, ph,
                    pw)
 
@@ -360,7 +360,7 @@ def paths_launch(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
     nee = bool(direct_light) and scene.n_lights > 0
     _check_launch(corners, cfg, params["objects"], params["materials"],
                   params["lights"], params["env"])
-    prog, data = paths_buffers(scene, params, corners.device)
+    prog, data, dims = paths_buffers(scene, params, corners.device)
     args = PathArgs(
         dispersion=int(bool(cfg.separate_channels)), nee=int(nee),
         n_lights=scene.n_lights if nee else 0,
@@ -368,8 +368,8 @@ def paths_launch(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
         inside_offset=cfg.inside_offset, rr_min_prob=cfg.rr_min_prob,
         **_common_fields(cfg, origin_xy, ph, pw, sample0, n_samples,
                          normalize, march_unroll, regen_cadence, lazy_miss))
-    return args, scene_dims(scene, prog, data, cfg.normal_taps == 0), prog, \
-        data
+    return args, scene_dims(dims, corners.device, cfg.normal_taps == 0), \
+        prog, data
 
 
 def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
@@ -380,11 +380,10 @@ def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
         direct_light, march_unroll, normalize, lazy_miss, regen_cadence)
     device = corners.device
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    queue = _queue(device)
     MEGA_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
                       corners.contiguous().data_ptr(), data.data_ptr(),
                       prog.data_ptr(), out.data_ptr(), sky_kind(scene),
-                      queue.data_ptr(), *stream_args(device))
+                      *stream_args(device))
     return out
 
 
@@ -737,7 +736,7 @@ def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
     planes.append(_plane(active, shape, torch.int32, device))
     planes.append(_plane(cfg.max_dist if t_max is None else t_max, shape,
                          f32, device))
-    prog, data = object_buffers(scene, params, device)
+    prog, data, dims = object_buffers(scene, params, device)
     t = torch.empty(shape, dtype=f32, device=device)
     mid = torch.empty(shape, dtype=torch.int32, device=device)
     hit = torch.empty(shape, dtype=torch.int32, device=device)
@@ -745,7 +744,7 @@ def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
                      relax=int(cfg.relax_omega > 1.0), max_dist=cfg.max_dist,
                      hit_eps=cfg.hit_eps, step_multiply=cfg.step_multiply,
                      relax_omega=cfg.relax_omega)
-    dims = scene_dims(scene, prog, data, False)
+    dims = scene_dims(dims, device, False)
     MARCH_FUSED.launch(ctypes.byref(args), ctypes.byref(dims),
                        prog.data_ptr(), data.data_ptr(),
                        *(p.data_ptr() for p in planes), t.data_ptr(),

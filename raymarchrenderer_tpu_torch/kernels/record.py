@@ -215,11 +215,11 @@ def _launch_record_spectral(scene, params, mats, cfg, corners, origin_xy,
     unroll, cadence, lazy = knobs
     mats = type(mats)(*(m.detach() for m in mats))
     _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data = spectral_buffers(scene, params, mats, corners.device)
+    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, S, False, unroll, cadence, lazy))
     banks = _miss_banks(cfg, (cfg.max_bounces * S, ph, pw), corners.device)
-    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
     RECORD_SPECTRAL.launch(ctypes.byref(args), ctypes.byref(dims),
                            corners.contiguous().data_ptr(), data.data_ptr(),
                            prog.data_ptr(), *(b.data_ptr() for b in banks),
@@ -302,7 +302,7 @@ def _launch_record_wavefront(scene, params, cfg, eye, d0, px, py, sample,
     n = d0.x.numel()
     B = cfg.max_bounces
     L = scene.n_lights if nee else 0
-    prog, data = paths_buffers(scene, params, device)
+    prog, data, dims = paths_buffers(scene, params, device)
     planes = [torch.as_tensor(c, dtype=torch.float32, device=device)
               .expand(shape).contiguous() for c in (*eye, *d0)]
     planes += [torch.as_tensor(c, device=device).expand(shape)
@@ -316,7 +316,7 @@ def _launch_record_wavefront(scene, params, cfg, eye, d0, px, py, sample,
         rr_start_bounce=cfg.rr_start_bounce, exit_offset=cfg.exit_offset,
         inside_offset=cfg.inside_offset, rr_min_prob=cfg.rr_min_prob,
         **_common_fields(cfg, (0, 0), 1, n, 0, 1, False, 1, 0, False))
-    dims = scene_dims(scene, prog, data, cfg.normal_taps == 0)
+    dims = scene_dims(dims, device, cfg.normal_taps == 0)
     RECORD_WAVEFRONT.launch(ctypes.byref(args), ctypes.byref(dims), n,
                             data.data_ptr(),
                             prog.data_ptr(), *(p.data_ptr() for p in planes),

@@ -209,14 +209,6 @@ def stored_slots(words) -> int:
     return slots
 
 
-def scene_dims(scene: Scene, prog: torch.Tensor, data: torch.Tensor):
-    """(n_words, n_floats, stored slots, n_regs) of a scene's buffers: the
-    kernels' `SceneDims`."""
-    words = compile_program(scene)[0]
-    return (int(prog.numel()), int(data.numel()), stored_slots(words),
-            words[3])
-
-
 def shared_bytes(dims, exact: bool) -> int:
     """Dynamic shared memory of one block (csrc/scene_map.cuh
     `scene_smem_bytes`): the program words and data floats, then every
@@ -245,7 +237,9 @@ def _vec3(a: torch.Tensor, device, what: str) -> torch.Tensor:
 def _assemble(program, params, device, tail_ints, tail_floats):
     """The object program `(words, param slots)` and its parameters on
     `device`, followed by a kernel's tail: `tail_ints` a list of ints or
-    an int32 tensor, `tail_floats` a list of 1-D float32 tensors."""
+    an int32 tensor, `tail_floats` a list of 1-D float32 tensors; then
+    the buffers' sizes `(n_words, n_floats, stored slots, n_regs)`, the
+    kernels' `SceneDims`."""
     words, slots = program
     vecs = [_vec3(params["objects"][oi][pi], device,
                   f"object {oi} parameter {pi}") for oi, pi in slots]
@@ -257,18 +251,20 @@ def _assemble(program, params, device, tail_ints, tail_floats):
                                             device=device)])
     data = torch.cat(vecs + list(tail_floats) + [
         torch.zeros(0, dtype=torch.float32, device=device)])
-    return prog.contiguous(), data.contiguous()
+    dims = (int(prog.numel()), int(data.numel()), stored_slots(words),
+            words[3])
+    return prog.contiguous(), data.contiguous(), dims
 
 
 def object_buffers(scene: Scene, params, device):
-    """(int32 program, float32 data) of `csrc/march_fused.cu`: the object
-    program and the object parameters, no tail."""
+    """(int32 program, float32 data, dims) of `csrc/march_fused.cu`: the
+    object program and the object parameters, no tail."""
     return _assemble(compile_program(scene), params, device, [], [])
 
 
 def spectral_buffers(scene: Scene, params, mats, device):
-    """(int32 program, float32 data) of `csrc/mega_spectral.cu`, the band
-    table `mats` (`SpectralMaterials`) as the tail."""
+    """(int32 program, float32 data, dims) of `csrc/mega_spectral.cu`, the
+    band table `mats` (`SpectralMaterials`) as the tail."""
     n_mats = int(mats.min_wave.shape[0])
     if scene.objects and n_mats == 0:
         raise ValueError("the band table has no rows")
@@ -410,7 +406,7 @@ def sky_kind(scene: Scene) -> int:
 
 
 def paths_buffers(scene: Scene, params, device):
-    """(int32 program, float32 data) of `csrc/mega_paths.cu` and
+    """(int32 program, float32 data, dims) of `csrc/mega_paths.cu` and
     `csrc/wavefront_paths.cu`: the material program, the light table, the
     sky power and, for an SH sky, its coefficients as the tail (the
     kernels read the lights only with NEE)."""

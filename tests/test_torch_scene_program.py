@@ -120,7 +120,7 @@ def test_forwarded_program_matches_plain_map(key):
     map's, bit for bit, at seeded points."""
     scene = _scene(_key_path(key))
     params = scene.init_params("cpu")
-    prog, data = sp.object_buffers(scene, params, "cpu")
+    prog, data, _ = sp.object_buffers(scene, params, "cpu")
     words = prog.tolist()
     p = _points()
     d, mid = eval_program(words, data, p)
@@ -186,8 +186,7 @@ def test_big_object_compiles():
     shared memory come from the program."""
     scene = loads_scene(BIG_OBJECT_SCENE)
     params = scene.init_params("cpu")
-    prog, data = sp.paths_buffers(scene, params, "cpu")
-    dims = sp.scene_dims(scene, prog, data)
+    prog, data, dims = sp.paths_buffers(scene, params, "cpu")
     assert dims[3] == 40 and 0 < dims[2] < 40
     assert dims[:2] == (prog.numel(), data.numel())
     stencil = sp.shared_bytes(dims, exact=False)
@@ -203,7 +202,7 @@ def test_many_lights_compile():
     radius * L] after the object parameters."""
     scene = many_lights_scene(12)
     params = scene.init_params("cpu")
-    prog, data = sp.paths_buffers(scene, params, "cpu")
+    prog, data, dims = sp.paths_buffers(scene, params, "cpu")
     words = prog.tolist()
     assert words[words[1] + 1] == 12
     tail = data[words[2]:]
@@ -211,5 +210,4 @@ def test_many_lights_compile():
     assert torch.equal(tail[1:37], lights["pos"].reshape(-1))
     assert torch.equal(tail[37:49], lights["power"].reshape(-1))
     assert torch.equal(tail[49:61], lights["radius"].reshape(-1))
-    dims = sp.scene_dims(scene, prog, data)
     assert sp.shared_bytes(dims, exact=False) == 4 * (dims[0] + dims[1])
