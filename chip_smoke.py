@@ -33,9 +33,11 @@ Phases (any failure raises and the script exits non-zero):
          2 samples (the sd bank, strict miss test); csg_demo with
          dispersion, NEE and roulette on a 128^2 patch, 1 sample;
        * `march_fused` vs `integrator.march`: the train launch's
-         sample-folded primary plane (4 * 1024, 1024), and a shadow-style
+         sample-folded primary plane (4 * 1024, 1024), a shadow-style
          plane (per-lane t_max, a quarter of the rays inside the ball
-         with dist_mult -1, an eighth inactive);
+         with dist_mult -1, an eighth inactive), and one of 333 x 1021
+         rays (no multiple of 128); the chain occupancy of its schedules
+         from the plain march's per-lane steps (`march_occupancy`);
        * gradients: one train step at 256^2, 2 samples, replayed over the
          recorder's banks and over its plain version's, and with
          `march_fused` against the plain march;
@@ -63,7 +65,10 @@ Phases (any failure raises and the script exits non-zero):
          against the same chunks on the plain version);
        * the SH sky in the RGB kernel on a 256^2 patch, 16 samples;
        * the wavefront entries at the full 16 bounces: the RGB one at its
-         main path's own launch (sphere_on_floor, 1024^2, 8 samples), on
+         main path's own launch (sphere_on_floor, 1024^2, 8 samples; the
+         chain occupancy of the nested loops, of its lane machine and of
+         the pixel queue from the plain version's per-lane steps,
+         `wavefront_occupancy`), on
          128^2 patches with NEE, dispersion and roulette (3 samples) and
          under the gradient sky (11 samples: 8 slots, then n_valid 3 of
          8); the spectral one at its main path's launch (1024^2, 8
@@ -114,10 +119,12 @@ Phases (any failure raises and the script exits non-zero):
      --lr 1e-2 toward a target the port renders itself (the scene with a
      radius scaled by 1.05, 64 samples):
        train --scene sphere_on_floor --width 1024 --height 1024
-       train --scene sphere_on_floor --impl fused --width 256 --height 256
+       train --scene sphere_on_floor --impl fused --width 1024 --height 1024
        train --scene csg --direct-light --width 512 --height 512
-     the recorder must launch once per step (or march_fused once per
-     march) and the RGB kernel for the final render, the loss and every
+     the recorder must launch once per step (march_fused once per march,
+     its every launch's plane, active lanes and ms printed in a `train
+     --impl fused launches:` line) and the RGB kernel for the final
+     render, the loss and every
      gradient be finite, a gradient that must not vanish not vanish, and
      the npz and PNG be written; then `train --spectral` with the same
      flags toward the port's own spectral render with the sphere row's
@@ -154,7 +161,9 @@ Phases (any failure raises and the script exits non-zero):
      render kernels at 128 with the exact normal, one
      `perf:` JSON line; then the train step at the full configuration
      (recorder, replay forward, the whole step, its rate, peak memory with
-     and without remat), one `train perf:` JSON line, the spectral
+     and without remat), one `train perf:` JSON line, the `train --impl
+     fused` step and its march_fused launches, one `train perf (fused):`
+     JSON line, the spectral
      train step likewise, one `spectral train perf:` JSON line, and the
      `train --env-map` step at 256^2 and 1024^2 beside the same scene
      under its constant sky, one `env train perf:` JSON line.
@@ -168,7 +177,16 @@ readings go to smoke_out/.
 
     python3 chip_smoke.py --kernel-times        # build, counts, times,
                                                 # digests; no plain version
+    python3 chip_smoke.py --kernel-times --only march_fused,wavefront_paths
+    python3 chip_smoke.py --readings            # march_fused.cu and
+                          # wavefront_paths.cu: parity, chain occupancy,
+                          # the march_fused launches of train --impl fused
     python3 chip_smoke.py --sweep-min-blocks 4,6,8   # the launch bounds
+    python3 chip_smoke.py --sweep-const kWaveUnroll=4,16   # a schedule
+                                                # constant of csrc/
+
+Run `--kernel-times` in a checkout of another commit (`git archive`),
+with this script copied in, to time both trees in one call.
 
 The line before the last is a JSON object with one entry per kernel of the
 paths (each shading kernel's with a `normal_taps_0` note: its
@@ -212,7 +230,7 @@ _TRAIN = ["--spp", "4", "--max-bounces", "4", "--relax", "1.9",
 TRAIN_ARGV = ["train", "--scene", "sphere_on_floor", "--width", "1024",
               "--height", "1024", *_TRAIN]
 TRAIN_FUSED_ARGV = ["train", "--scene", "sphere_on_floor", "--impl", "fused",
-                    "--width", "256", "--height", "256", *_TRAIN]
+                    "--width", "1024", "--height", "1024", *_TRAIN]
 TRAIN_NEE_ARGV = ["train", "--scene", "csg", "--direct-light", "--width",
                   "512", "--height", "512", *_TRAIN]
 TRAIN_SPECTRAL_ARGV = ["train", "--spectral", "--scene", "sphere_on_floor",
@@ -403,15 +421,17 @@ def _bound(scene, cfg, work, in_bytes, out_bytes, lookups=1):
 
 
 def _main_launch(label, kernel, plain, card, compare=_compare,
-                 count_apart=True):
+                 count_apart=True, work=None):
     """Kernel vs plain at a main path's own launch: parity by `compare`,
     the kernel's time (mean of 3), the plain version's time (one run),
     then one more plain run that counts the work for the bound, outside
     that time.  With `count_apart` false the timed run also counts (for
     plain versions that take minutes; the counters add one reduction per
-    march step).  Returns (max abs error, ms, plain ms, work)."""
+    march step).  `work` seeds the count (a "lane_steps" list gathers the
+    marches' per-lane steps).  Returns (max abs error, ms, plain ms,
+    work)."""
     got = kernel()
-    work = {}
+    work = {} if work is None else work
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
     start.record()
@@ -515,6 +535,37 @@ def sass_counts(lib) -> dict:
     return counts
 
 
+def _tiles(x):
+    """A (R, W) per-lane plane padded with zeros to whole 2 x 16 tiles (a
+    warp of the kernels' pixel and ray order), as (R/2, 2, W/16, 16)."""
+    ph, pw = x.shape
+    x = torch.nn.functional.pad(x, (0, -pw % 16, 0, -ph % 2))
+    return x.reshape(x.shape[0] // 2, 2, x.shape[1] // 16, 16)
+
+
+def _in_queue_order(x):
+    """The entries of a (R, W) per-lane plane in queue order: 2 x 16 tiles,
+    row-major, lanes row-major inside a tile."""
+    return _tiles(x).permute(0, 2, 1, 3).reshape(-1).tolist()
+
+
+def _queue_lives(costs, resident_warps):
+    """The summed lifetimes of `resident_warps` warps on a queue: every
+    lane takes the next slot's cost from `costs` (in queue order) when its
+    previous slot ends, all lanes advancing one unit per step; a warp
+    lives until its last lane's last slot ends."""
+    import heapq
+    n_lanes = 32 * resident_warps
+    heap = [(0, lane) for lane in range(n_lanes)]
+    life = [0] * resident_warps
+    for cost in costs:
+        t, lane = heapq.heappop(heap)
+        t += cost
+        life[lane // 32] = max(life[lane // 32], t)
+        heapq.heappush(heap, (t, lane))
+    return sum(life)
+
+
 def occupancy(label, work, march_unroll):
     """Lane utilisation of a one-thread-per-pixel launch of 16 x 8 blocks
     (a warp: 2 rows x 16 columns), from the plain version's counts: chain
@@ -523,10 +574,7 @@ def occupancy(label, work, march_unroll):
     `march_unroll` x the warps' bodies; shade occupancy, the shaded hits
     over 32 x the warps' bodies.  Counts, not times."""
     b = work["lane_bodies"].to(torch.int64)
-    ph, pw = b.shape
-    b = torch.nn.functional.pad(b, (0, -pw % 16, 0, -ph % 2))
-    warps = b.reshape(b.shape[0] // 2, 2, b.shape[1] // 16, 16)
-    warp_bodies = int(warps.amax(dim=(1, 3)).sum())
+    warp_bodies = int(_tiles(b).amax(dim=(1, 3)).sum())
     res = {"chain": int(b.sum()) / (32 * warp_bodies),
            "march": int(work["march"]) / (32 * march_unroll * warp_bodies),
            "shade": int(work["shade"]) / (32 * warp_bodies),
@@ -535,24 +583,35 @@ def occupancy(label, work, march_unroll):
           f"{res['march']:.4f}, shade {res['shade']:.4f} ({res['lane_bodies']}"
           f" lane bodies, {warp_bodies} warp bodies)", flush=True)
     OCCUPANCY[label] = res
-    queue_occupancy(label, work, march_unroll,
-                    4 * _min_blocks("spectral" in label)
-                    * torch.cuda.get_device_properties(0).multi_processor_count)
+    queue_occupancy(label, work, march_unroll, _resident_warps(
+        "mega_spectral" if "spectral" in label else "mega_paths"))
     return res
 
 
 OCCUPANCY = {}
 
+# each source's launch bound: (the file that holds it, its constant)
+_BOUNDS = {"mega_paths": ("scene_map.cuh", "kMinBlocks"),
+           "mega_spectral": ("mega_spectral.cu", "kMinBlocksSpectral"),
+           "march_fused": ("scene_map.cuh", "kMinBlocksMarch"),
+           "wavefront_paths": ("scene_map.cuh", "kMinBlocksWavefront")}
 
-def _min_blocks(spectral: bool) -> int:
-    """A lane machine's launch bound: its resident blocks per SM at its
-    register cap (kMinBlocksSpectral of csrc/mega_spectral.cu, or
-    kMinBlocks of csrc/scene_map.cuh for the RGB one)."""
+
+def _min_blocks(source: str) -> int:
+    """A kernel's launch bound: its resident blocks per SM at its register
+    cap (`_BOUNDS`: kMinBlocks of csrc/scene_map.cuh for the RGB lane
+    machine, kMinBlocksSpectral of csrc/mega_spectral.cu, ...)."""
     from raymarchrenderer_tpu_torch.kernels.build import CSRC
-    name, const = (("mega_spectral.cu", "kMinBlocksSpectral") if spectral
-                   else ("scene_map.cuh", "kMinBlocks"))
+    name, const = _BOUNDS[source]
     text = (CSRC / name).read_text()
     return int(re.search(rf"constexpr int {const} = (\d+);", text).group(1))
+
+
+def _resident_warps(source: str) -> int:
+    """The warps a persistent grid of `source` keeps resident at its
+    launch bound (4 warps a block)."""
+    return (4 * _min_blocks(source)
+            * torch.cuda.get_device_properties(0).multi_processor_count)
 
 
 def queue_occupancy(label, work, march_unroll, resident_warps):
@@ -563,23 +622,8 @@ def queue_occupancy(label, work, march_unroll, resident_warps):
     one body per step; a warp lives until its last lane's last chain ends.
     The occupancies are the lanes' bodies, marching steps and shaded hits
     over 32 (x `march_unroll`) x the warps' lifetimes in bodies."""
-    import heapq
     b = work["lane_bodies"].to(torch.int64)
-    ph, pw = b.shape
-    b = torch.nn.functional.pad(b, (0, -pw % 16, 0, -ph % 2))
-    tiles = b.reshape(b.shape[0] // 2, 2, b.shape[1] // 16, 16)
-    queue = tiles.permute(0, 2, 1, 3).reshape(-1).tolist()
-    n_lanes = 32 * resident_warps
-    heap = [(0, lane) for lane in range(n_lanes)]
-    life = [0] * resident_warps
-    nxt = 0
-    while heap and nxt < len(queue):
-        t, lane = heapq.heappop(heap)
-        t += queue[nxt]
-        nxt += 1
-        life[lane // 32] = max(life[lane // 32], t)
-        heapq.heappush(heap, (t, lane))
-    lives = sum(life)
+    lives = _queue_lives(_in_queue_order(b), resident_warps)
     res = {"chain": int(b.sum()) / (32 * lives),
            "march": int(work["march"]) / (32 * march_unroll * lives),
            "shade": int(work["shade"]) / (32 * lives),
@@ -589,6 +633,64 @@ def queue_occupancy(label, work, march_unroll, resident_warps):
           f"{res['shade']:.4f} ({resident_warps} resident warps, {lives} "
           "warp bodies)", flush=True)
     OCCUPANCY[label + ", queue"] = res
+    return res
+
+
+def march_occupancy(label, steps):
+    """Chain occupancy of `march_fused` on a (R, W) plane, from the plain
+    march's per-lane steps (`march(with_steps=True)`; counts, the same on
+    any card): the lanes' steps over 32 x the warps' lifetimes in steps,
+    for one thread per ray with warps of 1 x 32 rays of a row (the
+    kernel before the redesign) and of 2 x 16 tiles, and for the ray
+    queue's persistent grid (modelled: a ray takes max(steps, 1) of its
+    lane's steps, its slots in 2 x 16 tiles)."""
+    s = steps.to(torch.int64)
+    total = int(s.sum())
+    strips = torch.nn.functional.pad(s, (0, -s.shape[1] % 32)).reshape(
+        s.shape[0], -1, 32)
+    warps = _resident_warps("march_fused")
+    lives = _queue_lives(_in_queue_order(s.clamp(min=1)), warps)
+    res = {"rows_1x32": total / (32 * int(strips.amax(-1).sum())),
+           "tiles_2x16": total / (32 * int(_tiles(s).amax(dim=(1, 3)).sum())),
+           "queue_2x16": total / (32 * lives), "steps": total,
+           "rays": s.numel(), "resident_warps": warps}
+    print(f"occupancy, {label}: chain, one thread per ray, 1 x 32 rows "
+          f"{res['rows_1x32']:.4f}, 2 x 16 tiles {res['tiles_2x16']:.4f}; on "
+          f"the ray queue (modelled) {res['queue_2x16']:.4f} ({total} steps "
+          f"of {s.numel()} rays, mean {total / s.numel():.2f}, max "
+          f"{int(s.max())}; {warps} resident warps)", flush=True)
+    OCCUPANCY[label] = res
+    return res
+
+
+def wavefront_occupancy(label, planes):
+    """Chain occupancy of the RGB wavefront kernel from the per-lane steps
+    of every march its plain version made (`work["lane_steps"]`: one
+    (ph, pw) plane per bounce or shadow march of each sample): the lanes'
+    steps over 32 x the warps' lifetimes in steps (2 x 16 warps), for the
+    nested loops (each march a loop the warp runs to its longest lane),
+    the lane machine with one lane per pixel (a warp lives as long as its
+    longest pixel's chain of steps), and on the pixel queue (modelled).
+    Counts march steps only, not the events."""
+    total, nested, chain = 0, 0, None
+    for p in planes:
+        p = p.to(torch.int64)
+        total += int(p.sum())
+        nested += int(_tiles(p).amax(dim=(1, 3)).sum())
+        chain = p if chain is None else chain + p
+    warps = _resident_warps("wavefront_paths")
+    lives = _queue_lives(_in_queue_order(chain), warps)
+    res = {"nested_loops": total / (32 * nested),
+           "lane_machine": total / (32 * int(
+               _tiles(chain).amax(dim=(1, 3)).sum())),
+           "queue": total / (32 * lives), "steps": total,
+           "marches": len(planes), "resident_warps": warps}
+    print(f"occupancy, {label}: chain over (sample, bounce, march), nested "
+          f"loops {res['nested_loops']:.4f}, lane machine one lane per "
+          f"pixel {res['lane_machine']:.4f}, on the pixel queue (modelled) "
+          f"{res['queue']:.4f} ({total} steps in {len(planes)} marches; "
+          f"{warps} resident warps)", flush=True)
+    OCCUPANCY[label] = res
     return res
 
 
@@ -796,21 +898,37 @@ def _march_fns(dev):
 
 def parity_march(dev, card):
     """`march_fused`: the train launch's primary plane, sample-folded
-    (4 * 1024, 1024), then a shadow-style plane."""
+    (4 * 1024, 1024), its chain occupancy from the plain march's per-lane
+    steps, then a shadow-style plane and one of 333 x 1021 rays (no
+    multiple of 128)."""
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         object_buffers)
     kernel, plain, scene, cfg, params, n = _march_fns(dev)
     max_err, ms, plain_ms, work = _main_launch(
         f"march_fused, the train launch's primary plane "
-        f"({TRAIN_SPP}x1024, 1024)", kernel, plain, card, _planes_compare)
+        f"({TRAIN_SPP}x1024, 1024)", kernel, plain, card, _planes_compare,
+        work={"lane_steps": []})
+    steps = work.pop("lane_steps")
+    if steps:                   # a plain march that keeps per-lane steps
+        march_occupancy(f"march_fused, the train launch's primary plane "
+                        f"({TRAIN_SPP}x1024, 1024)", steps[0])
     prog, data, _ = object_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
                    12 * n)
     o, d2, dm, act2, tmax = _shadow_plane(dev)
+    steps = {"lane_steps": []}
     max_err = max(max_err, _planes_compare(
         "march_fused, a shadow-style plane (512, 1024): per-lane t_max, "
         "dist_mult -1 inside the ball, inactive lanes",
-        kernel(o, d2, dm, act2, tmax), plain(None, o, d2, dm, act2, tmax)))
+        kernel(o, d2, dm, act2, tmax), plain(steps, o, d2, dm, act2, tmax)))
+    if steps["lane_steps"]:
+        march_occupancy("march_fused, a shadow-style plane (512, 1024)",
+                        steps["lane_steps"][0])
+    o, d2, dm, act2, tmax = _shadow_plane(dev, 333, 1021, seed=6)
+    max_err = max(max_err, _planes_compare(
+        "march_fused, a shadow-style plane (333, 1021): no multiple of 128 "
+        "rays", kernel(o, d2, dm, act2, tmax),
+        plain(None, o, d2, dm, act2, tmax)))
     return max_err, ms, plain_ms, bound
 
 
@@ -1143,6 +1261,109 @@ def train_path(label, argv, dev, card, write_target, check_leaf,
 
 def _mean_spread(xs):
     return {"mean": sum(xs) / len(xs), "min": min(xs), "max": max(xs)}
+
+
+class MarchLog:
+    """The `march_fused` launches made while the log is open: each
+    launch's plane shape, active lanes and CUDA-event time, through the
+    wrapper's `_launch_march_fused` (wrapped while open; the events add
+    nothing to a launch)."""
+
+    def __enter__(self):
+        from raymarchrenderer_tpu_torch.kernels import march
+        self.calls = []
+        self._orig = orig = march._launch_march_fused
+
+        def logged(scene, params, cfg, o, d, dist_mult, active, t_max):
+            shape = tuple(torch.broadcast_shapes(*(c.shape
+                                                   for c in (*o, *d))))
+            act = torch.as_tensor(active, device=o.x.device).expand(shape)
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = orig(scene, params, cfg, o, d, dist_mult, active, t_max)
+            end.record()
+            self.calls.append((shape, act.sum(), start, end))
+            return out
+
+        march._launch_march_fused = logged
+        return self
+
+    def __exit__(self, *exc):
+        from raymarchrenderer_tpu_torch.kernels import march
+        march._launch_march_fused = self._orig
+
+    def readings(self):
+        torch.cuda.synchronize()
+        return [{"shape": list(shape), "active": int(n),
+                 "ms": start.elapsed_time(end)}
+                for shape, n, start, end in self.calls]
+
+
+def fused_train_path(dev, card, target, check_leaf):
+    """`train --impl fused` at the train bench configuration (1024^2, 4
+    spp, 4 bounces, 3 steps): `march_fused` must launch once per march
+    (each call of its wrapper one launch); prints the launches per step
+    and each launch's plane, active lanes and ms.  Returns the
+    launches."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    steps = int(TRAIN_FUSED_ARGV[TRAIN_FUSED_ARGV.index("--steps") + 1])
+    with MarchLog() as log:
+        launches = train_path(
+            "train sphere_on_floor 1024x1024 --impl fused", TRAIN_FUSED_ARGV,
+            dev, card, target, check_leaf,
+            {march.MARCH_FUSED: None, march.MEGA_PATHS: None})[
+                march.MARCH_FUSED]
+    calls = log.readings()
+    if len(calls) != launches:
+        raise AssertionError(f"train --impl fused: {len(calls)} marches, "
+                             f"{launches} march_fused launches")
+    res = {"card": card, "launches": launches,
+           "launches_per_step": launches / steps,
+           "ms_per_step": sum(c["ms"] for c in calls) / steps,
+           "calls": calls}
+    print("train --impl fused launches: " + json.dumps(res), flush=True)
+    _log_json("train_fused_launches", res)
+    return launches
+
+
+def fused_train_perf(dev, card):
+    """The `train --impl fused` step at the train bench configuration, 3
+    repetitions (host clock around synchronised work): the whole step and
+    the `march_fused` launches inside it, their count, planes, active
+    lanes and CUDA-event times.  One `train perf (fused):` JSON line."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        sgd, train_grads_sharded)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(1024)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    target = torch.full((1024, 1024, 3), 0.2, device=dev)
+    args = (scene, params, cfg, corners, target, TRAIN_SPP)
+    step, march_ms, launches = [], [], []
+    calls = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        with MarchLog() as log:
+            t0 = time.perf_counter()
+            sgd(params, train_grads_sharded(*args, march_impl="fused")[1],
+                1e-2)
+            torch.cuda.synchronize()
+            step.append((time.perf_counter() - t0) * 1e3)
+        calls = log.readings()
+        launches.append(len(calls))
+        march_ms.append(sum(c["ms"] for c in calls))
+    res = {"card": card, "config": "sphere_on_floor 1024x1024, 4 spp, 4 "
+           "bounces, relax 1.9, 4 taps, --impl fused, remat",
+           "step_ms": _mean_spread(step),
+           "march_fused_launches_per_step": launches,
+           "march_fused_ms_per_step": _mean_spread(march_ms),
+           "last_step_launches": calls}
+    print("train perf (fused): " + json.dumps(res), flush=True)
+    return res
 
 
 def train_perf(dev, card):
@@ -1576,12 +1797,16 @@ def parity_wavefront_paths(dev, card):
     cfg = _main_cfg()
     args = (scene, params, cfg, corners, (0, 0), 1024, 1024, 0,
             _WAVE_MAIN_SPP, False)
+    label = (f"RGB wavefront, sphere_on_floor 1024x1024, {_WAVE_MAIN_SPP} "
+             f"spp, {cfg.max_bounces} bounces (the wavefront main path's "
+             "launch)")
     max_err, ms, plain_ms, work = _main_launch(
-        f"RGB wavefront, sphere_on_floor 1024x1024, {_WAVE_MAIN_SPP} spp, "
-        f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
-        lambda: march._launch_wavefront_paths(*args),
+        label, lambda: march._launch_wavefront_paths(*args),
         lambda work=None: march.wavefront_paths_plain(*args, work=work),
-        card, count_apart=False)
+        card, count_apart=False, work={"lane_steps": []})
+    planes = work.pop("lane_steps")
+    if planes:                  # a plain march that keeps per-lane steps
+        wavefront_occupancy(label, planes)
     prog, data, _ = paths_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
@@ -2169,10 +2394,50 @@ _SCALED = ("mega_paths_csg_nee", "mega_paths_sh", "mega_paths_exact",
            "mega_spectral_exact", "mega_paths_defer_exact")
 
 
+def _train_march_planes(dev):
+    """Every `march_fused` call of one `train --impl fused` step at the
+    train bench configuration (sphere_on_floor, 1024^2, 4 spp, 4 bounces,
+    relax 1.9): [(scene, params, cfg, o, d, dist_mult, active, t_max)] as
+    the wrapper got them, the planes detached."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        train_grads_sharded)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    cfg = _train_cfg(1024)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    target = torch.full((1024, 1024, 3), 0.2, device=dev)
+    calls = []
+    orig = march._launch_march_fused
+
+    def keep(x):
+        return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
+    def capture(scene, params, cfg, o, d, dist_mult, active, t_max):
+        calls.append((scene, params, cfg, type(o)(*map(keep, o)),
+                      type(d)(*map(keep, d)), keep(dist_mult), keep(active),
+                      keep(t_max)))
+        return orig(scene, params, cfg, o, d, dist_mult, active, t_max)
+
+    march._launch_march_fused = capture
+    try:
+        train_grads_sharded(scene, params, cfg, corners, target, TRAIN_SPP,
+                            march_impl="fused")
+    finally:
+        march._launch_march_fused = orig
+    torch.cuda.synchronize()
+    return calls
+
+
 def _main_kernels(dev, sh_scene_path):
     """{name: (kernel, plain, n samples or paths, scene, cfg, buffers, out
     bytes)} of every kernel at its main path's launch; `plain(n, work)`
-    runs the plain version at n samples (paths) from 0, counting `work`."""
+    runs the plain version at n samples (paths) from 0, counting `work`.
+    "march_fused_step" is every `march_fused` launch of one `train --impl
+    fused` step (8 planes of 4 * 1024 x 1024 rays)."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
@@ -2217,6 +2482,10 @@ def _main_kernels(dev, sh_scene_path):
     kernel, _, scene, cfg, params, _ = _march_fns(dev)
     res["march_fused"] = (kernel, None, TRAIN_SPP, scene, cfg,
                           object_buffers(scene, params, dev), 0)
+    planes = _train_march_planes(dev)
+    res["march_fused_step"] = (
+        lambda: [march.march_fused(*c[:7], t_max=c[7]) for c in planes],
+        None, TRAIN_SPP, scene, cfg, object_buffers(scene, params, dev), 0)
     _, _, scene, cfg, params = _paths_fns(dev, "sphere_on_floor", 1)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
     res["wavefront_paths"] = (
@@ -2242,24 +2511,60 @@ def _tensors(out):
     return [t for o in out for t in _tensors(o)]
 
 
-def kernel_times(dev, card, sh_scene_path, bounds=False):
-    """Every kernel at its main path's launch, alone: the mean ms of 3 by
-    CUDA events after one warm-up call, whose output is digested as
-    "main: NAME", beside the time recorded before the redesign
-    (`BEFORE_MS`, a constant: not read in this run).  With
-    `bounds`, the launches of `_SCALED` also get their bound, from their
-    plain version's work on a 1024^2 run of 8 samples (8 paths) scaled to
-    the launch's 128 samples (32 paths).  Prints one `kernel times:` JSON
-    line and returns {name: reading}."""
+# the kernel behind each of `_main_kernels`' launches (kernels/march.py)
+_KERNEL_OF = {"mega_paths": "MEGA_PATHS", "mega_paths_csg_nee": "MEGA_PATHS",
+              "mega_paths_sh": "MEGA_PATHS", "mega_paths_exact": "MEGA_PATHS",
+              "mega_paths_defer": "MEGA_PATHS_DEFER",
+              "mega_paths_defer_exact": "MEGA_PATHS_DEFER",
+              "mega_spectral": "MEGA_SPECTRAL",
+              "mega_spectral_exact": "MEGA_SPECTRAL",
+              "record_paths": "RECORD_PATHS",
+              "record_spectral": "RECORD_SPECTRAL",
+              "record_wavefront": "RECORD_WAVEFRONT",
+              "march_fused": "MARCH_FUSED",
+              "march_fused_step": "MARCH_FUSED",
+              "wavefront_paths": "WAVEFRONT_PATHS",
+              "wavefront_spectral": "WAVEFRONT_SPECTRAL"}
+
+
+def _cuda_ms_each(fn, reps: int) -> list:
+    """Milliseconds of each of `reps` calls, by CUDA events."""
+    events = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        events.append((start, end))
+    torch.cuda.synchronize()
+    return [a.elapsed_time(b) for a, b in events]
+
+
+def kernel_times(dev, card, sh_scene_path, bounds=False, only=None):
+    """Every kernel at its main path's launch (those named in `only`, when
+    given), alone: the mean ms of 3 by CUDA events after one warm-up call,
+    whose output is digested as "main: NAME", with the 3 calls' range,
+    beside the time recorded before the redesign of the render
+    megakernels (`BEFORE_MS`, a constant: not read in this run; time
+    another tree in the same call by running this script in its checkout).
+    With `bounds`, the launches of `_SCALED` also get their bound, from
+    their plain version's work on a 1024^2 run of 8 samples (8 paths)
+    scaled to the launch's 128 samples (32 paths).  Prints one `kernel
+    times:` JSON line and returns {name: reading}."""
     res = {}
     for name, (kernel, plain, n, scene, cfg, bufs, out_bytes) in \
             _main_kernels(dev, sh_scene_path).items():
+        if only is not None and name not in only:
+            continue
         out = kernel()
         torch.cuda.synchronize()
         _digest("main: " + name, *_tensors(out))
         del out
-        ms = _cuda_ms(kernel, reps=3, warmup=False)
-        r = {"ms": ms, "recorded_before_ms": BEFORE_MS.get(name)}
+        each = _cuda_ms_each(kernel, reps=3)
+        ms = sum(each) / len(each)
+        r = {"ms": ms, "ms_min": min(each), "ms_max": max(each),
+             "recorded_before_ms": BEFORE_MS.get(name)}
         note = ("" if r["recorded_before_ms"] is None else
                 f" (recorded before the redesign, BEFORE_MS: "
                 f"{r['recorded_before_ms']:.3f} ms, "
@@ -2277,58 +2582,58 @@ def kernel_times(dev, card, sh_scene_path, bounds=False):
             r["bound_scaled_from"] = m
             note += (f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
                      f"work of {m} scaled by {scale})")
-        print(f"time: {name} at its main launch: {ms:.3f} ms{note} [{card}]",
-              flush=True)
+        print(f"time: {name} at its main launch: {ms:.3f} ms ({min(each):.3f}"
+              f"-{max(each):.3f}){note} [{card}]", flush=True)
         res[name] = r
     print("kernel times: " + json.dumps({"card": card, **res}), flush=True)
     return res
 
 
-# the launches the launch-bound sweep times, by source
+# the launches a sweep times, by source
 _SWEPT = {"mega_paths": ("mega_paths", "mega_paths_sh", "mega_paths_csg_nee",
                          "mega_paths_defer", "mega_paths_exact",
                          "mega_paths_defer_exact", "record_paths"),
           "mega_spectral": ("mega_spectral", "mega_spectral_exact",
-                            "record_spectral")}
+                            "record_spectral"),
+          "march_fused": ("march_fused", "march_fused_step"),
+          "wavefront_paths": ("wavefront_paths",)}
 
 
-def _variant_source(csrc, dst, min_blocks):
-    """csrc/ copied to `dst` with the launch bounds kMinBlocks
-    (scene_map.cuh) and kMinBlocksSpectral (mega_spectral.cu) set to
-    `min_blocks`."""
+def _variant_source(csrc, dst, consts):
+    """csrc/ copied to `dst` with each `constexpr` constant named in
+    `consts` (wherever csrc/ defines it) set to its value there."""
     shutil.copytree(csrc, dst)
-    for name, pat, val in (
-            ("scene_map.cuh", r"constexpr int kMinBlocks = \d+;",
-             f"constexpr int kMinBlocks = {min_blocks};"),
-            ("mega_spectral.cu", r"constexpr int kMinBlocksSpectral = \d+;",
-             f"constexpr int kMinBlocksSpectral = {min_blocks};")):
-        path = os.path.join(dst, name)
-        text = open(path).read()
-        new, n = re.subn(pat, val, text)
-        if n == 0:
-            raise AssertionError(f"{pat} not found in {name}")
-        open(path, "w").write(new)
+    for const, val in consts.items():
+        pat = rf"constexpr (int|bool) {const} = [^;]+;"
+        hits = 0
+        for name in sorted(os.listdir(dst)):
+            path = os.path.join(dst, name)
+            text = open(path).read()
+            new, n = re.subn(pat, rf"constexpr \1 {const} = {val};", text)
+            if n:
+                open(path, "w").write(new)
+                hits += n
+        if hits != 1:
+            raise AssertionError(f"{const} defined {hits} times in csrc/")
 
 
-def sweep_min_blocks(dev, card, values):
-    """The render megakernels' launch bounds re-read: csrc/ copied once per
-    variant, both lane machines' bounds set to each of `values`; each
-    variant's mega_paths.cu or mega_spectral.cu built (every nvcc started
-    together), then each of its kernels at its main launch timed (mean
-    of 3 by CUDA events after a warm-up) through the wrappers with that
-    build's entry points.  Every
-    build must give the same output bytes.  Prints one `sweep:` JSON
-    line."""
+def sweep(dev, card, variants, sources):
+    """Variants of kernels timed in one process: csrc/ copied once per
+    variant (`variants`: [(label, {constant: value})]), each variant's
+    `sources` built (every nvcc started together, registers and spills
+    printed), then each of their kernels at its main launch timed (mean
+    of 3 by CUDA events after a warm-up, and the range) through the
+    wrappers with that build's entry points.  Every build must give the
+    same output bytes.  Prints one `sweep:` JSON line."""
     import ctypes
     from raymarchrenderer_tpu_torch.kernels import build, march
     from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     tmp = tempfile.TemporaryDirectory()
     jobs = []               # (variant label, source stem, .cu, .so)
-    for v in values:
-        for src in ("mega_paths", "mega_spectral"):
-            label = f"kMinBlocks {v}"
+    for label, consts in variants:
+        for src in sources:
             dst = os.path.join(tmp.name, f"v{len(jobs)}")
-            _variant_source(build.CSRC, dst, v)
+            _variant_source(build.CSRC, dst, consts)
             jobs.append((label, src, os.path.join(dst, src + ".cu"),
                          os.path.join(dst, src + ".so")))
     t0 = time.perf_counter()
@@ -2339,7 +2644,9 @@ def sweep_min_blocks(dev, card, values):
           flush=True)
     entries = {"mega_paths": (march.MEGA_PATHS, march.MEGA_PATHS_DEFER,
                               march.RECORD_PATHS),
-               "mega_spectral": (march.MEGA_SPECTRAL, march.RECORD_SPECTRAL)}
+               "mega_spectral": (march.MEGA_SPECTRAL, march.RECORD_SPECTRAL),
+               "march_fused": (march.MARCH_FUSED,),
+               "wavefront_paths": (march.WAVEFRONT_PATHS,)}
     res = {"card": card}
     digests = {}
     with tempfile.TemporaryDirectory() as stmp:
@@ -2356,6 +2663,10 @@ def sweep_min_blocks(dev, card, values):
                                         use.get("spill_stores", 0),
                                         use.get("spill_loads", 0))
                    for fn, use in ptxas_usage(log).items()}
+            for inst, use in sorted(row.items()):
+                print(f"sweep: {label}, {src} {inst}: {use[0]} registers, "
+                      f"{use[1]} / {use[2]} bytes spill stores / loads",
+                      flush=True)
             for name in _SWEPT[src]:
                 kernel = kernels[name][0]
                 out = kernel()
@@ -2367,8 +2678,10 @@ def sweep_min_blocks(dev, card, values):
                 if digests.setdefault(name, h.hexdigest()) != h.hexdigest():
                     raise AssertionError(f"{label}: {name}'s output differs "
                                          "from the first build's")
-                row[name] = _cuda_ms(kernel, reps=3, warmup=False)
-                print(f"sweep: {label}, {name}: {row[name]:.3f} ms [{card}]",
+                each = _cuda_ms_each(kernel, reps=3)
+                row[name] = (sum(each) / 3, min(each), max(each))
+                print(f"sweep: {label}, {name}: {row[name][0]:.3f} ms "
+                      f"({min(each):.3f}-{max(each):.3f}) [{card}]",
                       flush=True)
             res[f"{src}, {label}"] = row
     for ks in entries.values():
@@ -2378,6 +2691,33 @@ def sweep_min_blocks(dev, card, values):
     print("sweep: " + json.dumps(res), flush=True)
     _log_json("sweep", res)
     return res
+
+
+def sweep_min_blocks(dev, card, values, sources):
+    """The launch bounds re-read: each source's bound (`_BOUNDS`) set to
+    each of `values` (`sweep`)."""
+    return sweep(dev, card, [(f"min blocks {v}", {
+        _BOUNDS[src][1]: v for src in sources}) for v in values], sources)
+
+
+def sweep_consts(dev, card, spec):
+    """Design variants: `spec` "NAME=V1,V2,...[:NAME=...]" sets the
+    constants NAME of csrc/ to each combination of their values in turn
+    (`sweep`), for the source that reads them."""
+    import itertools
+    owner = {"kWaveUnroll": "wavefront_paths", "kWaveQueue": "wavefront_paths",
+             "kMinBlocksWavefront": "wavefront_paths",
+             "kMarchQueue": "march_fused", "kMarchTiles": "march_fused",
+             "kMarchUnroll": "march_fused", "kMinBlocksMarch": "march_fused"}
+    axes = [(c, v.split(",")) for c, v in
+            (part.split("=") for part in spec.split(":"))]
+    sources = sorted({owner[c] for c, _ in axes})
+    variants = []
+    for values in itertools.product(*(v for _, v in axes)):
+        consts = {c: v for (c, _), v in zip(axes, values)}
+        variants.append((", ".join(f"{c} {v}" for c, v in consts.items()),
+                         consts))
+    return sweep(dev, card, variants, sources)
 
 
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
@@ -2606,12 +2946,31 @@ def _instantiation(fn):
             + (" exact" if exact else ""))
 
 
-def build_kernels(card):
+def readings(dev, card):
+    """The readings behind the redesign of march_fused.cu and
+    wavefront_paths.cu (`--readings`): each kernel against its plain
+    version at its main launch, with the chain occupancy of each schedule
+    from the plain versions' per-lane steps (`parity_march`,
+    `parity_wavefront_paths`; on a tree whose plain march keeps no
+    per-lane steps the occupancy is left out), then `train --impl fused`
+    at 1024^2 through the CLI and its step, with every march_fused
+    launch's plane, active lanes and time."""
+    parity_march(dev, card)
+    parity_wavefront_paths(dev, card)
+    fused_train_path(dev, card, lambda path: _write_target(
+        path, dev, "sphere_on_floor", 1024, False,
+        lambda tree: tree["objects"][1][1]),
+        lambda tree: tree["materials"][2][0])
+    fused_train_perf(dev, card)
+
+
+def build_kernels(card, only=None):
     """Phase 2: every source built by its own nvcc, all started together
     (the entries of one source share its library: one builds, the others
     wait); prints each instantiation's ptxas registers and spills and its
     SASS local-memory loads and stores, calls and indirect branches,
-    beside PTXAS_BEFORE and SASS_BEFORE.  Returns the kernels."""
+    beside PTXAS_BEFORE and SASS_BEFORE.  `only` (names of
+    `_main_kernels`) builds just their kernels.  Returns the kernels."""
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     t0 = time.perf_counter()
@@ -2619,9 +2978,13 @@ def build_kernels(card):
                march.RECORD_WAVEFRONT, march.WAVEFRONT_PATHS,
                march.MEGA_SPECTRAL, march.RECORD_SPECTRAL,
                march.WAVEFRONT_SPECTRAL, march.MARCH_FUSED)
+    if only is not None:
+        wanted = {getattr(march, _KERNEL_OF[name]) for name in only}
+        kernels = tuple(k for k in kernels if k in wanted)
     with ThreadPoolExecutor(len(kernels)) as pool:
         list(pool.map(lambda k: k.build(), kernels))
-    print(f"build: {len(kernels)} kernels of 5 sources in "
+    print(f"build: {len(kernels)} kernels of "
+          f"{len({k.source for k in kernels})} sources in "
           f"{time.perf_counter() - t0:.2f} s (nvcc " + ", ".join(
               f"{k.source.name} {k.build_seconds:.2f} s" for k in kernels
               if k.build_log) + f") [{card}]", flush=True)
@@ -2668,9 +3031,27 @@ def main(argv=None) -> int:
                     help="build, print the registers, spills and SASS "
                     "counts, time every kernel at its main launch alone and "
                     "digest its output; no plain version runs")
+    ap.add_argument("--only", metavar="NAME,NAME,...",
+                    help="with --kernel-times: build and time only these "
+                    "kernels (names of the kernels line)")
+    ap.add_argument("--readings", action="store_true",
+                    help="build march_fused.cu and wavefront_paths.cu and "
+                    "take the readings of their redesign: the kernels "
+                    "against their plain versions at their main launches "
+                    "with the chain occupancy of each schedule, and the "
+                    "march_fused launches of train --impl fused at 1024^2")
     ap.add_argument("--sweep-min-blocks", metavar="N,N,...",
-                    help="time the render megakernels built with each "
-                    "launch bound kMinBlocks in the list (no plain version)")
+                    help="time the kernels built with each launch bound in "
+                    "the list (no plain version)")
+    ap.add_argument("--sweep-sources", metavar="SRC,SRC,...",
+                    default="mega_paths,mega_spectral,march_fused,"
+                    "wavefront_paths",
+                    help="the sources --sweep-min-blocks builds")
+    ap.add_argument("--sweep-const", metavar="NAME=V,V,...",
+                    action="append", default=[],
+                    help="time the kernels built with a schedule constant "
+                    "of csrc/ (kWaveUnroll, kWaveQueue, kMarchQueue, "
+                    "kMarchTiles) set to each value (repeatable)")
     opts = ap.parse_args(argv)
     # 1. device
     if not torch.cuda.is_available():
@@ -2683,27 +3064,37 @@ def main(argv=None) -> int:
     nvcc = _nvcc_version()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc "
           f"{nvcc}", flush=True)
+    ok = json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}})
 
-    if opts.sweep_min_blocks:
-        sweep_min_blocks(dev, card, [int(v) for v in
-                                     opts.sweep_min_blocks.split(",")])
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+    if opts.sweep_min_blocks or opts.sweep_const:
+        if opts.sweep_min_blocks:
+            sweep_min_blocks(dev, card, [int(v) for v in
+                                         opts.sweep_min_blocks.split(",")],
+                             opts.sweep_sources.split(","))
+        for spec in opts.sweep_const:
+            sweep_consts(dev, card, spec)
+        print(ok)
         return 0
 
     # 2. build
     from raymarchrenderer_tpu_torch.kernels import march
-    build_kernels(card)
+    if opts.readings:
+        build_kernels(card, ("march_fused", "wavefront_paths"))
+        readings(dev, card)
+        print(ok)
+        return 0
+    only = opts.only.split(",") if opts.only else None
+    build_kernels(card, only)
     if opts.kernel_times:
         with tempfile.TemporaryDirectory() as tmp:
             sh_scene = os.path.join(tmp, "sh.scene")
             write_sh_scene(sh_scene)
-            _log_json("kernel_times", kernel_times(dev, card, sh_scene))
+            _log_json("kernel_times", kernel_times(dev, card, sh_scene,
+                                                   only=only))
         check_digests(nvcc)
-        print(json.dumps({"ok": True, "device": {
-            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}}))
+        print(ok)
         return 0
 
     # 3. parity (its launches do not count for the main paths)
@@ -2764,10 +3155,9 @@ def main(argv=None) -> int:
         target("sphere_on_floor", 1024, False, radius), ball_albedo,
         {march.RECORD_PATHS: steps, march.MEGA_PATHS: None})[
             march.RECORD_PATHS]
-    m_launches = train_path(
-        "train sphere_on_floor 256x256 --impl fused", TRAIN_FUSED_ARGV, dev,
-        card, target("sphere_on_floor", 256, False, radius), ball_albedo,
-        {march.MARCH_FUSED: None, march.MEGA_PATHS: None})[march.MARCH_FUSED]
+    m_launches = fused_train_path(
+        dev, card, target("sphere_on_floor", 1024, False, radius),
+        ball_albedo)
     train_path("train csg --direct-light 512x512 (recorded)", TRAIN_NEE_ARGV,
                dev, card, target("csg_demo", 512, True, csg_radius),
                csg_radius,
@@ -2806,6 +3196,7 @@ def main(argv=None) -> int:
     # 5. perf
     perf(dev, card)
     train_perf(dev, card)
+    fused_train_perf(dev, card)
     spectral_train_perf(dev, card)
     env_train_perf(dev, card)
     _log_json("occupancy", OCCUPANCY)
@@ -2847,9 +3238,7 @@ def main(argv=None) -> int:
                "raymarchrenderer_tpu/kernels/march.py:782 wavefront",
                ws_launches, ws_err, ws_ms, ws_plain, ws_bound,
                exact_notes["wavefront_spectral"])]}))
-    print(json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}}))
+    print(ok)
     return 0
 
 

@@ -9,7 +9,7 @@ from __future__ import annotations
 
 import torch
 
-from .vecmath import Vec3
+from .vecmath import Vec3, div
 
 
 def wavelength_to_rgb(wl: torch.Tensor) -> Vec3:
@@ -18,28 +18,28 @@ def wavelength_to_rgb(wl: torch.Tensor) -> Vec3:
     wl = wl.to(torch.float32)
     zero = torch.zeros_like(wl)
 
-    r = torch.where((wl >= 380) & (wl < 440), -(wl - 440.0) / (440.0 - 380.0),
+    r = torch.where((wl >= 380) & (wl < 440), -div(wl - 440.0, 440.0 - 380.0),
                     zero)
-    r = torch.where((wl >= 510) & (wl < 580), (wl - 510.0) / (580.0 - 510.0), r)
+    r = torch.where((wl >= 510) & (wl < 580), div(wl - 510.0, 580.0 - 510.0), r)
     r = torch.where((wl >= 580) & (wl < 645), 1.0, r)
     r = torch.where((wl >= 645) & (wl <= 780), 1.0, r)
 
-    g = torch.where((wl >= 440) & (wl < 490), (wl - 440.0) / (490.0 - 440.0),
+    g = torch.where((wl >= 440) & (wl < 490), div(wl - 440.0, 490.0 - 440.0),
                     zero)
     g = torch.where((wl >= 490) & (wl < 510), 1.0, g)
     g = torch.where((wl >= 510) & (wl < 580), 1.0, g)
-    g = torch.where((wl >= 580) & (wl < 645), -(wl - 645.0) / (645.0 - 580.0),
+    g = torch.where((wl >= 580) & (wl < 645), -div(wl - 645.0, 645.0 - 580.0),
                     g)
 
     b = torch.where((wl >= 380) & (wl < 440), 1.0, zero)
     b = torch.where((wl >= 440) & (wl < 490), 1.0, b)
-    b = torch.where((wl >= 490) & (wl < 510), -(wl - 510.0) / (510.0 - 490.0),
+    b = torch.where((wl >= 490) & (wl < 510), -div(wl - 510.0, 510.0 - 490.0),
                     b)
 
     alpha = torch.where((wl > 780) | (wl < 380), 0.0, torch.ones_like(wl))
     alpha = torch.where((wl > 700) & (wl <= 780),
-                        (780.0 - wl) / (780.0 - 700.0), alpha)
+                        div(780.0 - wl, 780.0 - 700.0), alpha)
     alpha = torch.where((wl < 420) & (wl >= 380),
-                        (wl - 380.0) / (420.0 - 380.0), alpha)
+                        div(wl - 380.0, 420.0 - 380.0), alpha)
 
     return Vec3(r * alpha, g * alpha, b * alpha)

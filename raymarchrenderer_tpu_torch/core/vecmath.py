@@ -85,6 +85,15 @@ class Vec3(NamedTuple):
         return torch.stack([self.x, self.y, self.z], dim=dim)
 
 
+def div(x: torch.Tensor, c: float) -> torch.Tensor:
+    """x / c for a Python number c, rounded as the CPU and the CUDA kernels
+    round it on every device: torch's CUDA build divides a tensor by a
+    Python number as a product with its reciprocal, an ulp off for some
+    quotients (the plain recorder's drift on the card), so c goes in as a
+    tensor on x's device, which that build divides by."""
+    return x / torch.full((), c, dtype=x.dtype, device=x.device)
+
+
 def vselect(mask, a: Vec3, b: Vec3) -> Vec3:
     """Per-component torch.where over Vec3."""
     return Vec3(torch.where(mask, a.x, b.x), torch.where(mask, a.y, b.y),

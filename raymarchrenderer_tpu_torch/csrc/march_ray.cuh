@@ -39,51 +39,88 @@ __device__ __forceinline__ float map_with_mid(const SceneRef& s, float max_dist,
   return d;
 }
 
+// One ray's march in flight: the segment (o, d, dist_mult, t_max) and the
+// loop's carries.  `march_ray` runs it to its end; a lane machine (the RGB
+// wavefront kernel) interleaves its steps with other work.
+struct MarchState {
+  V3 o, d;
+  float dm, tmax, t, omega, prev_r, step_len;
+  int mid, step;
+  bool hit, done;
+};
+
+__device__ __forceinline__ void march_begin(MarchState& m, const MarchParams& a, V3 o, V3 d,
+                                            float dm, float tmax, bool active) {
+  m.o = o;
+  m.d = d;
+  m.dm = dm;
+  m.tmax = tmax;
+  m.t = 0.0f;
+  m.mid = -1;
+  m.hit = false;
+  m.done = !active;
+  m.omega = a.relax_omega;
+  m.prev_r = 0.0f;
+  m.step_len = 0.0f;
+  m.step = 0;
+}
+
+// whether the march takes another step (the loop's condition)
+__device__ __forceinline__ bool march_live(const MarchState& m, const MarchParams& a) {
+  return m.step < a.max_steps && !m.done;
+}
+
+// one step of the loop
+__device__ __forceinline__ void march_advance(const SceneRef& s, const MarchParams& a,
+                                              MarchState& m) {
+  int mm;
+  const float dist = map_with_mid(s, a.max_dist, add(m.o, scale(m.d, m.t)), mm) * m.dm;
+  if (a.relax) {
+    const bool fail = m.omega > 1.0f && dist + m.prev_r < m.step_len;
+    const bool is_hit = !fail && dist < a.hit_eps;
+    const bool is_miss = !fail && !is_hit && m.t >= m.tmax;
+    if (is_hit) {
+      m.mid = mm;
+      m.hit = true;
+    }
+    m.done = is_hit || is_miss;
+    const float new_len = fail ? m.step_len * (1.0f - m.omega) : dist * m.omega;
+    if (fail) m.omega = 1.0f;
+    if (!m.done) {
+      m.prev_r = fabsf(dist);
+      m.step_len = fabsf(new_len);
+      m.t = m.t + new_len;
+    }
+  } else {
+    const bool is_hit = dist < a.hit_eps;
+    const bool is_miss = m.t >= m.tmax && !is_hit;
+    if (is_hit) {
+      m.mid = mm;
+      m.hit = true;
+    }
+    m.done = is_hit || is_miss;
+    if (!m.done) m.t = m.t + dist * a.step_multiply;
+  }
+  m.step += 1;
+}
+
+// the march's result: t (t_max on a miss), and the material index (-1 on a
+// miss) and the verdict through `mid_out` and `hit_out`
+__device__ __forceinline__ float march_result(const MarchState& m, int& mid_out, bool& hit_out) {
+  mid_out = m.hit ? m.mid : -1;
+  hit_out = m.hit;
+  return m.hit ? m.t : m.tmax;
+}
+
 // (t, material index, hit) of the ray o + t d: returns t, and the index
 // and the verdict through `mid_out` and `hit_out`.
 __device__ __forceinline__ float march_ray(const SceneRef& s, const MarchParams& a, V3 o, V3 d,
                                            float dm, float tmax, bool active, int& mid_out,
                                            bool& hit_out) {
-  float t = 0.0f;
-  int mid = -1;
-  bool hit = false;
-  bool done = !active;
-  float omega = a.relax_omega;
-  float prev_r = 0.0f;
-  float step_len = 0.0f;
-  for (int step = 0; step < a.max_steps && !done; ++step) {
-    int m;
-    const float dist = map_with_mid(s, a.max_dist, add(o, scale(d, t)), m) * dm;
-    if (a.relax) {
-      const bool fail = omega > 1.0f && dist + prev_r < step_len;
-      const bool is_hit = !fail && dist < a.hit_eps;
-      const bool is_miss = !fail && !is_hit && t >= tmax;
-      if (is_hit) {
-        mid = m;
-        hit = true;
-      }
-      done = is_hit || is_miss;
-      const float new_len = fail ? step_len * (1.0f - omega) : dist * omega;
-      if (fail) omega = 1.0f;
-      if (!done) {
-        prev_r = fabsf(dist);
-        step_len = fabsf(new_len);
-        t = t + new_len;
-      }
-    } else {
-      const bool is_hit = dist < a.hit_eps;
-      const bool is_miss = t >= tmax && !is_hit;
-      if (is_hit) {
-        mid = m;
-        hit = true;
-      }
-      done = is_hit || is_miss;
-      if (!done) t = t + dist * a.step_multiply;
-    }
-  }
-  mid_out = hit ? mid : -1;
-  hit_out = hit;
-  return hit ? t : tmax;
+  MarchState m;
+  march_begin(m, a, o, d, dm, tmax, active);
+  while (march_live(m, a)) march_advance(s, a, m);
+  return march_result(m, mid_out, hit_out);
 }
 
 }  // namespace rmr

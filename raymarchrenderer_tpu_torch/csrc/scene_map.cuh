@@ -72,8 +72,12 @@ constexpr uint32_t kW3 = 0x27D4EB2Fu;
 // warps pay more than the spills they cost: re-read after the scene moved
 // to shared memory, 8 beat 4, 5, 6, 10, 12 and 16 on the RGB render and
 // recording launches (PERF.md, `chip_smoke.py --sweep-min-blocks`).
+// `kMinBlocksMarch` is march_fused.cu's bound, `kMinBlocksWavefront` the
+// RGB wavefront lane machine's (wavefront_paths.cu), read the same way.
 constexpr int kBlockThreads = 128;
 constexpr int kMinBlocks = 8;
+constexpr int kMinBlocksMarch = 12;
+constexpr int kMinBlocksWavefront = 8;
 
 constexpr float kTwoPi = 6.28318530717958647692f;  // f32(2 * pi), as 2.0 * _PI rounds
 constexpr float kPi = 3.14159265358979323846f;

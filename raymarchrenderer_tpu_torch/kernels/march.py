@@ -15,16 +15,18 @@ plane of rays.
         sky, then the composite `color + sum_k thr_k * sky_uv(u_k, v_k)`
         in plain PyTorch (it is plain XLA in the JAX package);
       - wavefront mode (`mode="wavefront"`): `csrc/wavefront_paths.cu`
-        (`WAVEFRONT_PATHS`), one thread per pixel looping `trace_rgb`
-        over the samples; with an env image it banks (throughput,
-        direction) per path slot and the composite evaluates `Scene.sky`;
+        (`WAVEFRONT_PATHS`), a lane machine that runs `trace_rgb` over
+        the samples of each pixel, march step by march step, on a pixel
+        queue; with an env image it banks (throughput, direction) per
+        path slot and the composite evaluates `Scene.sky`;
   * `render_fused_spectral` — the gen-3 spectral transport, the port of
     the TPU kernel of that name: mega mode (body `trace_mega_spectral`)
     is `csrc/mega_spectral.cu`, wavefront mode (`trace_spectral` per
     sample) `csrc/wavefront_spectral.cu`;
   * `march_fused` — the per-ray sphere trace of the differentiable path,
     the port of the TPU kernel of that name: CUDA kernel
-    `csrc/march_fused.cu`, plain version `render/integrator.py::march`.
+    `csrc/march_fused.cu` (a persistent grid on a queue of rays, its
+    counter from `_queue`), plain version `render/integrator.py::march`.
 
 The recorders (`RECORD_PATHS` and `RECORD_WAVEFRONT`, entries of
 `csrc/mega_paths.cu`; `RECORD_SPECTRAL`, an entry of
@@ -46,7 +48,7 @@ import time
 import numpy as np
 import torch
 
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3, div
 from raymarchrenderer_tpu_torch.diff.march import _leaves
 from raymarchrenderer_tpu_torch.kernels.build import CudaKernel
 from raymarchrenderer_tpu_torch.kernels import scene_program
@@ -101,7 +103,7 @@ class MarchArgs(ctypes.Structure):
     """Mirror of `struct MarchArgs` in csrc/march_fused.cu."""
     _fields_ = [(n, ctypes.c_int) for n in ("n", "max_steps", "relax")] + [
         (n, ctypes.c_float) for n in ("max_dist", "hit_eps", "step_multiply",
-                                      "relax_omega")]
+                                      "relax_omega")] + [("w", ctypes.c_int)]
 
 
 class SceneDims(ctypes.Structure):
@@ -138,8 +140,9 @@ _P = ctypes.c_void_p
 _D = ctypes.POINTER(SceneDims)
 # Every entry takes the launch scalars, then the scene's `SceneDims`, ...,
 # and ends with the stream and the device index; the persistent entries
-# of the RGB megakernel (deferred sky, recorder) take their pixel queue's
-# counter (`_queue`) before the stream.
+# (the RGB megakernel's deferred sky and recorder, the RGB wavefront
+# kernel, `march_fused`) take their queue's counter (`_queue`) before the
+# stream.
 # args, dims, corners, data, program, the output
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
@@ -158,10 +161,10 @@ MEGA_PATHS_DEFER = CudaKernel(
     [ctypes.POINTER(PathArgs), _D] + [_P] * 9 + [_P, ctypes.c_int])
 # the RGB wavefront kernel: args, dims, the sky kind, corners, data,
 # program, the output, then the thr_r, thr_g, thr_b, dir_x, dir_y, dir_z
-# banks (null without an env image)
+# banks (null without an env image), the queue
 WAVEFRONT_PATHS = CudaKernel(
     "wavefront_paths.cu", "rmr_wavefront_paths",
-    [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 10 + [
+    [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 11 + [
         _P, ctypes.c_int])
 # the spectral wavefront kernel: args, dims, corners, data, program, the
 # output
@@ -186,10 +189,11 @@ RECORD_WAVEFRONT = CudaKernel(
     "mega_paths.cu", "rmr_record_wavefront",
     [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 15 + [
         _P, ctypes.c_int])
-# args, dims, program, data, the nine input planes, the three outputs
+# args, dims, program, data, the nine input planes, the three outputs, the
+# ray queue's counter
 MARCH_FUSED = CudaKernel(
     "march_fused.cu", "rmr_march_fused",
-    [ctypes.POINTER(MarchArgs), _D] + [_P] * 14 + [_P, ctypes.c_int])
+    [ctypes.POINTER(MarchArgs), _D] + [_P] * 15 + [_P, ctypes.c_int])
 
 
 def _inv(n_samples: int, normalize: bool) -> float:
@@ -240,8 +244,8 @@ def stream_args(device):
 
 
 def _queue(device):
-    """The pixel queue's counter of one persistent launch: a zeroed int32
-    on the device, new for every launch."""
+    """The queue's counter of one persistent launch (pixels, or the rays of
+    `march_fused`): a zeroed int32 on the device, new for every launch."""
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
@@ -470,11 +474,12 @@ def _launch_wavefront_paths(scene, params, cfg, corners, origin_xy, ph, pw,
         if defer_k else []
     ptrs = [b.data_ptr() for b in banks] or [None] * 6
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
+    queue = _queue(device)
     WAVEFRONT_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
                            sky_kind(scene),
                            corners.contiguous().data_ptr(), data.data_ptr(),
                            prog.data_ptr(), out.data_ptr(), *ptrs,
-                           *stream_args(device))
+                           queue.data_ptr(), *stream_args(device))
     return (out, banks) if defer_k else out
 
 
@@ -570,7 +575,7 @@ def _render_deferred(scene, params, cfg, corners, origin_xy, ph, pw,
                                   direct_light, False, k_bank)
             part = composite_dir(scene, params, color, banks)
             total = part if total is None else total + part
-    return total / float(n_samples) if normalize else total
+    return div(total, float(n_samples)) if normalize else total
 
 
 def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
@@ -722,6 +727,14 @@ def _plane(x, shape, dtype, device) -> torch.Tensor:
         shape).contiguous()
 
 
+def ray_row(shape) -> int:
+    """The row length `w` of `march_fused`'s launch on planes of `shape`:
+    the last axis (rows of one sample in a sample-folded plane), 1 for a
+    single ray; the kernel hands its rays out in 2 x 16 tiles of rows of
+    that length."""
+    return int(shape[-1]) if len(shape) else 1
+
+
 def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
                         t_max):
     device = o.x.device
@@ -743,12 +756,14 @@ def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
     args = MarchArgs(n=t.numel(), max_steps=cfg.max_steps,
                      relax=int(cfg.relax_omega > 1.0), max_dist=cfg.max_dist,
                      hit_eps=cfg.hit_eps, step_multiply=cfg.step_multiply,
-                     relax_omega=cfg.relax_omega)
+                     relax_omega=cfg.relax_omega, w=ray_row(shape))
     dims = scene_dims(dims, device, False)
+    queue = _queue(device)
     MARCH_FUSED.launch(ctypes.byref(args), ctypes.byref(dims),
                        prog.data_ptr(), data.data_ptr(),
                        *(p.data_ptr() for p in planes), t.data_ptr(),
-                       mid.data_ptr(), hit.data_ptr(), *stream_args(device))
+                       mid.data_ptr(), hit.data_ptr(), queue.data_ptr(),
+                       *stream_args(device))
     return t, mid, hit > 0
 
 
@@ -761,8 +776,9 @@ def march_fused(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
     a bool plane.  Forward only: the outputs carry no gradient
     (`diff.march.march_diff_fused` attaches the adjoint).
 
-    CUDA planes launch `csrc/march_fused.cu`, one thread per ray, nothing
-    padded; CPU planes run `march`."""
+    CUDA planes launch `csrc/march_fused.cu`, a persistent grid whose
+    lanes take the rays from a queue (2 x 16 tiles of the planes' rows),
+    nothing padded; CPU planes run `march`."""
     device = o.x.device
     with torch.no_grad():
         if device.type == "cuda":

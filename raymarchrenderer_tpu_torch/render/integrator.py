@@ -25,7 +25,8 @@ unrolled and a scanned replay is a compile-time matter with no
 counterpart here.  `trace_rgb(defer_sky=True)` leaves the sky out and
 returns each path's miss event (throughput and direction) for a
 composite outside, as the env-map kernels do; `march(with_steps=True)`
-is not ported.
+adds each lane's count of map evaluations (the occupancy readings of
+the march kernels).
 """
 from __future__ import annotations
 
@@ -33,7 +34,7 @@ import torch
 
 from raymarchrenderer_tpu_torch.core.rng import RNGStream
 from raymarchrenderer_tpu_torch.core.sampling import uniform_sphere
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3, div, vselect
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.raygen import eye_vec, primary_rays
 from raymarchrenderer_tpu_torch.scene.graph import Scene
@@ -46,7 +47,8 @@ MARCH_IMPLS = ("oracle", "fused", "recorded")
 
 
 def march(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
-          dist_mult, active, t_max=None, work: dict = None):
+          dist_mult, active, t_max=None, work: dict = None,
+          with_steps: bool = False):
     """Sphere trace of every lane of the planes `o`, `d`: returns
     (t, material index, hit mask).
 
@@ -59,10 +61,13 @@ def march(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
     inactive lanes return as misses.  The loop ends when every lane is
     done, which changes no lane's result.  `work`, when given, gains under
     "march" the map evaluations of live lanes (a device tensor), what a
-    one-thread-per-ray kernel evaluates."""
+    one-thread-per-ray kernel evaluates, and a list under "lane_steps"
+    gains each call's per-lane counts.  `with_steps=True` returns a 4th
+    output, each lane's count of map evaluations (int32): the steps it was
+    live, which sum to that "march" count."""
     if cfg.relax_omega > 1.0:
         return _march_relaxed(scene, params, cfg, o, d, dist_mult, active,
-                              t_max, work)
+                              t_max, work, with_steps)
     tmax = cfg.max_dist if t_max is None else t_max
     shape = o.x.shape
     dev = o.x.device
@@ -70,6 +75,9 @@ def march(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
     mid = torch.full(shape, -1, dtype=torch.int32, device=dev)
     hitm = torch.zeros(shape, dtype=torch.bool, device=dev)
     done = ~active
+    steps = torch.zeros(shape, dtype=torch.int32, device=dev)
+    lanes = None if work is None else work.get("lane_steps")
+    count = with_steps or lanes is not None
     for _ in range(cfg.max_steps):
         if bool(done.all()):
             break
@@ -78,22 +86,28 @@ def march(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
         live = ~done
         if work is not None:
             work["march"] = work.get("march", 0) + live.sum()
+        if count:
+            steps = steps + live.to(torch.int32)
         is_hit = (dist < cfg.hit_eps) & live
         is_miss = (t >= tmax) & live & ~is_hit
         mid = torch.where(is_hit, m, mid)
         hitm = hitm | is_hit
         done = done | is_hit | is_miss
         t = torch.where(done, t, t + dist * cfg.step_multiply)
-    return (torch.where(hitm, t, tmax), torch.where(hitm, mid, -1), hitm)
+    if lanes is not None:
+        lanes.append(steps)
+    out = (torch.where(hitm, t, tmax), torch.where(hitm, mid, -1), hitm)
+    return (*out, steps) if with_steps else out
 
 
 def _march_relaxed(scene: Scene, params, cfg: RenderConfig, o: Vec3,
-                   d: Vec3, dist_mult, active, t_max=None, work=None):
+                   d: Vec3, dist_mult, active, t_max=None, work=None,
+                   with_steps: bool = False):
     """Safeguarded over-relaxed sphere trace (Keinert et al. 2014): a step
     t += dist * omega stands only while consecutive unbounding spheres
     overlap (dist + prev_r >= step_len); on a failure the lane backs off by
     step_len * (1 - omega) and finishes the segment at omega = 1.  Same
-    contract as `march`."""
+    contract as `march` (`work`, `with_steps` included)."""
     tmax = cfg.max_dist if t_max is None else t_max
     shape = o.x.shape
     dev = o.x.device
@@ -105,6 +119,9 @@ def _march_relaxed(scene: Scene, params, cfg: RenderConfig, o: Vec3,
                        device=dev)
     prev_r = torch.zeros(shape, dtype=torch.float32, device=dev)
     step_len = torch.zeros(shape, dtype=torch.float32, device=dev)
+    steps = torch.zeros(shape, dtype=torch.int32, device=dev)
+    lanes = None if work is None else work.get("lane_steps")
+    count = with_steps or lanes is not None
     for _ in range(cfg.max_steps):
         if bool(done.all()):
             break
@@ -113,6 +130,8 @@ def _march_relaxed(scene: Scene, params, cfg: RenderConfig, o: Vec3,
         live = ~done
         if work is not None:
             work["march"] = work.get("march", 0) + live.sum()
+        if count:
+            steps = steps + live.to(torch.int32)
         fail = live & (omega > 1.0) & (dist + prev_r < step_len)
         is_hit = live & ~fail & (dist < cfg.hit_eps)
         is_miss = live & ~fail & ~is_hit & (t >= tmax)
@@ -125,7 +144,10 @@ def _march_relaxed(scene: Scene, params, cfg: RenderConfig, o: Vec3,
         prev_r = torch.where(adv, torch.abs(dist), prev_r)
         step_len = torch.where(adv, torch.abs(new_len), step_len)
         t = torch.where(adv, t + new_len, t)
-    return (torch.where(hitm, t, tmax), torch.where(hitm, mid, -1), hitm)
+    if lanes is not None:
+        lanes.append(steps)
+    out = (torch.where(hitm, t, tmax), torch.where(hitm, mid, -1), hitm)
+    return (*out, steps) if with_steps else out
 
 
 def get_normal(scene: Scene, params, cfg: RenderConfig, p: Vec3) -> Vec3:
@@ -227,7 +249,7 @@ def _direct_light(scene: Scene, params, cfg: RenderConfig, hitp: Vec3,
         lit = sd >= dist_l
         cos_t = torch.clamp(ldir.dot(normal), min=0.0)
         fall = lpower / torch.clamp(dist_l * dist_l, min=1e-8)
-        contrib = throughput * albedo * (cos_t * fall / _PI)
+        contrib = throughput * albedo * div(cos_t * fall, _PI)
         total = total + vselect(lit & mask, contrib, _zeros3(shape,
                                                              hitp.x.device))
     return total

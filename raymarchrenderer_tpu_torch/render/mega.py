@@ -51,7 +51,8 @@ from raymarchrenderer_tpu_torch.core.rng import RNGStream
 from raymarchrenderer_tpu_torch.core.sampling import (
     uniform_sphere, uniform_sphere_or_hemisphere)
 from raymarchrenderer_tpu_torch.core.spectral import wavelength_to_rgb
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3, atan2_poly, vselect
+from raymarchrenderer_tpu_torch.core.vecmath import (Vec3, atan2_poly, div,
+                                                     vselect)
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import get_normal
 from raymarchrenderer_tpu_torch.render.raygen import eye_vec, primary_rays
@@ -336,7 +337,7 @@ def pack_uv(d: Vec3) -> torch.Tensor:
     two_pi = 6.283185307179586
     phi = atan2_poly(d.z, d.x)
     phi = torch.where(phi < 0, phi + two_pi, phi)
-    uu = phi / two_pi
+    uu = div(phi, two_pi)
     vv = 1.0 - (d.y * 0.5 + 0.5)
     ui = torch.clamp((uu * 65536.0).to(torch.int32), 0, 65535)
     vi = torch.clamp((vv * 65536.0).to(torch.int32), 0, 65535)
@@ -547,7 +548,7 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
         ldir = delta / torch.clamp(dist_l, min=1e-8)
         cos_t = torch.clamp(ldir.dot(normal), min=0.0)
         fall = lpower / torch.clamp(dist_l * dist_l, min=1e-8)
-        return ldir, dist_l, thr * (cos_t * fall / _PI)
+        return ldir, dist_l, thr * div(cos_t * fall, _PI)
 
     def shade(st):
         waiting = st.state == _WAIT

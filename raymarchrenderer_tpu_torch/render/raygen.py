@@ -11,7 +11,7 @@ from __future__ import annotations
 import torch
 
 from raymarchrenderer_tpu_torch.core.rng import RNGStream
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vlerp
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3, div, vlerp
 
 
 def pixel_grid(width: int, height: int, device, origin_xy=(0, 0)):
@@ -35,8 +35,8 @@ def primary_rays(corners, px, py, width: int, height: int,
     r00, r10, r01, r11 = (_corner(corners, k) for k in range(1, 5))
     ux = rng.next()
     uy = rng.next()
-    fx = (px.to(torch.float32) + ux) / width
-    fy = (py.to(torch.float32) + uy) / height
+    fx = div(px.to(torch.float32) + ux, width)
+    fy = div(py.to(torch.float32) + uy, height)
     d = vlerp(vlerp(r00, r10, fx), vlerp(r01, r11, fx), fy)
     return d.normalized()
 

@@ -26,7 +26,7 @@ from raymarchrenderer_tpu_torch.core.rng import RNGStream
 from raymarchrenderer_tpu_torch.core.sampling import (
     uniform_sphere_or_hemisphere)
 from raymarchrenderer_tpu_torch.core.spectral import wavelength_to_rgb
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3, div, vselect
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (_march_fns,
                                                           accumulate,
@@ -86,7 +86,7 @@ def _apply_band(wl, power, u, min_w, max_w, mat_p):
     unset (wl == 0): wl = floor(u*(max-min)/5)*5 + min, power *= p.
     set: outside [min, max] -> absorbed (wl := 0, terminate);
          inside -> power *= p.  Returns (wl, power, absorbed)."""
-    r = u * (max_w - min_w) / 5.0
+    r = div(u * (max_w - min_w), 5.0)
     sampled = torch.floor(r) * 5.0 + min_w
     unset = wl == 0.0
     outside = (wl < min_w) | (wl > max_w)

@@ -36,7 +36,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
+from raymarchrenderer_tpu_torch.core.vecmath import Vec3, div, vselect
 from raymarchrenderer_tpu_torch.scene.nodes import (
     MATERIAL_NODES, OBJECT_NODES, ShadeCtx, ShaderOut, misc_fresnel,
     shader_diffuse2, shader_glossy2, shader_mix2)
@@ -295,7 +295,7 @@ class Scene:
             two_pi = 2.0 * np.pi
             phi = torch.atan2(direction.z, direction.x)
             phi = torch.where(phi < 0, phi + two_pi, phi)
-            u = phi / two_pi
+            u = div(phi, two_pi)
             v = 1.0 - (direction.y * 0.5 + 0.5)
             return self.sky_uv(params, u, v)
         if self.has_sh_env:

@@ -435,6 +435,47 @@ def test_march_fused_kernel_matches_plain(cuda_device, relax):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("shape", [(37, 53), (1000,), (3, 5, 7)],
+                         ids=["odd_plane", "one_row", "three_axes"])
+def test_march_fused_ray_queue(cuda_device, shape):
+    """`march_fused` on planes of rays that are no multiple of 128 (nor of
+    its 2 x 16 queue tiles): mixed inactive lanes, a quarter inside the
+    ball with dist_mult -1, a per-lane t_max (the shadow-style plane).
+    Against `integrator.march` on the same planes to the banks' bar, the
+    same bytes on a second launch (the queue's counter is new for every
+    launch), and each ray's outputs the same bytes when it is marched
+    within a larger plane (a ray does not depend on its slot or lane)."""
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=80, height=48, max_steps=160, max_dist=100.0,
+                       relax_omega=1.9)
+    n = int(np.prod(shape))
+    o, d, dm, act, tmax = _ray_planes(cuda_device, 48, 80, seed=9)
+
+    def first(x):
+        """The plane's first n rays, row-major, as `shape`."""
+        return x.reshape(-1)[:n].reshape(shape)
+
+    planes = (Vec3(*map(first, o)), Vec3(*map(first, d)), first(dm),
+              first(act), first(tmax))
+    got = march.march_fused(scene, params, cfg, *planes[:4], t_max=planes[4])
+    again = march.march_fused(scene, params, cfg, *planes[:4],
+                              t_max=planes[4])
+    whole = march.march_fused(scene, params, cfg, o, d, dm, act, t_max=tmax)
+    torch.cuda.synchronize()
+    assert got[0].shape == shape
+    for a, b, w in zip(got, again, whole):
+        assert torch.equal(a, b)
+        assert torch.equal(a.reshape(-1), w.reshape(-1)[:n])
+    pt, pmid, phit = integrator.march(scene, params, cfg, *planes[:4],
+                                      t_max=planes[4])
+    _assert_banks_match({"t": got[0], "mid": got[1], "hit": got[2].int()},
+                        {"t": pt, "mid": pmid, "hit": phit.int()})
+    assert not bool(got[2][~planes[3]].any())
+    assert 0 < int(got[2].sum()) < n
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("name,nee,taps", [("demo", False, 4),
                                           ("csg", True, 4), ("csg", True, 0)])
 def test_train_grads_kernel_banks_match_plain_banks(cuda_device, name, nee,
@@ -779,6 +820,71 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
         assert off < MAX_FRAC_OFF, off
     if k:
         assert float(got[1][0][5:].abs().max()) == 0.0   # untraced slots
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", ["sphere_on_floor", "csg_dispersion_nee_rr",
+                                  "env_partial_chunk", "exact_normal"])
+def test_wavefront_lane_machine_odd_patch_and_reset(cuda_device, case):
+    """The RGB wavefront lane machine on a 37 x 53 patch (no multiple of
+    its 2 x 16 queue tiles) at (11, 5) of a 96 x 64 frame: the same bytes
+    as the whole frame's launch on those pixels (a pixel's chain does not
+    depend on the lane or the queue slot that runs it) and as a second
+    launch (the queue's counter is new for every launch), and its plain
+    version's values to the bars of test_wavefront_kernel_matches_plain.
+    "env_partial_chunk" traces 3 path slots of a bank of 8 (the last
+    chunk of a render, n_valid < K) under dispersion and NEE; the untraced
+    slots stay zero."""
+    extra, nee, k = {}, False, 0
+    if case == "sphere_on_floor":
+        scene = builtin.sphere_on_floor()
+    elif case == "env_partial_chunk":
+        scene, nee, k = _env_scene("nee"), True, 8
+        extra = dict(separate_channels=True)
+    else:
+        scene, nee = builtin.csg_demo(), True
+        extra = dict(separate_channels=case != "exact_normal",
+                     rr_start_bounce=1)
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=16,
+                       max_dist=100.0, relax_omega=2.0,
+                       normal_taps=0 if case == "exact_normal" else 4,
+                       **extra)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    n = 3
+
+    def launch(origin, ph, pw):
+        args = (scene, params, cfg, corners, origin, ph, pw, 5, n, nee,
+                k == 0, k)
+        out = march._launch_wavefront_paths(*args)
+        return args, ([out[0].movedim(-1, 0), *out[1]] if k
+                      else [out.movedim(-1, 0)])
+
+    launches = march.WAVEFRONT_PATHS.launches
+    args, first = launch((11, 5), 37, 53)
+    _, second = launch((11, 5), 37, 53)
+    _, frame = launch((0, 0), 64, 96)
+    torch.cuda.synchronize()
+    assert march.WAVEFRONT_PATHS.launches == launches + 3
+    assert float(first[0].abs().max()) > 0.0
+    for a, b, f in zip(first, second, frame):
+        assert torch.equal(a, b)
+        assert torch.equal(a, f[..., 5:42, 11:64])
+    want = march.wavefront_paths_plain(*args)
+    img_w = (want[0] if k else want).movedim(-1, 0).cpu().numpy()
+    img_g = first[0].cpu().numpy()
+    if nee:
+        assert_nee_close(img_w, img_g)
+    else:
+        assert frac_off(img_w, img_g) < MAX_FRAC_OFF
+    if k:
+        for i, (w, g) in enumerate(zip(want[1], first[1:])):
+            tol = 1e-5 if i < 3 else 1e-4
+            assert frac_off(w.cpu().numpy(), g.cpu().numpy(), tol) < \
+                MAX_FRAC_OFF
+        assert float(first[1][n:].abs().max()) == 0.0   # untraced slots
+        assert float(first[1][:n].abs().max()) > 0.0
 
 
 @pytest.mark.requires_cuda
