@@ -178,10 +178,8 @@ readings go to smoke_out/.
     python3 chip_smoke.py --kernel-times        # build, counts, times,
                                                 # digests; no plain version
     python3 chip_smoke.py --kernel-times --only march_fused,wavefront_paths
-    python3 chip_smoke.py --readings            # march_fused.cu and
-                          # wavefront_paths.cu: parity, chain occupancy,
-                          # the march_fused launches of train --impl fused
-    python3 chip_smoke.py --sweep-min-blocks 4,6,8   # the launch bounds
+    python3 chip_smoke.py --sweep-min-blocks 4,6,8   # each source's launch
+                                                # bound, one source a build
     python3 chip_smoke.py --sweep-const kWaveUnroll=4,16   # a schedule
                                                 # constant of csrc/
 
@@ -191,7 +189,9 @@ with this script copied in, to time both trees in one call.
 The line before the last is a JSON object with one entry per kernel of the
 paths (each shading kernel's with a `normal_taps_0` note: its
 exact-normal patch's max error, times and bound, and its launches on the
-exact-normal main path where one runs it); the last line is
+exact-normal main path where one runs it; march_fused's with a
+`train_step` note: the 8 launches of one `train --impl fused` step, their
+ms, bound and max abs error against the plain march); the last line is
 {"ok": true, "device": {...}}.
 Imports nothing of JAX.
 """
@@ -199,6 +199,7 @@ from __future__ import annotations
 
 import hashlib
 import json
+import math
 import os
 import re
 import shutil
@@ -597,6 +598,12 @@ _BOUNDS = {"mega_paths": ("scene_map.cuh", "kMinBlocks"),
            "wavefront_paths": ("scene_map.cuh", "kMinBlocksWavefront")}
 
 
+# the schedule constants of csrc/ a sweep may set, by the source that reads
+# them: each launch bound, and the steps a pass or a visit
+_CONSTS = {const: src for src, (_, const) in _BOUNDS.items()}
+_CONSTS.update(kWaveUnroll="wavefront_paths", kMarchUnroll="march_fused")
+
+
 def _min_blocks(source: str) -> int:
     """A kernel's launch bound: its resident blocks per SM at its register
     cap (`_BOUNDS`: kMinBlocks of csrc/scene_map.cuh for the RGB lane
@@ -864,11 +871,33 @@ def _shadow_plane(dev, h=512, w=1024, seed=5):
             put(rng.uniform(2.0, 12.0, (h, w))))
 
 
+def _march_bytes(o, d, dist_mult, active, t_max):
+    """The bytes one march must move (`_bound`): every ray's active flag
+    and its three outputs (t, material index, hit: 9 bytes); each active
+    ray's origin and direction, and its dist_mult and t_max where they are
+    planes.  A number, or a plane expanded from one, is read once."""
+    shape = torch.broadcast_shapes(*(c.shape for c in (*o, *d)))
+    n = math.prod(shape)
+
+    def plane(x):
+        return (isinstance(x, torch.Tensor) and x.numel() == n
+                and all(st != 0 for st, k in zip(x.stride(), x.shape)
+                        if k > 1))
+
+    act = torch.as_tensor(active).expand(shape)
+    flag = act.element_size() if plane(active) else 0
+    per_ray = [x.element_size() for x in (*o, *d, dist_mult, t_max)
+               if plane(x)]
+    once = 4 * sum(1 for x in (*o, *d, dist_mult, t_max)
+                   if x is not None and not plane(x))
+    return n * (flag + 9) + int(act.sum()) * sum(per_ray) + once
+
+
 def _march_fns(dev):
-    """(kernel, plain, scene, cfg, params, n) of `march_fused` on the train
-    launch's sample-folded primary plane (4 * 1024, 1024) of n rays; both
-    take optional other planes (o, d, dist_mult, active, t_max), `plain`
-    first a work dict."""
+    """(kernel, plain, scene, cfg, params, bytes) of `march_fused` on the
+    train launch's sample-folded primary plane (4 * 1024, 1024), the bytes
+    its march must move (`_march_bytes`); both take optional other planes
+    (o, d, dist_mult, active, t_max), `plain` first a work dict."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels.march import march_fused
     from raymarchrenderer_tpu_torch.render.integrator import march, spp_rays
@@ -893,7 +922,8 @@ def _march_fns(dev):
         return planes(march(scene, params, cfg, o, d, dm, act, t_max=t_max,
                             work=work))
 
-    return kernel, plain, scene, cfg, params, eye.x.numel()
+    return (kernel, plain, scene, cfg, params,
+            _march_bytes(eye, d, 1.0, act, None))
 
 
 def parity_march(dev, card):
@@ -903,7 +933,7 @@ def parity_march(dev, card):
     multiple of 128)."""
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         object_buffers)
-    kernel, plain, scene, cfg, params, n = _march_fns(dev)
+    kernel, plain, scene, cfg, params, nbytes = _march_fns(dev)
     max_err, ms, plain_ms, work = _main_launch(
         f"march_fused, the train launch's primary plane "
         f"({TRAIN_SPP}x1024, 1024)", kernel, plain, card, _planes_compare,
@@ -913,8 +943,7 @@ def parity_march(dev, card):
         march_occupancy(f"march_fused, the train launch's primary plane "
                         f"({TRAIN_SPP}x1024, 1024)", steps[0])
     prog, data, _ = object_buffers(scene, params, dev)
-    bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
-                   12 * n)
+    bound = _bound(scene, cfg, work, nbytes + _buffer_bytes(prog, data), 0)
     o, d2, dm, act2, tmax = _shadow_plane(dev)
     steps = {"lane_steps": []}
     max_err = max(max_err, _planes_compare(
@@ -1267,14 +1296,26 @@ class MarchLog:
     """The `march_fused` launches made while the log is open: each
     launch's plane shape, active lanes and CUDA-event time, through the
     wrapper's `_launch_march_fused` (wrapped while open; the events add
-    nothing to a launch)."""
+    nothing to a launch).  With `keep`, `planes` gathers each launch's
+    arguments (scene, params, cfg, o, d, dist_mult, active, t_max), its
+    tensors detached copies."""
+
+    def __init__(self, keep=False):
+        self.keep = keep
 
     def __enter__(self):
         from raymarchrenderer_tpu_torch.kernels import march
-        self.calls = []
+        self.calls, self.planes = [], []
         self._orig = orig = march._launch_march_fused
 
+        def copy(x):
+            return x.detach().clone() if isinstance(x, torch.Tensor) else x
+
         def logged(scene, params, cfg, o, d, dist_mult, active, t_max):
+            if self.keep:
+                self.planes.append((scene, params, cfg, type(o)(*map(copy, o)),
+                                    type(d)(*map(copy, d)), copy(dist_mult),
+                                    copy(active), copy(t_max)))
             shape = tuple(torch.broadcast_shapes(*(c.shape
                                                    for c in (*o, *d))))
             act = torch.as_tensor(active, device=o.x.device).expand(shape)
@@ -2400,7 +2441,6 @@ def _train_march_planes(dev):
     relax 1.9): [(scene, params, cfg, o, d, dist_mult, active, t_max)] as
     the wrapper got them, the planes detached."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
-    from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.parallel.sharding import (
         train_grads_sharded)
     from raymarchrenderer_tpu_torch.scene import builtin
@@ -2410,26 +2450,11 @@ def _train_march_planes(dev):
     cfg = _train_cfg(1024)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
     target = torch.full((1024, 1024, 3), 0.2, device=dev)
-    calls = []
-    orig = march._launch_march_fused
-
-    def keep(x):
-        return x.detach().clone() if isinstance(x, torch.Tensor) else x
-
-    def capture(scene, params, cfg, o, d, dist_mult, active, t_max):
-        calls.append((scene, params, cfg, type(o)(*map(keep, o)),
-                      type(d)(*map(keep, d)), keep(dist_mult), keep(active),
-                      keep(t_max)))
-        return orig(scene, params, cfg, o, d, dist_mult, active, t_max)
-
-    march._launch_march_fused = capture
-    try:
+    with MarchLog(keep=True) as log:
         train_grads_sharded(scene, params, cfg, corners, target, TRAIN_SPP,
                             march_impl="fused")
-    finally:
-        march._launch_march_fused = orig
     torch.cuda.synchronize()
-    return calls
+    return log.planes
 
 
 def _main_kernels(dev, sh_scene_path):
@@ -2437,11 +2462,13 @@ def _main_kernels(dev, sh_scene_path):
     bytes)} of every kernel at its main path's launch; `plain(n, work)`
     runs the plain version at n samples (paths) from 0, counting `work`.
     "march_fused_step" is every `march_fused` launch of one `train --impl
-    fused` step (8 planes of 4 * 1024 x 1024 rays)."""
+    fused` step (8 planes of 4 * 1024 x 1024 rays); its bytes are the
+    planes' (`_march_bytes`), in and out."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         object_buffers, paths_buffers, spectral_buffers)
+    from raymarchrenderer_tpu_torch.render import integrator
     pix = 1024 * 1024
     res = {}
 
@@ -2483,9 +2510,16 @@ def _main_kernels(dev, sh_scene_path):
     res["march_fused"] = (kernel, None, TRAIN_SPP, scene, cfg,
                           object_buffers(scene, params, dev), 0)
     planes = _train_march_planes(dev)
+
+    def step_plain(m, work):
+        with torch.no_grad():
+            return [integrator.march(*c[:7], t_max=c[7], work=work)
+                    for c in planes]
+
     res["march_fused_step"] = (
         lambda: [march.march_fused(*c[:7], t_max=c[7]) for c in planes],
-        None, TRAIN_SPP, scene, cfg, object_buffers(scene, params, dev), 0)
+        step_plain, TRAIN_SPP, scene, cfg, object_buffers(scene, params, dev),
+        sum(_march_bytes(*c[3:]) for c in planes))
     _, _, scene, cfg, params = _paths_fns(dev, "sphere_on_floor", 1)
     corners = Camera(aspect=1.0).corner_rays_flat(dev)
     res["wavefront_paths"] = (
@@ -2527,6 +2561,23 @@ _KERNEL_OF = {"mega_paths": "MEGA_PATHS", "mega_paths_csg_nee": "MEGA_PATHS",
               "wavefront_spectral": "WAVEFRONT_SPECTRAL"}
 
 
+def _step_compare(got, want):
+    """Each `march_fused` launch of a train step against the plain march
+    on the same plane (`_planes_compare`).  Returns the max abs t error."""
+    def planes(out):
+        return {"t": out[0], "mid": out[1], "hit": out[2].int()}
+
+    return max(_planes_compare(
+        f"march_fused, train step march {i} {tuple(g[0].shape)}",
+        planes(g), planes(w))
+        for i, (g, w) in enumerate(zip(got, want)))
+
+
+# the launches whose output kernel_times(bounds=True) holds against the
+# plain run that counts their work
+_COMPARED = {"march_fused_step": _step_compare}
+
+
 def _cuda_ms_each(fn, reps: int) -> list:
     """Milliseconds of each of `reps` calls, by CUDA events."""
     events = []
@@ -2550,8 +2601,10 @@ def kernel_times(dev, card, sh_scene_path, bounds=False, only=None):
     another tree in the same call by running this script in its checkout).
     With `bounds`, the launches of `_SCALED` also get their bound, from
     their plain version's work on a 1024^2 run of 8 samples (8 paths)
-    scaled to the launch's 128 samples (32 paths).  Prints one `kernel
-    times:` JSON line and returns {name: reading}."""
+    scaled to the launch's 128 samples (32 paths), and "march_fused_step"
+    from its plain marches' work, whose output is also held against the
+    warm-up's (`_COMPARED`).  Prints one `kernel times:` JSON line and
+    returns {name: reading}."""
     res = {}
     for name, (kernel, plain, n, scene, cfg, bufs, out_bytes) in \
             _main_kernels(dev, sh_scene_path).items():
@@ -2560,7 +2613,9 @@ def kernel_times(dev, card, sh_scene_path, bounds=False, only=None):
         out = kernel()
         torch.cuda.synchronize()
         _digest("main: " + name, *_tensors(out))
-        del out
+        compare = _COMPARED.get(name) if bounds else None
+        if compare is None:
+            del out
         each = _cuda_ms_each(kernel, reps=3)
         ms = sum(each) / len(each)
         r = {"ms": ms, "ms_min": min(each), "ms_max": max(each),
@@ -2569,13 +2624,18 @@ def kernel_times(dev, card, sh_scene_path, bounds=False, only=None):
                 f" (recorded before the redesign, BEFORE_MS: "
                 f"{r['recorded_before_ms']:.3f} ms, "
                 f"{100.0 * (ms / r['recorded_before_ms'] - 1.0):+.2f}%)")
-        if bounds and name in _SCALED:
-            m = 8
+        if bounds and (name in _SCALED or compare):
+            m = 8 if name in _SCALED else n
             work = {}
-            plain(m, work)
+            want = plain(m, work)
             torch.cuda.synchronize()
+            if compare:
+                r["max_abs_err"] = compare(out, want)
+                del out
+            del want
             scale = n // m
-            scaled = {k: int(work[k]) * scale for k in ("march", "shade")}
+            scaled = {k: int(work.get(k, 0)) * scale
+                      for k in ("march", "shade")}
             r["bound_ms"], r["bound_by"], _ = _bound(
                 scene, cfg, scaled, 15 * 4 + _buffer_bytes(*bufs[:2]),
                 out_bytes)
@@ -2617,21 +2677,21 @@ def _variant_source(csrc, dst, consts):
             raise AssertionError(f"{const} defined {hits} times in csrc/")
 
 
-def sweep(dev, card, variants, sources):
+def sweep(dev, card, variants):
     """Variants of kernels timed in one process: csrc/ copied once per
-    variant (`variants`: [(label, {constant: value})]), each variant's
-    `sources` built (every nvcc started together, registers and spills
-    printed), then each of their kernels at its main launch timed (mean
-    of 3 by CUDA events after a warm-up, and the range) through the
-    wrappers with that build's entry points.  Every build must give the
-    same output bytes.  Prints one `sweep:` JSON line."""
+    variant (`variants`: [(label, {constant: value})]), the sources that
+    read its constants (`_CONSTS`) built (every nvcc started together,
+    registers and spills printed), then each of their kernels at its main
+    launch timed (mean of 3 by CUDA events after a warm-up, and the range)
+    through the wrappers with that build's entry points.  Every build must
+    give the same output bytes.  Prints one `sweep:` JSON line."""
     import ctypes
     from raymarchrenderer_tpu_torch.kernels import build, march
     from raymarchrenderer_tpu_torch.kernels.build import ptxas_usage
     tmp = tempfile.TemporaryDirectory()
     jobs = []               # (variant label, source stem, .cu, .so)
     for label, consts in variants:
-        for src in sources:
+        for src in sorted({_CONSTS[c] for c in consts}):
             dst = os.path.join(tmp.name, f"v{len(jobs)}")
             _variant_source(build.CSRC, dst, consts)
             jobs.append((label, src, os.path.join(dst, src + ".cu"),
@@ -2693,39 +2753,33 @@ def sweep(dev, card, variants, sources):
     return res
 
 
-def sweep_min_blocks(dev, card, values, sources):
-    """The launch bounds re-read: each source's bound (`_BOUNDS`) set to
-    each of `values` (`sweep`)."""
-    return sweep(dev, card, [(f"min blocks {v}", {
-        _BOUNDS[src][1]: v for src in sources}) for v in values], sources)
-
-
-def sweep_consts(dev, card, spec):
-    """Design variants: `spec` "NAME=V1,V2,...[:NAME=...]" sets the
-    constants NAME of csrc/ to each combination of their values in turn
-    (`sweep`), for the source that reads them."""
+def sweep_consts(dev, card, specs):
+    """Design variants, all built and timed in one `sweep`: each spec
+    "NAME=V1,V2,...[:NAME=...]" sets the constants NAME of csrc/
+    (`_CONSTS`) to each combination of their values in turn."""
     import itertools
-    owner = {"kWaveUnroll": "wavefront_paths", "kWaveQueue": "wavefront_paths",
-             "kMinBlocksWavefront": "wavefront_paths",
-             "kMarchQueue": "march_fused", "kMarchTiles": "march_fused",
-             "kMarchUnroll": "march_fused", "kMinBlocksMarch": "march_fused"}
-    axes = [(c, v.split(",")) for c, v in
-            (part.split("=") for part in spec.split(":"))]
-    sources = sorted({owner[c] for c, _ in axes})
     variants = []
-    for values in itertools.product(*(v for _, v in axes)):
-        consts = {c: v for (c, _), v in zip(axes, values)}
-        variants.append((", ".join(f"{c} {v}" for c, v in consts.items()),
-                         consts))
-    return sweep(dev, card, variants, sources)
+    for spec in specs:
+        axes = [(c, v.split(",")) for c, v in
+                (part.split("=") for part in spec.split(":"))]
+        unknown = [c for c, _ in axes if c not in _CONSTS]
+        if unknown:
+            raise SystemExit(f"--sweep-const: no such constant {unknown}; "
+                             f"one of {sorted(_CONSTS)}")
+        for values in itertools.product(*(v for _, v in axes)):
+            consts = {c: v for (c, _), v in zip(axes, values)}
+            variants.append((", ".join(f"{c} {v}"
+                                       for c, v in consts.items()), consts))
+    return sweep(dev, card, variants)
 
 
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
-           exact=None):
+           exact=None, **notes):
     """One kernel of the `kernels` line (every number read in this run,
     the bound computed from it); `exact` is its `normal_taps_0`
     note (the exact-normal instantiation on its parity patch, and its
-    launches on the exact-normal main path where one runs it)."""
+    launches on the exact-normal main path where one runs it); `notes`
+    are further readings of this run."""
     entry = {"name": name, "route": "cuda",
              "source": f"raymarchrenderer_tpu_torch/csrc/{source}",
              "replaces": replaces, "launches": launches,
@@ -2733,6 +2787,7 @@ def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
              "bound_ms": bound[0], "bound_by": bound[1], "library_ms": None}
     if exact is not None:
         entry["normal_taps_0"] = exact
+    entry.update(notes)
     return entry
 
 
@@ -2946,24 +3001,6 @@ def _instantiation(fn):
             + (" exact" if exact else ""))
 
 
-def readings(dev, card):
-    """The readings behind the redesign of march_fused.cu and
-    wavefront_paths.cu (`--readings`): each kernel against its plain
-    version at its main launch, with the chain occupancy of each schedule
-    from the plain versions' per-lane steps (`parity_march`,
-    `parity_wavefront_paths`; on a tree whose plain march keeps no
-    per-lane steps the occupancy is left out), then `train --impl fused`
-    at 1024^2 through the CLI and its step, with every march_fused
-    launch's plane, active lanes and time."""
-    parity_march(dev, card)
-    parity_wavefront_paths(dev, card)
-    fused_train_path(dev, card, lambda path: _write_target(
-        path, dev, "sphere_on_floor", 1024, False,
-        lambda tree: tree["objects"][1][1]),
-        lambda tree: tree["materials"][2][0])
-    fused_train_perf(dev, card)
-
-
 def build_kernels(card, only=None):
     """Phase 2: every source built by its own nvcc, all started together
     (the entries of one source share its library: one builds, the others
@@ -3034,24 +3071,15 @@ def main(argv=None) -> int:
     ap.add_argument("--only", metavar="NAME,NAME,...",
                     help="with --kernel-times: build and time only these "
                     "kernels (names of the kernels line)")
-    ap.add_argument("--readings", action="store_true",
-                    help="build march_fused.cu and wavefront_paths.cu and "
-                    "take the readings of their redesign: the kernels "
-                    "against their plain versions at their main launches "
-                    "with the chain occupancy of each schedule, and the "
-                    "march_fused launches of train --impl fused at 1024^2")
     ap.add_argument("--sweep-min-blocks", metavar="N,N,...",
                     help="time the kernels built with each launch bound in "
-                    "the list (no plain version)")
-    ap.add_argument("--sweep-sources", metavar="SRC,SRC,...",
-                    default="mega_paths,mega_spectral,march_fused,"
-                    "wavefront_paths",
-                    help="the sources --sweep-min-blocks builds")
-    ap.add_argument("--sweep-const", metavar="NAME=V,V,...",
+                    "the list, each source's bound on its own (a "
+                    "--sweep-const of each; no plain version)")
+    ap.add_argument("--sweep-const", metavar="NAME=V,V,...[:NAME=...]",
                     action="append", default=[],
-                    help="time the kernels built with a schedule constant "
-                    "of csrc/ (kWaveUnroll, kWaveQueue, kMarchQueue, "
-                    "kMarchTiles) set to each value (repeatable)")
+                    help="time the kernels built with schedule constants "
+                    f"of csrc/ ({', '.join(sorted(_CONSTS))}) set to each "
+                    "combination of the values (repeatable)")
     opts = ap.parse_args(argv)
     # 1. device
     if not torch.cuda.is_available():
@@ -3068,23 +3096,17 @@ def main(argv=None) -> int:
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}})
 
-    if opts.sweep_min_blocks or opts.sweep_const:
-        if opts.sweep_min_blocks:
-            sweep_min_blocks(dev, card, [int(v) for v in
-                                         opts.sweep_min_blocks.split(",")],
-                             opts.sweep_sources.split(","))
-        for spec in opts.sweep_const:
-            sweep_consts(dev, card, spec)
+    specs = list(opts.sweep_const)
+    if opts.sweep_min_blocks:
+        specs += [f"{const}={opts.sweep_min_blocks}"
+                  for _, const in _BOUNDS.values()]
+    if specs:
+        sweep_consts(dev, card, specs)
         print(ok)
         return 0
 
     # 2. build
     from raymarchrenderer_tpu_torch.kernels import march
-    if opts.readings:
-        build_kernels(card, ("march_fused", "wavefront_paths"))
-        readings(dev, card)
-        print(ok)
-        return 0
     only = opts.only.split(",") if opts.only else None
     build_kernels(card, only)
     if opts.kernel_times:
@@ -3217,7 +3239,10 @@ def main(argv=None) -> int:
                exact_notes["record_paths"]),
         _entry("march_fused", "march_fused.cu",
                "raymarchrenderer_tpu/kernels/march.py:575", m_launches,
-               m_err, m_ms, m_plain, m_bound),
+               max(m_err, times["march_fused_step"]["max_abs_err"]), m_ms,
+               m_plain, m_bound, train_step={
+                   k: times["march_fused_step"][k] for k in (
+                       "ms", "bound_ms", "bound_by", "max_abs_err")}),
         _entry("record_spectral", "mega_spectral.cu",
                "raymarchrenderer_tpu/kernels/record.py:513", rs_launches,
                rs_err, rs_ms, rs_plain, rs_bound,

@@ -27,14 +27,18 @@
 // Design.  The launch is a queue of rays, as the RGB lane machine's
 // pixel queue (scene_map.cuh) but over rays: a persistent grid of as many
 // blocks as stay resident, each staging the scene once, and every lane
-// taking the next ray slot when its ray is done (one warp-aggregated
-// atomicAdd per asking warp, on a counter the wrapper zeroes for every
-// launch), so a warp no longer idles behind its longest ray.  Slots are
-// handed out in the plane's 2 x 16 tiles (rows of one sample in the
-// sample-folded plane): `w` is the plane's row length.  Each lane writes
-// its ray's three outputs, one writer per slot, so the outputs are the
-// same bytes as one thread per ray.  The launch bound `kMinBlocksMarch`
-// (scene_map.cuh) was read by `chip_smoke.py --sweep-min-blocks`.
+// taking the next ray when its ray is done (one warp-aggregated atomicAdd
+// per asking warp, on a counter the wrapper zeroes for every launch;
+// rays in the planes' row-major order), so a warp no longer idles behind
+// its longest ray.  That pays on the train step's later planes, whose
+// rays vary most (bounce rays and the shadow-style planes); on a primary
+// plane, whose warps already run 93% full, the queue's visits cost about
+// what they save (PERF.md).  A lane visits the queue every
+// `kMarchUnroll` steps.  Each lane writes its ray's three outputs, one
+// writer per slot, so the outputs are the same bytes as one thread per
+// ray.  The launch bound `kMinBlocksMarch` (scene_map.cuh) and
+// `kMarchUnroll` were read by `chip_smoke.py --sweep-min-blocks` and
+// `--sweep-const`.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -44,37 +48,14 @@
 using namespace rmr;
 
 // Scalars of one launch; the ctypes structure in kernels/march.py mirrors
-// this field for field (n, then the MarchParams fields, then w).
+// this field for field (n, then the MarchParams fields).
 struct MarchArgs {
   int n;
   MarchParams m;
-  int w;  // the plane's row length: n is rows x w
 };
 
-// The schedule: kMarchQueue, a persistent grid on the ray queue (else one
-// thread per ray slot); kMarchTiles, slots in 2 x 16 tiles of the plane
-// (else row-major, a warp a 1 x 32 strip of one row); kMarchUnroll, the
-// march steps a lane takes between two visits to the queue.
-constexpr bool kMarchQueue = true;
-constexpr bool kMarchTiles = true;
-constexpr int kMarchUnroll = 1;
-
-// ray index of slot q; false where it falls outside the plane
-__device__ __forceinline__ bool slot_ray(const MarchArgs& a, int rows, int q, int& i) {
-  if constexpr (kMarchTiles) {
-    int lx, ly;
-    if (!queue_pixel(a.w, rows, q, lx, ly)) return false;
-    i = ly * a.w + lx;
-    return true;
-  } else {
-    i = q;
-    return q < a.n;
-  }
-}
-
-__host__ __device__ __forceinline__ int march_slots(int n, int w) {
-  return kMarchTiles ? queue_len(w, n / w) : n;
-}
+// the march steps a lane takes between two visits to the queue
+constexpr int kMarchUnroll = 4;
 
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocksMarch) march_fused_kernel(
     MarchArgs a, SceneDims dims, const int* __restrict__ prog, const float* __restrict__ fdata,
@@ -85,49 +66,34 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocksMarch) march_fused_ke
     int* __restrict__ hit_out, int* __restrict__ queue) {
   // the object program, once per block in shared memory
   const SceneRef s = stage_scene(prog, fdata, dims);
-  const int rows = a.n / a.w;
-  const int n_slots = march_slots(a.n, a.w);
   MarchState m;
   int i = 0;
-  auto start = [&](int q) {
-    if (!slot_ray(a, rows, q, i)) return false;
-    march_begin(m, a.m, mk(ox[i], oy[i], oz[i]), mk(dx[i], dy[i], dz[i]), dist_mult[i], t_max[i],
-                active[i] != 0);
-    return true;
-  };
-  auto finish = [&]() {
-    int mid;
-    bool hit;
-    t_out[i] = march_result(m, mid, hit);
-    mid_out[i] = mid;
-    hit_out[i] = hit ? 1 : 0;
-  };
-  if constexpr (!kMarchQueue) {
-    const int q = blockIdx.x * kBlockThreads + threadIdx.x;
-    if (q >= n_slots || !start(q)) return;
-    while (march_live(m, a.m)) march_advance(s, a.m, m);
-    finish();
-  } else {
-    bool live = false, drained = false;
-    for (;;) {
-      const bool ask = !live && !drained;
-      const int q = take_slot(queue, ask);
-      if (ask) {
-        if (q >= n_slots) {
-          drained = true;
-        } else {
-          live = start(q);
-        }
+  bool live = false, drained = false;
+  for (;;) {
+    const bool ask = !live && !drained;
+    const int q = take_slot(queue, ask);
+    if (ask) {
+      if (q >= a.n) {
+        drained = true;
+      } else {
+        i = q;
+        march_begin(m, a.m, mk(ox[i], oy[i], oz[i]), mk(dx[i], dy[i], dz[i]), dist_mult[i],
+                    t_max[i], active[i] != 0);
+        live = true;
       }
-      if (__all_sync(0xffffffffu, drained && !live)) break;
-      if (!live) continue;
-      for (int u = 0; u < kMarchUnroll; ++u) {
-        if (march_live(m, a.m)) march_advance(s, a.m, m);
-      }
-      if (!march_live(m, a.m)) {
-        finish();
-        live = false;
-      }
+    }
+    if (__all_sync(0xffffffffu, drained && !live)) break;
+    if (!live) continue;
+    for (int u = 0; u < kMarchUnroll; ++u) {
+      if (march_live(m, a.m)) march_advance(s, a.m, m);
+    }
+    if (!march_live(m, a.m)) {
+      int mid;
+      bool hit;
+      t_out[i] = march_result(m, mid, hit);
+      mid_out[i] = mid;
+      hit_out[i] = hit ? 1 : 0;
+      live = false;
     }
   }
 }
@@ -138,8 +104,7 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocksMarch) march_fused_ke
 // and its parameters, nine input planes of args->n lanes (o, d, dist_mult,
 // active as int32, t_max), three outputs (t float32, mid and hit int32)
 // and the ray queue's counter (one int32, zero before the launch).
-// args->n is a whole number of rows of args->w rays.  Returns the first
-// CUDA error (0 on success), cudaErrorInvalidValue for a bad shape.
+// Returns the first CUDA error (0 on success).
 extern "C" int rmr_march_fused(const MarchArgs* args, const SceneDims* dims, const int* prog,
                                const float* fdata,
                                const float* ox, const float* oy, const float* oz,
@@ -150,13 +115,11 @@ extern "C" int rmr_march_fused(const MarchArgs* args, const SceneDims* dims, con
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (args->n <= 0) return (int)cudaSuccess;
-  if (args->w <= 0 || args->n % args->w != 0) return (int)cudaErrorInvalidValue;
-  const int n_slots = march_slots(args->n, args->w);
-  int grid = (n_slots + kBlockThreads - 1) / kBlockThreads;
+  int grid = 0;
   const size_t bytes = scene_smem_bytes(*dims, false);
   err = allow_smem(march_fused_kernel, bytes);
-  if (err == cudaSuccess && kMarchQueue) {
-    err = persistent_grid(march_fused_kernel, bytes, device, n_slots, grid);
+  if (err == cudaSuccess) {
+    err = persistent_grid(march_fused_kernel, bytes, device, args->n, grid);
   }
   if (err != cudaSuccess) return (int)err;
   march_fused_kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, prog, fdata, ox, oy, oz,

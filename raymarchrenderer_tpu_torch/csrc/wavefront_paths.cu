@@ -48,9 +48,11 @@
 // with NEE set-up and roulette, the next light, a miss and its sky, the
 // end of a path and the start of the next sample's), until the lane
 // marches again.  Lanes at different samples, bounces and lights share
-// the march steps of one pass.  With `kWaveQueue` the grid is persistent
-// and a lane whose pixel is done takes the next from the pixel queue of
-// scene_map.cuh.  The schedule moves work, never an op: each pixel's
+// the march steps of one pass.  The grid is persistent: a lane whose
+// pixel is done takes the next from the pixel queue of scene_map.cuh
+// (its chains vary too much for one lane per pixel: PERF.md).  The
+// launch bound is `kMinBlocksWavefront` (scene_map.cuh), read by
+// `chip_smoke.py --sweep-const`.  The schedule moves work, never an op: each pixel's
 // chain runs in one thread in the JAX body's order (--fmad=false), the
 // per-sample and per-light sums keep their order, and every output slot
 // has one writer, so the output is the same bytes as one thread looping
@@ -65,10 +67,8 @@ using namespace rmr;
 
 namespace {
 
-// The schedule: march steps per pass, and whether the grid is persistent
-// on the pixel queue (else one lane per pixel).
-constexpr int kWaveUnroll = 16;
-constexpr bool kWaveQueue = true;
+// march steps per pass (PERF.md: 32 beat 1, 4, 8, 16, 64 and 128)
+constexpr int kWaveUnroll = 32;
 
 // lane states: the segment in flight, a path that ended without a bounce
 // (max_bounces 0), or no pixel
@@ -164,6 +164,7 @@ __device__ void start_path(const Ctx& c, Lane& L) {
   } else {
     L.state = kEnd;
     L.m.done = true;
+    L.m.step = 0;
   }
 }
 
@@ -389,26 +390,19 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocksWavefront) wavefront_
     }
     while (L.state != kIdle && !march_live(L.m, c.mp)) event<kExact>(c, L, out, banks);
   };
-  if constexpr (!kWaveQueue) {
-    const int q = blockIdx.x * kBlockThreads + threadIdx.x;
-    if (q >= n_slots) return;
-    take(q);
-    while (L.state != kIdle) pass();
-  } else {
-    bool drained = false;
-    for (;;) {
-      const bool ask = L.state == kIdle && !drained;
-      const int q = take_slot(queue, ask);
-      if (ask) {
-        if (q >= n_slots) {
-          drained = true;
-        } else {
-          take(q);
-        }
+  bool drained = false;
+  for (;;) {
+    const bool ask = L.state == kIdle && !drained;
+    const int q = take_slot(queue, ask);
+    if (ask) {
+      if (q >= n_slots) {
+        drained = true;
+      } else {
+        take(q);
       }
-      if (__all_sync(0xffffffffu, drained && L.state == kIdle)) break;
-      if (L.state != kIdle) pass();
     }
+    if (__all_sync(0xffffffffu, drained && L.state == kIdle)) break;
+    if (L.state != kIdle) pass();
   }
 }
 
@@ -442,14 +436,12 @@ extern "C" int rmr_wavefront_paths(const PathArgs* args, const SceneDims* dims, 
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   const int n_slots = queue_len(args->pw, args->ph);
-  int grid = (n_slots + kBlockThreads - 1) / kBlockThreads;
+  int grid = 0;
   const bool exact = args->normal_taps == 0;
   const size_t bytes = scene_smem_bytes(*dims, exact);
   auto kernel = exact ? wavefront_paths_kernel<true> : wavefront_paths_kernel<false>;
   err = allow_smem(kernel, bytes);
-  if (err == cudaSuccess && kWaveQueue) {
-    err = persistent_grid(kernel, bytes, device, n_slots, grid);
-  }
+  if (err == cudaSuccess) err = persistent_grid(kernel, bytes, device, n_slots, grid);
   if (err != cudaSuccess) return (int)err;
   kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, sky_kind, corners, fdata, prog, out,
                                                  banks, queue);

@@ -103,7 +103,7 @@ class MarchArgs(ctypes.Structure):
     """Mirror of `struct MarchArgs` in csrc/march_fused.cu."""
     _fields_ = [(n, ctypes.c_int) for n in ("n", "max_steps", "relax")] + [
         (n, ctypes.c_float) for n in ("max_dist", "hit_eps", "step_multiply",
-                                      "relax_omega")] + [("w", ctypes.c_int)]
+                                      "relax_omega")]
 
 
 class SceneDims(ctypes.Structure):
@@ -727,14 +727,6 @@ def _plane(x, shape, dtype, device) -> torch.Tensor:
         shape).contiguous()
 
 
-def ray_row(shape) -> int:
-    """The row length `w` of `march_fused`'s launch on planes of `shape`:
-    the last axis (rows of one sample in a sample-folded plane), 1 for a
-    single ray; the kernel hands its rays out in 2 x 16 tiles of rows of
-    that length."""
-    return int(shape[-1]) if len(shape) else 1
-
-
 def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
                         t_max):
     device = o.x.device
@@ -756,7 +748,7 @@ def _launch_march_fused(scene, params, cfg, o, d, dist_mult, active,
     args = MarchArgs(n=t.numel(), max_steps=cfg.max_steps,
                      relax=int(cfg.relax_omega > 1.0), max_dist=cfg.max_dist,
                      hit_eps=cfg.hit_eps, step_multiply=cfg.step_multiply,
-                     relax_omega=cfg.relax_omega, w=ray_row(shape))
+                     relax_omega=cfg.relax_omega)
     dims = scene_dims(dims, device, False)
     queue = _queue(device)
     MARCH_FUSED.launch(ctypes.byref(args), ctypes.byref(dims),
@@ -777,8 +769,8 @@ def march_fused(scene: Scene, params, cfg: RenderConfig, o: Vec3, d: Vec3,
     (`diff.march.march_diff_fused` attaches the adjoint).
 
     CUDA planes launch `csrc/march_fused.cu`, a persistent grid whose
-    lanes take the rays from a queue (2 x 16 tiles of the planes' rows),
-    nothing padded; CPU planes run `march`."""
+    lanes take the rays from a queue, nothing padded; CPU planes run
+    `march`."""
     device = o.x.device
     with torch.no_grad():
         if device.type == "cuda":

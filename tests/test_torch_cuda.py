@@ -12,10 +12,12 @@ math), its NEE bar.  The recorder's banks and `march_fused`'s planes:
 fewer than 1e-3 of the entries with another material or hit verdict (or
 NEE visibility), and fewer than 1e-3 of those where both hit with t off
 by more than 1e-5; at a later bounce of the banks, whose ray starts from
-a direction an ulp apart between the kernel and torch's CUDA build
-(sinf, cosf), fewer than 5% off by more than 1e-4, with no bound on the
-largest: a grazing ray that starts an ulp away stops at another point of
-the surface (measured on csg_demo with NEE: 1.25% and 0.22).  Gradients
+a direction an ulp would move, fewer than 5% off by more than 1e-4, with
+no bound on the largest: a grazing ray that starts an ulp away stops at
+another point of the surface (measured on csg_demo with NEE, 1.25% and
+0.22, while the plain versions divided by Python numbers through torch's
+CUDA product with the reciprocal; they divide as the kernels do now,
+`core.vecmath.div`, and share CUDA's sinf and cosf with them).  Gradients
 from kernel banks against plain banks (the same replay): loss to rtol
 1e-5, every leaf to atol 1e-3 * max|g|.  The spectral recorder and the
 wavefront recorder are held to the banks' bar; the wavefront recorder
@@ -439,7 +441,7 @@ def test_march_fused_kernel_matches_plain(cuda_device, relax):
                          ids=["odd_plane", "one_row", "three_axes"])
 def test_march_fused_ray_queue(cuda_device, shape):
     """`march_fused` on planes of rays that are no multiple of 128 (nor of
-    its 2 x 16 queue tiles): mixed inactive lanes, a quarter inside the
+    a warp): mixed inactive lanes, a quarter inside the
     ball with dist_mult -1, a per-lane t_max (the shadow-style plane).
     Against `integrator.march` on the same planes to the banks' bar, the
     same bytes on a second launch (the queue's counter is new for every
@@ -813,9 +815,10 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
     for w, g in pairs[:3]:
         assert frac_off(w.cpu().numpy(), g.cpu().numpy()) < MAX_FRAC_OFF
     for w, g in pairs[3:]:
-        # a direction an ulp apart after a few bounces (sinf / cosf of the
-        # kernel against torch's CUDA build) drifts by up to 1e-3 on a few
-        # slots: measured 1 of 30720 components off by 1.04e-3
+        # a direction an ulp apart after a few bounces drifts by up to
+        # 1e-3 on a few slots: measured 1 of 30720 components off by
+        # 1.04e-3 while the plain version divided by Python numbers
+        # through torch's CUDA product with the reciprocal
         off = frac_off(w.cpu().numpy(), g.cpu().numpy(), 1e-4)
         assert off < MAX_FRAC_OFF, off
     if k:

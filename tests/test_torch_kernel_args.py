@@ -5,8 +5,7 @@ No kernel runs here (there is no nvcc and no card), so these read
 `csrc/`: every entry point takes as many parameters as its `CudaKernel`
 declares argument types, and every argument structure mirrors its C
 struct field for field, in order (a field out of place would hand the
-kernel another scalar, and no CPU test would see it).  Also the row
-length `march_fused` hands its ray queue.
+kernel another scalar, and no CPU test would see it).
 """
 import ctypes
 import re
@@ -80,15 +79,3 @@ def test_persistent_entries_take_a_queue():
               march.MEGA_PATHS_DEFER, march.RECORD_PATHS):
         assert _c_params(k.source.name, k.entry)[-3] == "int* queue"
 
-
-@pytest.mark.parametrize("shape,row", [((4096, 1024), 1024), ((37, 53), 53),
-                                       ((1000,), 1000), ((3, 5, 7), 7),
-                                       ((), 1)])
-def test_ray_row(shape, row):
-    """`march_fused`'s row length: the planes' last axis (the kernel's
-    2 x 16 tiles run over rows of it), 1 for a single ray."""
-    assert march.ray_row(shape) == row
-    n = 1
-    for s in shape:
-        n *= s
-    assert n % row == 0

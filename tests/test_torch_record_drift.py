@@ -1,36 +1,40 @@
 """The RGB recorder's later-bounce t: how far the kernel, its plain
-version on the card and its plain version on the CPU drift apart, and an
-open fault of the banks' bar kept visible.
+version on the card and its plain version on the CPU drift apart.
 
 The banks' bar (tests/_torch_parity.py): decisions exact, bounce 0's t
 within 1e-5, and fewer than 5% of the later bounces' both-hit t entries
 (`LATER_FRAC_OFF`) off by more than 1e-4.  A later bounce starts from a
-hit point and a direction through sin, cos and rsqrt, so two builds whose
+hit point and a direction through sin, cos and sqrt, so two builds whose
 functions differ by an ulp stop a grazing ray at another point of the
 surface.  On sphere_on_floor's 37 x 53 patch at (11, 5) of a 96 x 64
 frame (2 samples, 4 bounces, relax 1.9), on an NVIDIA H100 80GB HBM3:
 
     max_steps, seed        192, 0   192, 1   512, 0
-    kernel vs card plain   5.25%    4.25%    5.23%
+    kernel vs card plain   0        0        0        (banks equal)
     kernel vs CPU plain    1.16%    0.65%    1.15%
-    card vs CPU plain      5.43%    4.71%    5.40%
+    card vs CPU plain      1.16%    0.65%    1.15%
 
-The plain version on the CPU against itself with sin and cos one ulp up
-reads 1.07% and 1.11% at 192 steps.  So the kernel stays within an ulp's
-drift of the CPU plain version, and the plain version's CUDA build is the
-one that drifts past the bar; the kernel's banks are the same bytes as
-before the render megakernels' redesign.  On
-test_torch_cuda.py::test_record_kernel_matches_plain's patch the bar
-holds against the card's plain version.
+Once the card's plain version read 5.25%, 4.25% and 5.23% against the
+kernel: torch's CUDA build divides a tensor by a Python number as a
+product with its reciprocal, an ulp off the quotient the CPU and the
+kernels compute, and raygen's division by the frame's width and height
+moved every primary ray.  `--bisect` below found it: on the card, the
+plain recorder with only `Tensor.div` run on the CPU read 1.16%, with
+every float op but `div` on the CPU 5.16%.  The plain versions divide by
+Python numbers through `core.vecmath.div` now.  The plain version on the
+CPU against itself with sin and cos one ulp up reads 1.07% and 1.11% at
+192 steps: the kernel and the card's plain version share CUDA's sin and
+cos, an ulp from the CPU's.
 
-    PYTHONPATH=. python tests/test_torch_record_drift.py
+    PYTHONPATH=. python tests/test_torch_record_drift.py [--bisect]
 
 prints, on the card, one JSON line per configuration: the kernel against
 the plain version on the card and on the CPU, the two plain versions
 against each other, and the SHA-256 of the kernel's banks (run it from
-another checkout's root, with PYTHONPATH=., to read that tree's kernel).
-Without a card it prints the plain version against itself with sin and
-cos one ulp up.
+another checkout's root, with PYTHONPATH=., to read that tree's kernel);
+with `--bisect`, the card's plain run with torch's float ops moved to
+the CPU one by one (`bisect`).  Without a card it prints the plain
+version against itself with sin and cos one ulp up.
 """
 import hashlib
 import json
