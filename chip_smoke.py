@@ -43,7 +43,8 @@ Phases (any failure raises and the script exits non-zero):
          `march_fused` against the plain march;
        * the spectral recorder (`trace_record_fused_spectral` vs
          `record_spectral_plain`): the spectral train path's own launch
-         (spectral_demo, 1024^2, 4 samples, 4 bounces, relax 1.9, 4 taps),
+         (spectral_demo, 1024^2, 4 samples, 4 bounces, relax 1.9, 4 taps;
+         its lane occupancy, one lane per pixel and on the pixel queue),
          and a 128^2 patch at a non-zero origin, 4 samples;
        * the wavefront recorder (`trace_record_wavefront` vs
          `record_wavefront_plain`): the train launch's bounce-0 planes
@@ -72,7 +73,8 @@ Phases (any failure raises and the script exits non-zero):
          128^2 patches with NEE, dispersion and roulette (3 samples) and
          under the gradient sky (11 samples: 8 slots, then n_valid 3 of
          8); the spectral one at its main path's launch (1024^2, 8
-         samples) and on a 128^2 patch at a non-zero origin, 3 samples;
+         samples; its chain occupancy as the RGB one's) and on a 128^2
+         patch at a non-zero origin, 3 samples;
        * the exact normal (`normal_taps=0`) in every shading kernel, each
          on a 128^2 patch at a non-zero origin against its plain version
          (torch.autograd's reverse sweep of the map): the RGB render (csg
@@ -85,9 +87,9 @@ Phases (any failure raises and the script exits non-zero):
          40-node object in the RGB megakernel (4 taps and the exact
          normal), the spectral one and the recorder, and 12 lights under
          NEE in the RGB megakernel and the recorder, on 128^2 patches;
-       * lane occupancy at the RGB, spectral and deferred main launches
-         (chain, march and shade, counted by the plain versions), and the
-         same modelled on the pixel queue;
+       * lane occupancy at the RGB, spectral, deferred and spectral
+         recorder main launches (chain, march and shade, counted by the
+         plain versions), and the same modelled on the pixel queue;
        * every kernel at its main launch alone (`kernel_times`: mean of
          3 beside the times recorded before the redesign, `BEFORE_MS`;
          csg NEE, the SH sky and the exact normal's launches with bounds
@@ -567,13 +569,15 @@ def _queue_lives(costs, resident_warps):
     return sum(life)
 
 
-def occupancy(label, work, march_unroll):
+def occupancy(label, work, march_unroll, source):
     """Lane utilisation of a one-thread-per-pixel launch of 16 x 8 blocks
     (a warp: 2 rows x 16 columns), from the plain version's counts: chain
     occupancy, the lanes' bodies over 32 x the bodies of each warp's
     longest lane; march occupancy, the marching lanes' steps over 32 x
     `march_unroll` x the warps' bodies; shade occupancy, the shaded hits
-    over 32 x the warps' bodies.  Counts, not times."""
+    over 32 x the warps' bodies.  Counts, not times.  Then the same on
+    the pixel queue at the resident warps of `source`'s launch bound
+    (`_BOUNDS`)."""
     b = work["lane_bodies"].to(torch.int64)
     warp_bodies = int(_tiles(b).amax(dim=(1, 3)).sum())
     res = {"chain": int(b.sum()) / (32 * warp_bodies),
@@ -584,8 +588,7 @@ def occupancy(label, work, march_unroll):
           f"{res['march']:.4f}, shade {res['shade']:.4f} ({res['lane_bodies']}"
           f" lane bodies, {warp_bodies} warp bodies)", flush=True)
     OCCUPANCY[label] = res
-    queue_occupancy(label, work, march_unroll, _resident_warps(
-        "mega_spectral" if "spectral" in label else "mega_paths"))
+    queue_occupancy(label, work, march_unroll, _resident_warps(source))
     return res
 
 
@@ -595,13 +598,16 @@ OCCUPANCY = {}
 _BOUNDS = {"mega_paths": ("scene_map.cuh", "kMinBlocks"),
            "mega_spectral": ("mega_spectral.cu", "kMinBlocksSpectral"),
            "march_fused": ("scene_map.cuh", "kMinBlocksMarch"),
-           "wavefront_paths": ("scene_map.cuh", "kMinBlocksWavefront")}
+           "wavefront_paths": ("scene_map.cuh", "kMinBlocksWavefront"),
+           "wavefront_spectral": ("wavefront_spectral.cu",
+                                  "kMinBlocksWavefrontSpectral")}
 
 
 # the schedule constants of csrc/ a sweep may set, by the source that reads
 # them: each launch bound, and the steps a pass or a visit
 _CONSTS = {const: src for src, (_, const) in _BOUNDS.items()}
-_CONSTS.update(kWaveUnroll="wavefront_paths", kMarchUnroll="march_fused")
+_CONSTS.update(kWaveUnroll="wavefront_paths", kMarchUnroll="march_fused",
+               kWaveUnrollSpectral="wavefront_spectral")
 
 
 def _min_blocks(source: str) -> int:
@@ -670,22 +676,23 @@ def march_occupancy(label, steps):
     return res
 
 
-def wavefront_occupancy(label, planes):
-    """Chain occupancy of the RGB wavefront kernel from the per-lane steps
-    of every march its plain version made (`work["lane_steps"]`: one
-    (ph, pw) plane per bounce or shadow march of each sample): the lanes'
-    steps over 32 x the warps' lifetimes in steps (2 x 16 warps), for the
-    nested loops (each march a loop the warp runs to its longest lane),
-    the lane machine with one lane per pixel (a warp lives as long as its
-    longest pixel's chain of steps), and on the pixel queue (modelled).
-    Counts march steps only, not the events."""
+def wavefront_occupancy(label, planes, source):
+    """Chain occupancy of a wavefront kernel (`source`, whose launch bound
+    sets the queue's resident warps) from the per-lane steps of every march
+    its plain version made (`work["lane_steps"]`: one (ph, pw) plane per
+    bounce or shadow march of each sample): the lanes' steps over 32 x the
+    warps' lifetimes in steps (2 x 16 warps), for the nested loops (each
+    march a loop the warp runs to its longest lane), the lane machine with
+    one lane per pixel (a warp lives as long as its longest pixel's chain
+    of steps), and on the pixel queue (modelled).  Counts march steps
+    only, not the events."""
     total, nested, chain = 0, 0, None
     for p in planes:
         p = p.to(torch.int64)
         total += int(p.sum())
         nested += int(_tiles(p).amax(dim=(1, 3)).sum())
         chain = p if chain is None else chain + p
-    warps = _resident_warps("wavefront_paths")
+    warps = _resident_warps(source)
     lives = _queue_lives(_in_queue_order(chain), warps)
     res = {"nested_loops": total / (32 * nested),
            "lane_machine": total / (32 * int(
@@ -714,7 +721,8 @@ def parity_paths(dev, card):
         "RGB, sphere_on_floor 1024x1024, 128 spp (the main path's launch)",
         kernel, plain, card, count_apart=False)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
-    occupancy("RGB main launch", work, _knobs()["march_unroll"])
+    occupancy("RGB main launch", work, _knobs()["march_unroll"],
+              "mega_paths")
 
     kernel, plain, *_ = _paths_fns(dev, "csg_demo", 8, _NEE_PATCH,
                                    (256, 256), direct_light=True)
@@ -741,7 +749,8 @@ def parity_spectral(dev, card):
         "spectral 1024x1024, 128 spp (the main path's launch)", kernel,
         plain, card, count_apart=False)
     bound = _bound(scene, cfg, work, in_bytes, 1024 * 1024 * 3 * 4)
-    occupancy("spectral main launch", work, _knobs()["march_unroll"])
+    occupancy("spectral main launch", work, _knobs()["march_unroll"],
+              "mega_spectral")
     kernel, plain, *_ = _spectral_fns(dev, 4, _SPEC_PATCH, (128, 128))
     max_err = max(max_err, _compare(
         f"spectral 128x128 patch at {_SPEC_PATCH}, 4 spp", kernel(),
@@ -1042,8 +1051,11 @@ def _record_spectral_fns(dev, size, n, origin_xy=(0, 0), patch_shape=None,
 
 def parity_record_spectral(dev, card):
     """The spectral recorder: the spectral train path's launch
-    (spectral_demo, 1024^2, 4 samples, 4 bounces, relax 1.9, 4 taps), then
-    a 128^2 patch at a non-zero origin, 4 samples."""
+    (spectral_demo, 1024^2, 4 samples, 4 bounces, relax 1.9, 4 taps; its
+    lane occupancy from the plain version's counts, one lane per pixel and
+    on the pixel queue), then a 128^2 patch at a non-zero origin, 4
+    samples."""
+    from raymarchrenderer_tpu_torch.kernels.record import record_knobs
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         spectral_buffers)
     kernel, plain, scene, cfg, (params, mats) = _record_spectral_fns(
@@ -1053,6 +1065,8 @@ def parity_record_spectral(dev, card):
         f"spectral recorder, spectral_demo 1024x1024, {TRAIN_SPP} samples, "
         f"{cfg.max_bounces} bounces (the spectral train path's launch)",
         kernel, plain, card, _planes_compare)
+    occupancy("spectral recorder main launch", work,
+              record_knobs(dev, False)[0], "mega_spectral")
     banks = 12 * cfg.max_bounces * TRAIN_SPP * 1024 * 1024
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    banks)
@@ -1744,7 +1758,8 @@ def parity_defer(dev, card):
     max_err, ms, plain_ms, work = _main_launch(
         "RGB deferred sky, default.scene + gradient env 1024x1024, 32 "
         "paths (the env main path's launch)", kernel, plain, card, compare)
-    occupancy("deferred main launch", work, _knobs()["march_unroll"])
+    occupancy("deferred main launch", work, _knobs()["march_unroll"],
+              "mega_paths")
     out = kernel()
     comp_ms = _cuda_ms(lambda: march.composite_uv(scene, params, *out),
                        reps=3)
@@ -1847,7 +1862,7 @@ def parity_wavefront_paths(dev, card):
         card, count_apart=False, work={"lane_steps": []})
     planes = work.pop("lane_steps")
     if planes:                  # a plain march that keeps per-lane steps
-        wavefront_occupancy(label, planes)
+        wavefront_occupancy(label, planes, "wavefront_paths")
     prog, data, _ = paths_buffers(scene, params, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
@@ -1887,9 +1902,10 @@ def parity_wavefront_paths(dev, card):
 def parity_wavefront_spectral(dev, card):
     """The spectral wavefront entry at the full bounce budget against
     wavefront_spectral_plain: the main path's own launch (spectral_demo,
-    1024^2, 8 samples; timed, with its bound), then a 128^2 patch at a
-    non-zero origin, 3 samples.  Returns (max err, ms, plain ms,
-    bound)."""
+    1024^2, 8 samples; timed, with its bound, and the chain occupancy of
+    the nested loops, of its lane machine and of the pixel queue from the
+    plain version's per-lane steps), then a 128^2 patch at a non-zero
+    origin, 3 samples.  Returns (max err, ms, plain ms, bound)."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
@@ -1910,10 +1926,12 @@ def parity_wavefront_spectral(dev, card):
                     scene, params, mats, cfg, corners, 0, spp, origin, size,
                     size, work=work))
 
+    label = (f"spectral wavefront, 1024x1024, {_WAVE_MAIN_SPP} spp, "
+             f"{cfg.max_bounces} bounces (the wavefront main path's launch)")
     max_err, ms, plain_ms, work = _main_launch(
-        f"spectral wavefront, 1024x1024, {_WAVE_MAIN_SPP} spp, "
-        f"{cfg.max_bounces} bounces (the wavefront main path's launch)",
-        *fns((0, 0), 1024, _WAVE_MAIN_SPP), card, count_apart=False)
+        label, *fns((0, 0), 1024, _WAVE_MAIN_SPP), card, count_apart=False,
+        work={"lane_steps": []})
+    wavefront_occupancy(label, work.pop("lane_steps"), "wavefront_spectral")
     prog, data, _ = spectral_buffers(scene, params, mats, dev)
     bound = _bound(scene, cfg, work, 15 * 4 + _buffer_bytes(prog, data),
                    1024 * 1024 * 12, lookups=0)
@@ -2656,7 +2674,8 @@ _SWEPT = {"mega_paths": ("mega_paths", "mega_paths_sh", "mega_paths_csg_nee",
           "mega_spectral": ("mega_spectral", "mega_spectral_exact",
                             "record_spectral"),
           "march_fused": ("march_fused", "march_fused_step"),
-          "wavefront_paths": ("wavefront_paths",)}
+          "wavefront_paths": ("wavefront_paths",),
+          "wavefront_spectral": ("wavefront_spectral",)}
 
 
 def _variant_source(csrc, dst, consts):
@@ -2706,7 +2725,8 @@ def sweep(dev, card, variants):
                               march.RECORD_PATHS),
                "mega_spectral": (march.MEGA_SPECTRAL, march.RECORD_SPECTRAL),
                "march_fused": (march.MARCH_FUSED,),
-               "wavefront_paths": (march.WAVEFRONT_PATHS,)}
+               "wavefront_paths": (march.WAVEFRONT_PATHS,),
+               "wavefront_spectral": (march.WAVEFRONT_SPECTRAL,)}
     res = {"card": card}
     digests = {}
     with tempfile.TemporaryDirectory() as stmp:
@@ -2796,7 +2816,11 @@ def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
 # NVIDIA H100 80GB HBM3 at 700.00 W; PERF.md section 6): each kernel's time
 # at its main launch (CUDA events, mean of 3), the SHA-256 of each output
 # the kernels made (they must stay bit-identical under the same nvcc), the
-# nvcc that built them, and each instantiation's SASS counts.
+# nvcc that built them, and each instantiation's SASS counts.  The rows of
+# the spectral recorder and the spectral wavefront kernel (times, SASS,
+# registers) were recorded later, on the tree before their own redesign
+# (`--kernel-times` in its `git archive`, the mean of two runs), in the
+# call that timed the redesign.
 BEFORE_MS = {
     "march_fused": 2.262,
     "mega_paths": 373.533,
@@ -2808,10 +2832,10 @@ BEFORE_MS = {
     "mega_spectral": 309.276,
     "mega_spectral_exact": 316.855,
     "record_paths": 20.515,
-    "record_spectral": 18.642,
+    "record_spectral": 13.537,
     "record_wavefront": 7.143,
     "wavefront_paths": 62.785,
-    "wavefront_spectral": 36.901,
+    "wavefront_spectral": 36.335,
 }
 DIGESTS_BEFORE = {
     "RGB + NEE, csg_demo 256x256 patch at (384, 512), 8 spp":
@@ -2950,14 +2974,14 @@ SASS_BEFORE = {
     "mega_paths_kernel<ShSky> exact": {"LDL": 68, "STL": 55, "CALL": 42, "BRX": 19},
     "mega_spectral_kernel<NoBanks>": {"LDL": 87, "STL": 69, "CALL": 43, "BRX": 21},
     "mega_spectral_kernel<NoBanks> exact": {"LDL": 80, "STL": 38, "CALL": 43, "BRX": 21},
-    "record_spectral_kernel<Banks>": {"LDL": 84, "STL": 69, "CALL": 43, "BRX": 21},
-    "record_spectral_kernel<Banks> exact": {"LDL": 80, "STL": 38, "CALL": 43, "BRX": 21},
+    "record_spectral_kernel<Banks>": {"LDL": 46, "STL": 57, "CALL": 43, "BRX": 0},
+    "record_spectral_kernel<Banks> exact": {"LDL": 44, "STL": 66, "CALL": 43, "BRX": 0},
     "record_wavefront_kernel": {"LDL": 109, "STL": 75, "CALL": 39, "BRX": 21},
     "record_wavefront_kernel exact": {"LDL": 156, "STL": 97, "CALL": 47, "BRX": 11},
     "wavefront_paths_kernel": {"LDL": 153, "STL": 103, "CALL": 47, "BRX": 16},
     "wavefront_paths_kernel exact": {"LDL": 132, "STL": 131, "CALL": 50, "BRX": 10},
-    "wavefront_spectral_kernel": {"LDL": 116, "STL": 79, "CALL": 44, "BRX": 21},
-    "wavefront_spectral_kernel exact": {"LDL": 118, "STL": 76, "CALL": 53, "BRX": 16},
+    "wavefront_spectral_kernel": {"LDL": 129, "STL": 116, "CALL": 47, "BRX": 0},
+    "wavefront_spectral_kernel exact": {"LDL": 107, "STL": 75, "CALL": 49, "BRX": 0},
 }
 
 # registers, spill stores and spill loads (bytes) of each instantiation
@@ -2974,13 +2998,13 @@ PTXAS_BEFORE = {
     "mega_paths_kernel<ShSky> exact": (80, 488, 496),
     "mega_spectral_kernel<NoBanks>": (80, 4, 12),
     "mega_spectral_kernel<NoBanks> exact": (80, 0, 0),
-    "record_spectral_kernel<Banks>": (80, 4, 12),
-    "record_spectral_kernel<Banks> exact": (78, 0, 0),
+    "record_spectral_kernel<Banks>": (40, 244, 244),
+    "record_spectral_kernel<Banks> exact": (40, 236, 252),
     "record_wavefront_kernel": (40, 572, 824),
     "record_wavefront_kernel exact": (48, 324, 364),
     "wavefront_paths_kernel": (64, 160, 220),
     "wavefront_paths_kernel exact": (80, 776, 856),
-    "wavefront_spectral_kernel": (40, 252, 268),
+    "wavefront_spectral_kernel": (40, 232, 268),
     "wavefront_spectral_kernel exact": (56, 168, 176),
 }
 

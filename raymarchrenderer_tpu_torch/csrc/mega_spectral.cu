@@ -6,8 +6,9 @@
 // raymarchrenderer_tpu_torch/render/mega.py `trace_mega_spectral`, and the
 // wrapper is raymarchrenderer_tpu_torch/kernels/march.py.
 //
-// Design.  One thread per pixel of the patch.  Each thread runs its own
-// copy of the lane-state machine until its state reaches EXH: the peeled
+// Design.  Each lane runs one pixel's own copy of the lane-state machine
+// until its state reaches EXH (the render: one thread per pixel of the
+// patch; the recorder: a persistent grid on the pixel queue): the peeled
 // first march step, then bodies of `march_unroll` steps with a miss pass
 // every `regen_cadence` steps, the lazy miss test at each pass boundary on
 // the lane's own global step count, and one shade + regen pass per body.
@@ -52,9 +53,16 @@
 // banks with the miss values first.  Bound: 12 bytes per (bounce, sample)
 // slot and pixel, written once (201 MB = 0.06 ms at 3.35 TB/s at the
 // train launch, 1024^2 pixels x 4 samples x 4 bounces); the operations
-// (the map evaluations the plain version's `work` counts) bind: 0.24 ms,
-// against 18.5 ms measured (PERF.md; NVIDIA H100 80GB HBM3, 700 W), so it
-// is latency-bound like the render.
+// (the map evaluations the plain version's `work` counts) bind: 0.24 ms.
+// It is latency-bound like the render, and more: a launch of 4 samples
+// ends each pixel's chain early, so with one thread per pixel a warp
+// lived as long as its longest of 32 short chains (chain occupancy 0.51
+// at the train launch, 13.5 ms).  So the recorder runs a persistent grid:
+// only as many blocks as stay resident, each lane taking the patch's
+// pixels one after another from the pixel queue of scene_map.cuh (0.82
+// modelled, 10.4-10.9 ms; PERF.md, NVIDIA H100 80GB HBM3, 700 W).  A
+// pixel's chain still runs in one thread, op for op, and each bank slot
+// has one writer, so the banks are the same bytes.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -68,7 +76,8 @@ namespace {
 // The spectral lane machine's launch bound: at least twelve blocks of 128
 // threads resident per SM, which caps a thread's registers at 40.  Its
 // lane state is smaller than the RGB one's (scene_map.cuh kMinBlocks, 8),
-// and the kMinBlocks sweep put its render and recorder fastest at 12
+// and the kMinBlocks sweep put its render fastest at 12; the recorder on
+// its persistent grid was fastest at 12 too, of 6, 8, 10, 12 and 16
 // (PERF.md).
 constexpr int kMinBlocksSpectral = 12;
 
@@ -79,16 +88,27 @@ constexpr int kRegen = 2;
 constexpr int kExh = 7;
 constexpr int kWaitMiss = -1;
 
-// The render: no banks.
+// The lane machine's policies: `kOn` turns on the recording (banks of
+// march residuals, no band filter, no image); `kExact` the exact normal
+// (ExactNormal<policy>, normal_taps = 0); `kQueue` a persistent grid on
+// the pixel queue (scene_map.cuh) instead of one thread per pixel.  Each
+// is a template argument, so every instantiation compiles only its own
+// code.
+
+// The render: no banks, one thread per pixel.
 struct NoBanks {
   static constexpr bool kOn = false;
   static constexpr bool kExact = false;
+  static constexpr bool kQueue = false;
 };
 
-// The record banks of one recording launch, at this lane's pixel.
+// The record banks of one recording launch, at this lane's pixel; the
+// recorder's chains vary more than the render's (a launch of 4 samples,
+// against 128), so its lanes take their pixels from the queue.
 struct Banks {
   static constexpr bool kOn = true;
   static constexpr bool kExact = false;
+  static constexpr bool kQueue = true;
   float* t;
   int* mid;
   int* hit;
@@ -272,11 +292,11 @@ __device__ void body(const Ctx& c, Lane& L, const R& r) {
   regen<R>(c, L);
 }
 
-// The whole per-pixel program: the sum over n_samples of the splat (a
-// recording lane returns zero and leaves its banks).
-template <class R>
-__device__ V3 trace_pixel(const Ctx& c, const R& r) {
-  Lane L;
+// A lane's start on the pixel (c.px, c.py): sample 0's primary ray and
+// the peeled first march step.  Then `body` runs until the state reaches
+// EXH, and L.acc holds the sum over n_samples of the splat (a recording
+// lane's stays zero: it leaves its banks).
+__device__ void start_lane(const Ctx& c, Lane& L) {
   L.o = c.cam.eye;
   L.d = primary(c, 0);
   L.acc = splat(0.0f);
@@ -292,8 +312,6 @@ __device__ V3 trace_pixel(const Ctx& c, const R& r) {
   L.steps = 0;
   L.gstep = 0;
   march_step(c, L);  // the peeled first step
-  while (L.state < kExh) body(c, L, r);
-  return L.acc;
 }
 
 // ---- launch ----------------------------------------------------------------
@@ -315,11 +333,13 @@ __global__ void __launch_bounds__(kBlockThreads, kMinBlocksSpectral)
   c.px = (uint32_t)(a.ox + lx);
   c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
-  const V3 acc = trace_pixel(c, R());
+  Lane L;
+  start_lane(c, L);
+  while (L.state < kExh) body(c, L, R());
   float* o = out + 3 * ((size_t)ly * a.pw + lx);
-  o[0] = acc.x * a.inv_n;
-  o[1] = acc.y * a.inv_n;
-  o[2] = acc.z * a.inv_n;
+  o[0] = L.acc.x * a.inv_n;
+  o[1] = L.acc.y * a.inv_n;
+  o[2] = L.acc.z * a.inv_n;
 }
 
 // Plain C entry point for ctypes.  `args` and `dims` (the sizes of the
@@ -345,33 +365,74 @@ extern "C" int rmr_mega_spectral(const SpecArgs* args, const SceneDims* dims, co
 }
 
 // The recording kernel: the same lane machine with banks (R = Banks, or
-// ExactNormal<Banks> for normal_taps = 0).
+// ExactNormal<Banks> for normal_taps = 0) on a persistent grid: each lane
+// runs one pixel's whole chain at a time, as a thread of a
+// one-pixel-per-thread launch would, and takes the next pixel from the
+// queue when its chain reaches EXH.
 template <class R>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocksSpectral)
     record_spectral_kernel(SpecArgs a, SceneDims dims, const float* __restrict__ corners,
                            const float* __restrict__ fdata, const int* __restrict__ prog,
-                           R banks) {
+                           R banks, int* __restrict__ queue) {
+  static_assert(R::kQueue, "the recorder runs on the pixel queue");
   const SceneRef s = stage_scene(prog, fdata, dims);
-  const int lx = blockIdx.x * blockDim.x + threadIdx.x;
-  const int ly = blockIdx.y * blockDim.y + threadIdx.y;
-  if (lx >= a.pw || ly >= a.ph) return;
   Ctx c;
   c.a = a;
   c.s = s;
-  c.px = (uint32_t)(a.ox + lx);
-  c.py = (uint32_t)(a.oy + ly);
   c.cam = load_camera(corners);
-  banks.pix = (size_t)ly * a.pw + lx;
-  trace_pixel(c, banks);
+  const int n_slots = queue_len(a.pw, a.ph);
+  Lane L;
+  bool live = false, drained = false;
+  for (;;) {
+    const bool ask = !live && !drained;
+    const int q = take_slot(queue, ask);
+    if (ask) {
+      int lx, ly;
+      if (q >= n_slots) {
+        drained = true;
+      } else if (queue_pixel(a.pw, a.ph, q, lx, ly)) {
+        c.px = (uint32_t)(a.ox + lx);
+        c.py = (uint32_t)(a.oy + ly);
+        banks.pix = (size_t)ly * a.pw + lx;
+        start_lane(c, L);
+        live = true;
+      }
+    }
+    if (__all_sync(0xffffffffu, drained && !live)) break;
+    if (!live) continue;
+    body(c, L, banks);
+    if (L.state >= kExh) live = false;
+  }
+}
+
+// Launch the recording kernel of policy R with the scene's shared memory
+// on a persistent grid fed by the zeroed counter `queue`; returns the CUDA
+// error.
+template <class R>
+cudaError_t launch_record(const SpecArgs* args, const SceneDims* dims, const float* corners,
+                          const float* fdata, const int* prog, const R& banks, int* queue,
+                          cudaStream_t stream, int device) {
+  const size_t bytes = scene_smem_bytes(*dims, R::kExact);
+  const int n_slots = queue_len(args->pw, args->ph);
+  int grid = 0;
+  auto kernel = record_spectral_kernel<R>;
+  cudaError_t err = allow_smem(kernel, bytes);
+  if (err == cudaSuccess) err = persistent_grid(kernel, bytes, device, n_slots, grid);
+  if (err != cudaSuccess) return err;
+  kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, corners, fdata, prog, banks, queue);
+  return cudaGetLastError();
 }
 
 // The recording entry: as rmr_mega_spectral, but the lanes bank their
 // march residuals into `t` (float32), `mid` and `hit` (int32), each
 // (max_bounces * n_samples, ph, pw), slot bounce * n_samples + sample; the
 // caller fills them with the miss values first.  No image is written.
+// `queue` is one int32 on the device, zero before the launch (the pixel
+// queue's counter).
 extern "C" int rmr_record_spectral(const SpecArgs* args, const SceneDims* dims,
                                    const float* corners, const float* fdata, const int* prog,
-                                   float* t, int* mid, int* hit, cudaStream_t stream, int device) {
+                                   float* t, int* mid, int* hit, int* queue, cudaStream_t stream,
+                                   int device) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   Banks banks;
@@ -380,21 +441,9 @@ extern "C" int rmr_record_spectral(const SpecArgs* args, const SceneDims* dims,
   banks.hit = hit;
   banks.plane = (size_t)args->ph * args->pw;
   banks.pix = 0;
-  const dim3 block(16, kBlockThreads / 16);
-  const dim3 grid((args->pw + block.x - 1) / block.x, (args->ph + block.y - 1) / block.y);
-  const bool exact = args->normal_taps == 0;
-  const size_t bytes = scene_smem_bytes(*dims, exact);
-  if (exact) {
-    auto kernel = record_spectral_kernel<ExactNormal<Banks>>;
-    err = allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, block, bytes, stream>>>(*args, *dims, corners, fdata, prog,
-                                           ExactNormal<Banks>(banks));
-  } else {
-    auto kernel = record_spectral_kernel<Banks>;
-    err = allow_smem(kernel, bytes);
-    if (err != cudaSuccess) return (int)err;
-    kernel<<<grid, block, bytes, stream>>>(*args, *dims, corners, fdata, prog, banks);
+  if (args->normal_taps == 0) {
+    return (int)launch_record(args, dims, corners, fdata, prog, ExactNormal<Banks>(banks), queue,
+                              stream, device);
   }
-  return (int)cudaGetLastError();
+  return (int)launch_record(args, dims, corners, fdata, prog, banks, queue, stream, device);
 }

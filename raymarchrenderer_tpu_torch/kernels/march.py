@@ -22,7 +22,8 @@ plane of rays.
   * `render_fused_spectral` — the gen-3 spectral transport, the port of
     the TPU kernel of that name: mega mode (body `trace_mega_spectral`)
     is `csrc/mega_spectral.cu`, wavefront mode (`trace_spectral` per
-    sample) `csrc/wavefront_spectral.cu`;
+    sample) `csrc/wavefront_spectral.cu` (`WAVEFRONT_SPECTRAL`), a lane
+    machine on the pixel queue like the RGB one;
   * `march_fused` — the per-ray sphere trace of the differentiable path,
     the port of the TPU kernel of that name: CUDA kernel
     `csrc/march_fused.cu` (a persistent grid on a queue of rays, its
@@ -31,7 +32,8 @@ plane of rays.
 The recorders (`RECORD_PATHS` and `RECORD_WAVEFRONT`, entries of
 `csrc/mega_paths.cu`; `RECORD_SPECTRAL`, an entry of
 `csrc/mega_spectral.cu`) are wrapped by `kernels/record.py`.  The megakernels
-run one thread per pixel through the lane-state machine.  The device of
+run the lane-state machine, one thread per pixel or, for the deferred sky
+and the recorders, a persistent grid on the pixel queue.  The device of
 the input tensors (`corners`, or the ray planes) picks the route: a CUDA
 tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
 runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`,
@@ -140,9 +142,9 @@ _P = ctypes.c_void_p
 _D = ctypes.POINTER(SceneDims)
 # Every entry takes the launch scalars, then the scene's `SceneDims`, ...,
 # and ends with the stream and the device index; the persistent entries
-# (the RGB megakernel's deferred sky and recorder, the RGB wavefront
-# kernel, `march_fused`) take their queue's counter (`_queue`) before the
-# stream.
+# (the RGB megakernel's deferred sky and recorder, the spectral recorder,
+# both wavefront kernels, `march_fused`) take their queue's counter
+# (`_queue`) before the stream.
 # args, dims, corners, data, program, the output
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
@@ -167,10 +169,10 @@ WAVEFRONT_PATHS = CudaKernel(
     [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 11 + [
         _P, ctypes.c_int])
 # the spectral wavefront kernel: args, dims, corners, data, program, the
-# output
+# output, the queue
 WAVEFRONT_SPECTRAL = CudaKernel(
     "wavefront_spectral.cu", "rmr_wavefront_spectral",
-    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, ctypes.c_int])
+    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, _P, ctypes.c_int])
 # the recording entry of the same source (one library with MEGA_PATHS):
 # args, dims, corners, data, program, then the t, mid, hit and sd banks,
 # the queue
@@ -178,10 +180,10 @@ RECORD_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_record_paths",
     [ctypes.POINTER(PathArgs), _D] + [_P] * 8 + [_P, ctypes.c_int])
 # the recording entry of mega_spectral.cu: args, dims, corners, data,
-# program, then the t, mid and hit banks
+# program, then the t, mid and hit banks, the queue
 RECORD_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_record_spectral",
-    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, _P, _P,
+    [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, _P, _P, _P,
      ctypes.c_int])
 # the wavefront recording entry of mega_paths.cu: args, dims, the ray
 # count, data, program, the nine ray planes, the t, mid, hit and sd banks
@@ -249,15 +251,16 @@ def _queue(device):
     return torch.zeros(1, dtype=torch.int32, device=device)
 
 
-def _launch(kernel, args, dims, corners, prog, data, ph, pw):
-    """Launch `kernel` on PyTorch's current stream of the corners' device;
-    returns the (ph, pw, 3) float32 output."""
+def _launch(kernel, args, dims, corners, prog, data, ph, pw, *queue):
+    """Launch `kernel` on PyTorch's current stream of the corners' device
+    (a persistent kernel with its `queue`); returns the (ph, pw, 3)
+    float32 output."""
     device = corners.device
     corners = corners.contiguous()
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
     kernel.launch(ctypes.byref(args), ctypes.byref(dims), corners.data_ptr(),
                   data.data_ptr(), prog.data_ptr(), out.data_ptr(),
-                  *stream_args(device))
+                  *(q.data_ptr() for q in queue), *stream_args(device))
     return out
 
 
@@ -281,7 +284,7 @@ def _launch_wavefront_spectral(scene, params, mats, cfg, corners, sample0,
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, 1, 0, False))
     dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
     return _launch(WAVEFRONT_SPECTRAL, args, dims, corners, prog, data, ph,
-                   pw)
+                   pw, _queue(corners.device))
 
 
 def wavefront_spectral_plain(scene: Scene, params, mats, cfg: RenderConfig,

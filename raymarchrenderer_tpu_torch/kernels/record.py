@@ -220,10 +220,11 @@ def _launch_record_spectral(scene, params, mats, cfg, corners, origin_xy,
         cfg, origin_xy, ph, pw, sample0, S, False, unroll, cadence, lazy))
     banks = _miss_banks(cfg, (cfg.max_bounces * S, ph, pw), corners.device)
     dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
+    queue = _queue(corners.device)
     RECORD_SPECTRAL.launch(ctypes.byref(args), ctypes.byref(dims),
                            corners.contiguous().data_ptr(), data.data_ptr(),
                            prog.data_ptr(), *(b.data_ptr() for b in banks),
-                           *stream_args(corners.device))
+                           queue.data_ptr(), *stream_args(corners.device))
     return banks
 
 

@@ -208,20 +208,21 @@ _SCHED = dict(lazy_miss=True, march_unroll=32, regen_cadence=16)
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("kind", ["rgb", "spectral", "defer", "record"])
+@pytest.mark.parametrize("kind", ["rgb", "spectral", "defer", "record",
+                                  "record_spectral", "wavefront_spectral"])
 def test_persistent_queue_odd_frame_and_reset(cuda_device, kind):
     """The megakernels on a 37 x 53 patch (1961 pixels, not a multiple of
     32, nor of the RGB kernel's 2 x 16 queue tiles) at (11, 5) of a 96 x
     64 frame equal the whole frame's launch on those pixels bit for bit
     (a pixel's chain does not depend on the lane or the queue slot that
     runs it), and two launches back to back are equal bit for bit: the
-    deferred sky and the recorder run a persistent grid on the pixel
-    queue, whose counter is new for every launch, so every pixel is
-    rendered again."""
+    deferred sky, both recorders and the spectral wavefront kernel run a
+    persistent grid on the pixel queue, whose counter is new for every
+    launch, so every pixel is rendered again."""
     scene = _env_scene("glass") if kind == "defer" else builtin.sphere_on_floor()
     params = scene.init_params(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
-                       relax_omega=2.0 if kind != "record" else 1.9)
+                       relax_omega=1.9 if kind.startswith("record") else 2.0)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     mats = band_table(scene, cuda_device)
@@ -238,11 +239,22 @@ def test_persistent_queue_odd_frame_and_reset(cuda_device, kind):
                                            origin, shape, 0, n_samples=3,
                                            **_SCHED)
             return [out.movedim(-1, 0)]
+        if kind == "wavefront_spectral":
+            out = march.render_fused_spectral(
+                scene, params, mats, cfg, corners, 0, n_samples=3,
+                origin_xy=origin, patch_shape=shape, mode="wavefront")
+            return [out.movedim(-1, 0)]
         if kind == "defer":
             out, banks = march._launch_mega_defer(
                 scene, params, cfg, corners, origin, *shape, 0, 3, False,
                 **_SCHED)
             return [out.movedim(-1, 0), *banks]
+        if kind == "record_spectral":
+            rec = trace_record_fused_spectral(scene, params, mats, cfg,
+                                              corners, origin, shape, 0,
+                                              n_samples=2)
+            # (B, 2 * h, w), sample-folded -> (B, 2, h, w)
+            return [rec[k].unflatten(1, (2, -1)) for k in sorted(rec)]
         rec = trace_record_fused(scene, params, cfg, corners, origin, shape,
                                  0, n_samples=1)
         return [rec[k] for k in sorted(rec)]
@@ -827,17 +839,23 @@ def test_wavefront_kernel_matches_plain(cuda_device, case):
 
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("case", ["sphere_on_floor", "csg_dispersion_nee_rr",
-                                  "env_partial_chunk", "exact_normal"])
+                                  "env_partial_chunk", "exact_normal",
+                                  "spectral"])
 def test_wavefront_lane_machine_odd_patch_and_reset(cuda_device, case):
-    """The RGB wavefront lane machine on a 37 x 53 patch (no multiple of
-    its 2 x 16 queue tiles) at (11, 5) of a 96 x 64 frame: the same bytes
-    as the whole frame's launch on those pixels (a pixel's chain does not
-    depend on the lane or the queue slot that runs it) and as a second
-    launch (the queue's counter is new for every launch), and its plain
-    version's values to the bars of test_wavefront_kernel_matches_plain.
+    """The wavefront lane machines on a 37 x 53 patch (no multiple of
+    their 2 x 16 queue tiles) at (11, 5) of a 96 x 64 frame: the same
+    bytes as the whole frame's launch on those pixels (a pixel's chain
+    does not depend on the lane or the queue slot that runs it) and as a
+    second launch (the queue's counter is new for every launch), and the
+    plain version's values to the bars of
+    test_wavefront_kernel_matches_plain (the spectral kernel's, in
+    "spectral", to test_wavefront_spectral_kernel_matches_plain's).
     "env_partial_chunk" traces 3 path slots of a bank of 8 (the last
     chunk of a render, n_valid < K) under dispersion and NEE; the untraced
     slots stay zero."""
+    if case == "spectral":
+        _spectral_lane_machine_odd_patch_and_reset(cuda_device)
+        return
     extra, nee, k = {}, False, 0
     if case == "sphere_on_floor":
         scene = builtin.sphere_on_floor()
@@ -890,17 +908,49 @@ def test_wavefront_lane_machine_odd_patch_and_reset(cuda_device, case):
         assert float(first[1][:n].abs().max()) > 0.0
 
 
-@pytest.mark.requires_cuda
-@pytest.mark.parametrize("taps", [4, 0])
-def test_wavefront_spectral_kernel_matches_plain(cuda_device, taps):
-    """The spectral wavefront entry against wavefront_spectral_plain on
-    the same CUDA tensors, 4 samples of a patch at a non-zero origin, 16
-    bounces."""
+def _spectral_lane_machine_odd_patch_and_reset(cuda_device):
+    """The "spectral" case of test_wavefront_lane_machine_odd_patch_and_
+    reset: the spectral wavefront kernel at 16 bounces, 3 samples."""
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         spectral_demo)
     scene, params, mats = spectral_demo(cuda_device)
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=16,
-                       max_dist=100.0, relax_omega=2.0, normal_taps=taps)
+                       max_dist=100.0, relax_omega=2.0)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+
+    def launch(origin, ph, pw):
+        return march.render_fused_spectral(
+            scene, params, mats, cfg, corners, 5, n_samples=3,
+            origin_xy=origin, patch_shape=(ph, pw), mode="wavefront")
+
+    launches = march.WAVEFRONT_SPECTRAL.launches
+    first, second = launch((11, 5), 37, 53), launch((11, 5), 37, 53)
+    frame = launch((0, 0), 64, 96)
+    torch.cuda.synchronize()
+    assert march.WAVEFRONT_SPECTRAL.launches == launches + 3
+    assert float(first.abs().max()) > 0.0
+    assert torch.equal(first, second)
+    assert torch.equal(first, frame[5:42, 11:64])
+    want = march.wavefront_spectral_plain(scene, params, mats, cfg, corners,
+                                          5, 3, (11, 5), 37, 53)
+    assert frac_off(want.cpu().numpy(), first.cpu().numpy()) < MAX_FRAC_OFF
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("bounces", [16, 0])
+@pytest.mark.parametrize("taps", [4, 0])
+def test_wavefront_spectral_kernel_matches_plain(cuda_device, taps, bounces):
+    """The spectral wavefront entry against wavefront_spectral_plain on
+    the same CUDA tensors, 4 samples of a patch at a non-zero origin, 16
+    bounces; with 0 bounces no path marches (a black image: the
+    wavelength stays unset)."""
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    scene, params, mats = spectral_demo(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192,
+                       max_bounces=bounces, max_dist=100.0, relax_omega=2.0,
+                       normal_taps=taps)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     launches = march.WAVEFRONT_SPECTRAL.launches
@@ -911,7 +961,7 @@ def test_wavefront_spectral_kernel_matches_plain(cuda_device, taps):
     assert march.WAVEFRONT_SPECTRAL.launches == launches + 1
     want = march.wavefront_spectral_plain(scene, params, mats, cfg, corners,
                                           1, 4, (8, 4), 48, 80)
-    assert float(got.mean()) > 0.0
+    assert (float(got.mean()) > 0.0) == (bounces > 0)
     assert frac_off(want.cpu().numpy(), got.cpu().numpy()) < MAX_FRAC_OFF
 
 

@@ -72,10 +72,12 @@ def test_argument_structs_mirror_the_c_structs(cls):
     assert [f[0] for f in cls._fields_] == _c_fields(cls.__name__)
 
 
-def test_persistent_entries_take_a_queue():
+@pytest.mark.parametrize("name", ["MARCH_FUSED", "WAVEFRONT_PATHS",
+                                  "WAVEFRONT_SPECTRAL", "MEGA_PATHS_DEFER",
+                                  "RECORD_PATHS", "RECORD_SPECTRAL"])
+def test_persistent_entries_take_a_queue(name):
     """The entries that run on a queue take its counter before the
     stream."""
-    for k in (march.MARCH_FUSED, march.WAVEFRONT_PATHS,
-              march.MEGA_PATHS_DEFER, march.RECORD_PATHS):
-        assert _c_params(k.source.name, k.entry)[-3] == "int* queue"
+    k = getattr(march, name)
+    assert _c_params(k.source.name, k.entry)[-3] == "int* queue"
 

@@ -113,3 +113,39 @@ def test_work_gathers_the_lane_steps():
     assert torch.equal(work["lane_steps"][0],
                        tint.march(*args, with_steps=True)[3])
     assert int(sum(s.sum() for s in work["lane_steps"])) == int(work["march"])
+
+
+def test_spectral_wavefront_gathers_one_plane_per_march(monkeypatch):
+    """`wavefront_spectral_plain(..., work={"lane_steps": []})`, the
+    reading behind the spectral wavefront kernel's chain occupancy, keeps
+    one (ph, pw) plane per (sample, bounce) march: the planes sum to the
+    "march" total, and each equals `march(with_steps=True)`'s counts on
+    that march's rays.  No JAX."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels.march import (
+        wavefront_spectral_plain)
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    real, calls = tint.march, []
+
+    def spy(*args, **kw):
+        calls.append((args[:7], kw.get("t_max")))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(tint, "march", spy)
+    scene, params, mats = spectral_demo("cpu")
+    cfg = TCfg(width=24, height=20, max_steps=96, max_bounces=4,
+               max_dist=100.0, relax_omega=2.0)
+    corners = Camera(aspect=1.2).corner_rays_flat("cpu")
+    work = {"lane_steps": []}
+    wavefront_spectral_plain(scene, params, mats, cfg, corners, 1, 2, (5, 3),
+                             16, 16, work=work)
+    planes = work["lane_steps"]
+    assert len(planes) == len(calls) == 2 * cfg.max_bounces
+    assert all(p.shape == (16, 16) and p.dtype == torch.int32
+               for p in planes)
+    assert int(sum(p.sum() for p in planes)) == int(work["march"])
+    assert int(planes[-1].sum()) < int(planes[0].sum())
+    for plane, (args, t_max) in zip(planes, calls):
+        assert torch.equal(plane, real(*args, t_max=t_max,
+                                       with_steps=True)[3])
