@@ -6,8 +6,9 @@ Phases (any failure raises and the script exits non-zero):
 
   1. device — a CUDA card must be present; print its name and power limit;
   2. build  — compile csrc/mega_paths.cu (the render with the constant
-     and the SH sky, the deferred-sky render, the recording and the
-     wavefront recording entries), csrc/wavefront_paths.cu,
+     and the SH sky, the deferred-sky render and the recording entry),
+     csrc/wavefront_paths.cu (the RGB wavefront render and the wavefront
+     recorder),
      csrc/mega_spectral.cu (the render and the recording entries),
      csrc/wavefront_spectral.cu and csrc/march_fused.cu with nvcc
      (sm_90a), one process per source, started together; time each and
@@ -48,8 +49,14 @@ Phases (any failure raises and the script exits non-zero):
          and a 128^2 patch at a non-zero origin, 4 samples;
        * the wavefront recorder (`trace_record_wavefront` vs
          `record_wavefront_plain`): the train launch's bounce-0 planes
-         (sphere_on_floor, 1024^2, 1 sample, 4 bounces); csg_demo with NEE
-         and roulette on a 256^2 patch, and there against the mega
+         (sphere_on_floor, 1024^2, 1 sample, 4 bounces) and csg_demo with
+         NEE and roulette from bounce 1 on the same planes (the NEE
+         launch), each timed with its bound and the chain occupancy of
+         its schedules (`wavefront_occupancy`: one thread per ray, one
+         lane per ray, the ray queue modelled; warps of 32 consecutive
+         rays);
+         csg_demo with NEE and roulette on a 256^2 patch, and there
+         against the mega
          recorder on the same rays (decisions and visibility off on fewer
          than 5e-3 of the entries, bounce-0 t within 5e-3, later t off by
          more than 1e-5 on fewer than 1e-3 of the both-hit entries);
@@ -93,7 +100,8 @@ Phases (any failure raises and the script exits non-zero):
        * every kernel at its main launch alone (`kernel_times`: mean of
          3 beside the times recorded before the redesign, `BEFORE_MS`;
          csg NEE, the SH sky and the exact normal's launches with bounds
-         scaled from an 8-sample run of their plain versions).
+         scaled from an 8-sample run of their plain versions, the
+         wavefront recorder's two launches with the parity phase's).
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -676,34 +684,51 @@ def march_occupancy(label, steps):
     return res
 
 
-def wavefront_occupancy(label, planes, source):
+def _tile_warps(x):
+    """A (R, W) per-lane plane as (n / 32, 32) warps of 2 x 16 tiles in
+    the pixel queue's order (`_in_queue_order`), padded with zeros."""
+    return _tiles(x).permute(0, 2, 1, 3).reshape(-1, 32)
+
+
+def _ray_warps(x):
+    """A per-ray plane flattened in the rays' order (the ray queue's) and
+    padded with zeros to whole warps of 32 consecutive rays, as (n / 32,
+    32)."""
+    x = x.reshape(-1)
+    return torch.nn.functional.pad(x, (0, -x.numel() % 32)).reshape(-1, 32)
+
+
+def wavefront_occupancy(label, planes, source, warps=_tile_warps):
     """Chain occupancy of a wavefront kernel (`source`, whose launch bound
     sets the queue's resident warps) from the per-lane steps of every march
-    its plain version made (`work["lane_steps"]`: one (ph, pw) plane per
-    bounce or shadow march of each sample): the lanes' steps over 32 x the
-    warps' lifetimes in steps (2 x 16 warps), for the nested loops (each
-    march a loop the warp runs to its longest lane), the lane machine with
-    one lane per pixel (a warp lives as long as its longest pixel's chain
-    of steps), and on the pixel queue (modelled).  Counts march steps
-    only, not the events."""
+    its plain version made (`work["lane_steps"]`: one plane per bounce or
+    shadow march of each sample): the lanes' steps over 32 x the warps'
+    lifetimes in steps, for the nested loops (each march a loop the warp
+    runs to its longest lane), the lane machine with one lane per pixel or
+    ray (a warp lives as long as its longest chain of steps), and on the
+    queue (modelled, slots handed out in order).  `warps` cuts a plane
+    into the kernel's warps in its queue's order: 2 x 16 tiles of pixels
+    (`_tile_warps`) or, for the wavefront recorder, 32 consecutive rays
+    (`_ray_warps`).  Counts march steps only, not the events."""
     total, nested, chain = 0, 0, None
     for p in planes:
         p = p.to(torch.int64)
         total += int(p.sum())
-        nested += int(_tiles(p).amax(dim=(1, 3)).sum())
+        nested += int(warps(p).amax(-1).sum())
         chain = p if chain is None else chain + p
-    warps = _resident_warps(source)
-    lives = _queue_lives(_in_queue_order(chain), warps)
+    resident = _resident_warps(source)
+    lives = _queue_lives(warps(chain).reshape(-1).tolist(), resident)
     res = {"nested_loops": total / (32 * nested),
-           "lane_machine": total / (32 * int(
-               _tiles(chain).amax(dim=(1, 3)).sum())),
+           "lane_machine": total / (32 * int(warps(chain).amax(-1).sum())),
            "queue": total / (32 * lives), "steps": total,
-           "marches": len(planes), "resident_warps": warps}
-    print(f"occupancy, {label}: chain over (sample, bounce, march), nested "
+           "marches": len(planes), "mean_chain": total / chain.numel(),
+           "max_chain": int(chain.max()), "resident_warps": resident}
+    print(f"occupancy, {label}: chain over every march, nested "
           f"loops {res['nested_loops']:.4f}, lane machine one lane per "
-          f"pixel {res['lane_machine']:.4f}, on the pixel queue (modelled) "
-          f"{res['queue']:.4f} ({total} steps in {len(planes)} marches; "
-          f"{warps} resident warps)", flush=True)
+          f"pixel or ray {res['lane_machine']:.4f}, on the queue (modelled) "
+          f"{res['queue']:.4f} ({total} steps in {len(planes)} marches, "
+          f"chain mean {res['mean_chain']:.2f}, max {res['max_chain']}; "
+          f"{resident} resident warps)", flush=True)
     OCCUPANCY[label] = res
     return res
 
@@ -1118,23 +1143,41 @@ WAVE_MEGA_T = 5e-3
 
 
 def parity_wavefront(dev, card):
-    """The wavefront recorder: the spectral train launch's bounce-0 planes
-    (sphere_on_floor, 1024^2, 1 sample per lane, 4 bounces), then csg_demo
-    with NEE and roulette on a 256^2 patch, and there against the mega
-    recorder (kernel #5) on the same rays."""
+    """The wavefront recorder: the train launch's bounce-0 planes
+    (sphere_on_floor, 1024^2, 1 sample per lane, 4 bounces: the main
+    launch) and csg_demo with NEE and roulette on the same planes (the NEE
+    launch), each timed with its bound and the chain occupancy of its
+    schedules (`wavefront_occupancy` on 32-ray warps); then csg_demo with
+    NEE and roulette on a 256^2 patch, and there against the mega
+    recorder (kernel #5) on the same rays.  Returns (max err, ms, plain
+    ms, bound) of the main launch and {max_abs_err, ms, plain_ms,
+    bound_ms, bound_by} of the NEE one."""
     from raymarchrenderer_tpu_torch.kernels.record import trace_record_fused
     from raymarchrenderer_tpu_torch.kernels.scene_program import (
         paths_buffers)
-    kernel, plain, scene, cfg, params, _ = _wavefront_fns(
-        dev, "sphere_on_floor", 1024)
-    prog, data, _ = paths_buffers(scene, params, dev)
-    max_err, ms, plain_ms, work = _main_launch(
-        "wavefront recorder, sphere_on_floor 1024x1024 bounce-0 planes, 1 "
-        f"sample, {cfg.max_bounces} bounces", kernel, plain, card,
-        _planes_compare)
-    n = 1024 * 1024
-    bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
-                   12 * cfg.max_bounces * n, lookups=0)
+
+    def launch(name, label, scene_name, **kw):
+        kernel, plain, scene, cfg, params, _ = _wavefront_fns(
+            dev, scene_name, 1024, **kw)
+        label = (f"{label}, {scene_name} 1024x1024 bounce-0 planes, 1 "
+                 f"sample, {cfg.max_bounces} bounces")
+        max_err, ms, plain_ms, work = _main_launch(
+            label, kernel, plain, card, _planes_compare,
+            work={"lane_steps": []})
+        wavefront_occupancy(label, work.pop("lane_steps"),
+                            "wavefront_paths", _ray_warps)
+        prog, data, _ = paths_buffers(scene, params, dev)
+        n = 1024 * 1024
+        lights = scene.n_lights if kw.get("direct_light") else 0
+        bound = _bound(scene, cfg, work, 36 * n + _buffer_bytes(prog, data),
+                       (12 + 4 * lights) * cfg.max_bounces * n, lookups=0)
+        PARITY_BOUNDS[name] = bound[:2]
+        return max_err, ms, plain_ms, bound
+
+    main = launch("record_wavefront", "wavefront recorder", "sphere_on_floor")
+    nee = launch("record_wavefront_nee", "wavefront recorder + NEE + RR",
+                 "csg_demo", direct_light=True, rr_start_bounce=1)
+    max_err = max(main[0], nee[0])
     kernel, plain, scene, cfg, params, corners = _wavefront_fns(
         dev, "csg_demo", 1024, _NEE_PATCH, (256, 256), direct_light=True,
         rr_start_bounce=1)
@@ -1161,7 +1204,9 @@ def parity_wavefront(dev, card):
             and sd < WAVE_MEGA_FRAC and float(dt[0].max()) < WAVE_MEGA_T
             and later < MAX_FRAC_OFF):
         raise AssertionError("the wavefront and mega recorders disagree")
-    return max_err, ms, plain_ms, bound
+    return (max_err, *main[1:], dict(
+        max_abs_err=nee[0], ms=nee[1], plain_ms=nee[2], bound_ms=nee[3][0],
+        bound_by=nee[3][1]))
 
 
 def parity_spectral_grads(dev, card):
@@ -2522,8 +2567,13 @@ def _main_kernels(dev, sh_scene_path):
     res["record_paths"] = (kernel, None, TRAIN_SPP, scene, cfg, (), 0)
     kernel, _, scene, cfg, _ = _record_spectral_fns(dev, 1024, TRAIN_SPP)
     res["record_spectral"] = (kernel, None, TRAIN_SPP, scene, cfg, (), 0)
-    kernel, _, scene, cfg, *_ = _wavefront_fns(dev, "sphere_on_floor", 1024)
-    res["record_wavefront"] = (kernel, None, 1, scene, cfg, (), 0)
+    for name, scene_name, kw in (
+            ("record_wavefront", "sphere_on_floor", {}),
+            ("record_wavefront_nee", "csg_demo",
+             dict(direct_light=True, rr_start_bounce=1))):
+        kernel, _, scene, cfg, *_ = _wavefront_fns(dev, scene_name, 1024,
+                                                   **kw)
+        res[name] = (kernel, None, 1, scene, cfg, (), 0)
     kernel, _, scene, cfg, params, _ = _march_fns(dev)
     res["march_fused"] = (kernel, None, TRAIN_SPP, scene, cfg,
                           object_buffers(scene, params, dev), 0)
@@ -2573,6 +2623,7 @@ _KERNEL_OF = {"mega_paths": "MEGA_PATHS", "mega_paths_csg_nee": "MEGA_PATHS",
               "record_paths": "RECORD_PATHS",
               "record_spectral": "RECORD_SPECTRAL",
               "record_wavefront": "RECORD_WAVEFRONT",
+              "record_wavefront_nee": "RECORD_WAVEFRONT",
               "march_fused": "MARCH_FUSED",
               "march_fused_step": "MARCH_FUSED",
               "wavefront_paths": "WAVEFRONT_PATHS",
@@ -2594,6 +2645,10 @@ def _step_compare(got, want):
 # the launches whose output kernel_times(bounds=True) holds against the
 # plain run that counts their work
 _COMPARED = {"march_fused_step": _step_compare}
+
+# the bounds (ms, "bytes" or "operations") the parity phase counted, by
+# the name of a `_main_kernels` launch
+PARITY_BOUNDS = {}
 
 
 def _cuda_ms_each(fn, reps: int) -> list:
@@ -2619,9 +2674,10 @@ def kernel_times(dev, card, sh_scene_path, bounds=False, only=None):
     another tree in the same call by running this script in its checkout).
     With `bounds`, the launches of `_SCALED` also get their bound, from
     their plain version's work on a 1024^2 run of 8 samples (8 paths)
-    scaled to the launch's 128 samples (32 paths), and "march_fused_step"
+    scaled to the launch's 128 samples (32 paths), "march_fused_step"
     from its plain marches' work, whose output is also held against the
-    warm-up's (`_COMPARED`).  Prints one `kernel times:` JSON line and
+    warm-up's (`_COMPARED`), and those of `PARITY_BOUNDS` the bound the
+    parity phase counted for them.  Prints one `kernel times:` JSON line and
     returns {name: reading}."""
     res = {}
     for name, (kernel, plain, n, scene, cfg, bufs, out_bytes) in \
@@ -2660,6 +2716,10 @@ def kernel_times(dev, card, sh_scene_path, bounds=False, only=None):
             r["bound_scaled_from"] = m
             note += (f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; the "
                      f"work of {m} scaled by {scale})")
+        elif name in PARITY_BOUNDS:
+            r["bound_ms"], r["bound_by"] = PARITY_BOUNDS[name]
+            note += (f", bound {r['bound_ms']:.4f} ms ({r['bound_by']}; "
+                     "counted in the parity phase)")
         print(f"time: {name} at its main launch: {ms:.3f} ms ({min(each):.3f}"
               f"-{max(each):.3f}){note} [{card}]", flush=True)
         res[name] = r
@@ -2674,7 +2734,8 @@ _SWEPT = {"mega_paths": ("mega_paths", "mega_paths_sh", "mega_paths_csg_nee",
           "mega_spectral": ("mega_spectral", "mega_spectral_exact",
                             "record_spectral"),
           "march_fused": ("march_fused", "march_fused_step"),
-          "wavefront_paths": ("wavefront_paths",),
+          "wavefront_paths": ("wavefront_paths", "record_wavefront",
+                              "record_wavefront_nee"),
           "wavefront_spectral": ("wavefront_spectral",)}
 
 
@@ -2725,7 +2786,8 @@ def sweep(dev, card, variants):
                               march.RECORD_PATHS),
                "mega_spectral": (march.MEGA_SPECTRAL, march.RECORD_SPECTRAL),
                "march_fused": (march.MARCH_FUSED,),
-               "wavefront_paths": (march.WAVEFRONT_PATHS,),
+               "wavefront_paths": (march.WAVEFRONT_PATHS,
+                                   march.RECORD_WAVEFRONT),
                "wavefront_spectral": (march.WAVEFRONT_SPECTRAL,)}
     res = {"card": card}
     digests = {}
@@ -2820,7 +2882,9 @@ def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
 # the spectral recorder and the spectral wavefront kernel (times, SASS,
 # registers) were recorded later, on the tree before their own redesign
 # (`--kernel-times` in its `git archive`, the mean of two runs), in the
-# call that timed the redesign.
+# call that timed the redesign; so were the wavefront recorder's (both of
+# its launches, and the digest of the NEE launch, which the tree before
+# the redesign of the render megakernels did not run).
 BEFORE_MS = {
     "march_fused": 2.262,
     "mega_paths": 373.533,
@@ -2833,7 +2897,8 @@ BEFORE_MS = {
     "mega_spectral_exact": 316.855,
     "record_paths": 20.515,
     "record_spectral": 13.537,
-    "record_wavefront": 7.143,
+    "record_wavefront": 7.600,
+    "record_wavefront_nee": 17.152,
     "wavefront_paths": 62.785,
     "wavefront_spectral": 36.335,
 }
@@ -2922,6 +2987,8 @@ DIGESTS_BEFORE = {
         "2b87c228a805b01e",
     "main: record_wavefront":
         "3382bc1959af3c99",
+    "main: record_wavefront_nee":
+        "d995de71616ab5e9",
     "main: wavefront_paths":
         "08f950085e1d13d0",
     "main: wavefront_spectral":
@@ -2976,8 +3043,8 @@ SASS_BEFORE = {
     "mega_spectral_kernel<NoBanks> exact": {"LDL": 80, "STL": 38, "CALL": 43, "BRX": 21},
     "record_spectral_kernel<Banks>": {"LDL": 46, "STL": 57, "CALL": 43, "BRX": 0},
     "record_spectral_kernel<Banks> exact": {"LDL": 44, "STL": 66, "CALL": 43, "BRX": 0},
-    "record_wavefront_kernel": {"LDL": 109, "STL": 75, "CALL": 39, "BRX": 21},
-    "record_wavefront_kernel exact": {"LDL": 156, "STL": 97, "CALL": 47, "BRX": 11},
+    "record_wavefront_kernel": {"LDL": 146, "STL": 95, "CALL": 45, "BRX": 4},
+    "record_wavefront_kernel exact": {"LDL": 118, "STL": 88, "CALL": 47, "BRX": 4},
     "wavefront_paths_kernel": {"LDL": 153, "STL": 103, "CALL": 47, "BRX": 16},
     "wavefront_paths_kernel exact": {"LDL": 132, "STL": 131, "CALL": 50, "BRX": 10},
     "wavefront_spectral_kernel": {"LDL": 129, "STL": 116, "CALL": 47, "BRX": 0},
@@ -3000,8 +3067,8 @@ PTXAS_BEFORE = {
     "mega_spectral_kernel<NoBanks> exact": (80, 0, 0),
     "record_spectral_kernel<Banks>": (40, 244, 244),
     "record_spectral_kernel<Banks> exact": (40, 236, 252),
-    "record_wavefront_kernel": (40, 572, 824),
-    "record_wavefront_kernel exact": (48, 324, 364),
+    "record_wavefront_kernel": (48, 332, 444),
+    "record_wavefront_kernel exact": (56, 268, 264),
     "wavefront_paths_kernel": (64, 160, 220),
     "wavefront_paths_kernel exact": (80, 776, 856),
     "wavefront_spectral_kernel": (40, 232, 268),
@@ -3150,7 +3217,7 @@ def main(argv=None) -> int:
     m_err, m_ms, m_plain, m_bound = parity_march(dev, card)
     parity_grads(dev, card)
     rs_err, rs_ms, rs_plain, rs_bound = parity_record_spectral(dev, card)
-    w_err, w_ms, w_plain, w_bound = parity_wavefront(dev, card)
+    w_err, w_ms, w_plain, w_bound, w_nee = parity_wavefront(dev, card)
     parity_spectral_grads(dev, card)
     d_err, d_ms, d_plain, d_bound = parity_defer(dev, card)
     tmp_dir = tempfile.TemporaryDirectory()
@@ -3271,10 +3338,10 @@ def main(argv=None) -> int:
                "raymarchrenderer_tpu/kernels/record.py:513", rs_launches,
                rs_err, rs_ms, rs_plain, rs_bound,
                exact_notes["record_spectral"]),
-        _entry("record_wavefront", "mega_paths.cu",
+        _entry("record_wavefront", "wavefront_paths.cu",
                "raymarchrenderer_tpu/kernels/record.py:274", w_launches,
                w_err, w_ms, w_plain, w_bound,
-               exact_notes["record_wavefront"]),
+               exact_notes["record_wavefront"], nee_launch=w_nee),
         _entry("mega_paths_defer", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395 mega+defer_sky",
                d_launches, d_err, d_ms, d_plain, d_bound,

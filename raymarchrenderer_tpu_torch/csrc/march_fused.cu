@@ -8,8 +8,7 @@
 // march.py `march_fused`.
 //
 // Each ray runs the plain version's loop step for step (march_ray.cuh,
-// shared with the wavefront recorder of mega_paths.cu and the RGB
-// wavefront kernel).  The Pallas kernel stops a tile when every ray of
+// shared with the wavefront kernels and the wavefront recorder).  The Pallas kernel stops a tile when every ray of
 // the tile is done; a done ray never changes again, so a ray that stops
 // at its own done (or at max_steps) gives bitwise the same result.  The
 // scene's objects are interpreted from the program of

@@ -1,8 +1,9 @@
 // The per-ray sphere trace (render/integrator.py `march` and
-// `_march_relaxed`), shared by march_fused.cu and the wavefront recorder of
-// mega_paths.cu.
+// `_march_relaxed`), shared by march_fused.cu and the wavefront lane
+// machines (wavefront_paths.cu, its recorder included, and
+// wavefront_spectral.cu).
 //
-// One call marches one ray the way the plain version marches one lane:
+// Each ray is marched the way the plain version marches one lane:
 // map(o + t d) * dist_mult with the material index, the hit test on the
 // pre-step t, the miss test t >= t_max, and in the relaxed loop the failed
 // step's back-off by step_len * (1 - omega), with prev_r and step_len
@@ -40,8 +41,8 @@ __device__ __forceinline__ float map_with_mid(const SceneRef& s, float max_dist,
 }
 
 // One ray's march in flight: the segment (o, d, dist_mult, t_max) and the
-// loop's carries.  `march_ray` runs it to its end; a lane machine (the RGB
-// wavefront kernel) interleaves its steps with other work.
+// loop's carries.  march_fused.cu runs it to its end; a lane machine (the
+// wavefront kernels) interleaves its steps with other work.
 struct MarchState {
   V3 o, d;
   float dm, tmax, t, omega, prev_r, step_len;
@@ -110,17 +111,6 @@ __device__ __forceinline__ float march_result(const MarchState& m, int& mid_out,
   mid_out = m.hit ? m.mid : -1;
   hit_out = m.hit;
   return m.hit ? m.t : m.tmax;
-}
-
-// (t, material index, hit) of the ray o + t d: returns t, and the index
-// and the verdict through `mid_out` and `hit_out`.
-__device__ __forceinline__ float march_ray(const SceneRef& s, const MarchParams& a, V3 o, V3 d,
-                                           float dm, float tmax, bool active, int& mid_out,
-                                           bool& hit_out) {
-  MarchState m;
-  march_begin(m, a, o, d, dm, tmax, active);
-  while (march_live(m, a)) march_advance(s, a, m);
-  return march_result(m, mid_out, hit_out);
 }
 
 }  // namespace rmr

@@ -92,23 +92,6 @@
 // 3.35 TB/s for 1024^2 pixels x 4 samples x 4 bounces; the operations (the
 // map evaluations the lanes make, counted by the plain version's `work`)
 // bind, as for the render (PERF.md).
-//
-// The wavefront recording entry `rmr_record_wavefront` replaces the TPU
-// kernel `trace_record_fused` in wavefront mode (raymarchrenderer_tpu/
-// kernels/record.py:59, the pl.pallas_call at :274, which marches each
-// bounce over a tile with a per-tile early-out).  Its plain version is
-// kernels/record.py `record_wavefront_plain` and its wrapper
-// `trace_record_wavefront`.  A ray's banks never depend on its
-// neighbours, so it runs one thread per ray of the given planes, looping
-// over the bounces: the march of march_ray.cuh (shared with
-// march_fused.cu), the material machine above from the hit's rng_base,
-// the NEE shadow rays toward the light table in shared memory (staged with
-// the scene), the roulette; nothing is padded.  Bound: 36 bytes of ray planes in and 12
-// per bounce out per ray (plus 4 per light and bounce with NEE); the
-// operations (the plain version's `work`) bind: 0.054 ms on the train
-// launch's 1024^2 primary planes, against 7.0 ms measured (PERF.md;
-// NVIDIA H100 80GB HBM3, 700 W).  Its calls to eval_material and
-// get_normal are real calls, with registers spilled around them.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -703,128 +686,4 @@ extern "C" int rmr_record_paths(const PathArgs* args, const SceneDims* dims, con
   banks.paths = args->dispersion ? 3 * args->n_samples : args->n_samples;
   return (int)launch_mega(args, dims, corners, fdata, prog, nullptr, banks, queue, stream,
                           device);
-}
-
-// ---- the wavefront recorder (kernels/record.py trace_record_wavefront) ----
-
-
-// One thread per ray of the given planes, looping over the bounces as the
-// plain version loops over them for all lanes: march (dist_mult 1 - 2 *
-// inside), bank (t, material, hit) at slot b, then for a hit the normal,
-// the hit's material from its rng_base, the throughput, `inside`, the
-// shadow rays of NEE (banked 3.4e38 lit, 0 occluded, at slot b * L + li),
-// the roulette on the throughput, and the next ray.  A lane that stops
-// marches no further bounce: its remaining slots keep the miss values the
-// wrapper filled in, which is what the plain version's masked march
-// returns for it (a shadow ray of an inactive lane returns its t_max, so
-// it banks lit).  A miss would multiply the throughput by the sky, but the
-// lane ends there and the roulette never reads it again, so it is left
-// out.  kExact: the exact normal (normal_taps = 0).
-template <bool kExact>
-__global__ void __launch_bounds__(kBlockThreads) record_wavefront_kernel(
-    PathArgs a, SceneDims dims, int n, const float* __restrict__ fdata,
-    const int* __restrict__ prog,
-    const float* __restrict__ ex, const float* __restrict__ ey, const float* __restrict__ ez,
-    const float* __restrict__ dx, const float* __restrict__ dy, const float* __restrict__ dz,
-    const int* __restrict__ px, const int* __restrict__ py, const int* __restrict__ sample,
-    float* __restrict__ t_bank, int* __restrict__ mid_bank, int* __restrict__ hit_bank,
-    float* __restrict__ sd_bank) {
-  // the scene and its light table, once per block in shared memory
-  const SceneRef s = stage_scene(prog, fdata, dims);
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const float* lights = light_table(s);
-  MarchParams mp;
-  mp.max_steps = a.max_steps;
-  mp.relax = a.relax;
-  mp.max_dist = a.max_dist;
-  mp.hit_eps = a.hit_eps;
-  mp.step_multiply = a.step_multiply;
-  mp.relax_omega = a.relax_omega;
-  const uint32_t upx = (uint32_t)px[i], upy = (uint32_t)py[i], usample = (uint32_t)sample[i];
-  V3 o = mk(ex[i], ey[i], ez[i]);
-  V3 d = mk(dx[i], dy[i], dz[i]);
-  V3 color = splat(1.0f);
-  float inside = 0.0f;
-  for (int b = 0; b < a.max_bounces; ++b) {
-    int mid;
-    bool hit;
-    const float t = march_ray(s, mp, o, d, 1.0f - 2.0f * inside, a.max_dist, true, mid, hit);
-    const size_t k = (size_t)b * n + i;
-    t_bank[k] = t;
-    mid_bank[k] = mid;
-    hit_bank[k] = hit ? 1 : 0;
-    if (!hit) break;
-    ShadeIn in;
-    in.origin = o;
-    in.dir = d;
-    in.t = t;
-    in.inside = inside;
-    in.hit = add(o, scale(d, t));
-    in.normal = get_normal<kExact>(s, a.max_dist, a.normal_eps, a.normal_taps, in.hit);
-    in.channels = splat(1.0f);
-    Rng rng = rng_make(a.seed, upx, upy, usample, (uint32_t)b);
-    const ShadeOut so = eval_material(s, mid, in, rng);
-    color = mul(color, so.color);
-    const bool new_inside = so.inside.x > 0.5f;
-    inside = new_inside ? 1.0f : 0.0f;
-    bool alive = !is_zero(so.dir);
-    if (a.nee && alive) {
-      const Rng nrng = rng_fork(rng, 7u);
-      const V3 o_sh = add(in.hit, scale(in.normal, a.surface_offset));
-      for (int li = 0; li < a.n_lights; ++li) {
-        V3 ldir;
-        const float dist_l = light_ray(lights, a.n_lights, li, nrng, in.hit, ldir);
-        int smid;
-        bool shit;
-        const float sd = march_ray(s, mp, o_sh, ldir, 1.0f, dist_l, true, smid, shit);
-        sd_bank[((size_t)b * a.n_lights + li) * n + i] = sd >= dist_l ? 3.4e38f : 0.0f;
-      }
-    }
-    if (a.rr_start_bounce >= 0) {
-      const float p = fminf(fmaxf(fmaxf(color.x, fmaxf(color.y, color.z)), a.rr_min_prob), 1.0f);
-      Rng rr = rng_fork(rng, 13u);
-      const float u = rng_next(rr);
-      const bool do_rr = alive && b >= a.rr_start_bounce;
-      const bool kill = do_rr && u >= p;
-      if (kill) {
-        color = splat(0.0f);
-      } else if (do_rr) {
-        color = scale(color, 1.0f / p);
-      }
-      alive = alive && !kill;
-    }
-    if (!alive) break;
-    const float off = new_inside ? -a.inside_offset : a.exit_offset;
-    o = is_zero(so.hit) ? add(in.hit, scale(in.normal, off)) : so.hit;
-    d = so.dir;
-  }
-}
-
-// The wavefront recording entry: `n` rays given as planes (eye and
-// direction float32, pixel coordinates and sample index int32), banked as
-// rmr_record_paths banks them but per bounce: `t` (float32), `mid` and
-// `hit` (int32), each (max_bounces, n), and with NEE `sd` (float32,
-// (max_bounces * n_lights, n)); the caller fills them with the miss values
-// (and sd with 3.4e38) first.  Reads the march, shading, NEE and roulette
-// fields of `args`.
-extern "C" int rmr_record_wavefront(const PathArgs* args, const SceneDims* dims, int n,
-                                    const float* fdata, const int* prog, const float* ex,
-                                    const float* ey, const float* ez, const float* dx,
-                                    const float* dy, const float* dz, const int* px,
-                                    const int* py, const int* sample, float* t, int* mid,
-                                    int* hit, float* sd, cudaStream_t stream, int device) {
-  if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaSetDevice(device);
-  if (err != cudaSuccess) return (int)err;
-  if (n <= 0) return (int)cudaSuccess;
-  const int grid = (n + kBlockThreads - 1) / kBlockThreads;
-  const bool exact = args->normal_taps == 0;
-  const size_t bytes = scene_smem_bytes(*dims, exact);
-  auto kernel = exact ? record_wavefront_kernel<true> : record_wavefront_kernel<false>;
-  err = allow_smem(kernel, bytes);
-  if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, kBlockThreads, bytes, stream>>>(*args, *dims, n, fdata, prog, ex, ey, ez, dx, dy,
-                                                 dz, px, py, sample, t, mid, hit, sd);
-  return (int)cudaGetLastError();
 }

@@ -73,7 +73,8 @@ constexpr uint32_t kW3 = 0x27D4EB2Fu;
 // to shared memory, 8 beat 4, 5, 6, 10, 12 and 16 on the RGB render and
 // recording launches (PERF.md, `chip_smoke.py --sweep-min-blocks`).
 // `kMinBlocksMarch` is march_fused.cu's bound, `kMinBlocksWavefront` the
-// RGB wavefront lane machine's (wavefront_paths.cu), read the same way.
+// RGB wavefront lane machine's (wavefront_paths.cu, the render and the
+// recorder), read the same way.
 constexpr int kBlockThreads = 128;
 constexpr int kMinBlocks = 8;
 constexpr int kMinBlocksMarch = 12;

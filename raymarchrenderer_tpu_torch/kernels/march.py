@@ -29,11 +29,13 @@ plane of rays.
     `csrc/march_fused.cu` (a persistent grid on a queue of rays, its
     counter from `_queue`), plain version `render/integrator.py::march`.
 
-The recorders (`RECORD_PATHS` and `RECORD_WAVEFRONT`, entries of
-`csrc/mega_paths.cu`; `RECORD_SPECTRAL`, an entry of
-`csrc/mega_spectral.cu`) are wrapped by `kernels/record.py`.  The megakernels
-run the lane-state machine, one thread per pixel or, for the deferred sky
-and the recorders, a persistent grid on the pixel queue.  The device of
+The recorders (`RECORD_PATHS`, an entry of `csrc/mega_paths.cu`;
+`RECORD_SPECTRAL`, an entry of `csrc/mega_spectral.cu`;
+`RECORD_WAVEFRONT`, an entry of `csrc/wavefront_paths.cu`) are wrapped by
+`kernels/record.py`.  The megakernels run the lane-state machine, one
+thread per pixel or, for the deferred sky and the recorders, a persistent
+grid on the pixel queue; the wavefront recorder runs the RGB wavefront
+lane machine on a queue of rays.  The device of
 the input tensors (`corners`, or the ray planes) picks the route: a CUDA
 tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
 runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`,
@@ -143,8 +145,8 @@ _D = ctypes.POINTER(SceneDims)
 # Every entry takes the launch scalars, then the scene's `SceneDims`, ...,
 # and ends with the stream and the device index; the persistent entries
 # (the RGB megakernel's deferred sky and recorder, the spectral recorder,
-# both wavefront kernels, `march_fused`) take their queue's counter
-# (`_queue`) before the stream.
+# both wavefront kernels and the wavefront recorder, `march_fused`) take
+# their queue's counter (`_queue`) before the stream.
 # args, dims, corners, data, program, the output
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
@@ -185,11 +187,12 @@ RECORD_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_record_spectral",
     [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, _P, _P, _P,
      ctypes.c_int])
-# the wavefront recording entry of mega_paths.cu: args, dims, the ray
-# count, data, program, the nine ray planes, the t, mid, hit and sd banks
+# the wavefront recording entry of wavefront_paths.cu (one library with
+# WAVEFRONT_PATHS): args, dims, the ray count, data, program, the nine ray
+# planes, the t, mid, hit and sd banks, the ray queue
 RECORD_WAVEFRONT = CudaKernel(
-    "mega_paths.cu", "rmr_record_wavefront",
-    [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 15 + [
+    "wavefront_paths.cu", "rmr_record_wavefront",
+    [ctypes.POINTER(PathArgs), _D, ctypes.c_int] + [_P] * 16 + [
         _P, ctypes.c_int])
 # args, dims, program, data, the nine input planes, the three outputs, the
 # ray queue's counter

@@ -19,8 +19,10 @@ version `render.mega.trace_mega_paths(record_banks=True)`.
 `trace_record_wavefront` is the same function's wavefront mode over given
 ray planes (one march per bounce for every lane, the TPU kernel
 `trace_record_fused(mode="wavefront")`; no CLI path reaches it): CUDA
-entry `rmr_record_wavefront` of `csrc/mega_paths.cu`
-(`RECORD_WAVEFRONT`), plain version `record_wavefront_plain`.
+entry `rmr_record_wavefront` of `csrc/wavefront_paths.cu`
+(`RECORD_WAVEFRONT`: the RGB wavefront lane machine on a queue of rays,
+each lane a ray's bounces, march steps and shadow segments in one loop),
+plain version `record_wavefront_plain`.
 
 `trace_record_fused_spectral` banks (t, mid, hit) for the spectral replay
 (`render.spectral_integrator.trace_spectral(march_impl="recorded")`):
@@ -277,8 +279,8 @@ def trace_record_wavefront(scene: Scene, params, cfg: RenderConfig,
     `sample` the RNG's sample index, per lane.  Every lane banks every
     bounce: a lane that has stopped banks the march's miss values (t =
     max_dist, mid = -1, hit = 0), and its shadow rays bank lit (3.4e38).
-    CUDA planes launch `RECORD_WAVEFRONT` (one thread per ray); CPU planes
-    run `record_wavefront_plain`."""
+    CUDA planes launch `RECORD_WAVEFRONT` (a lane machine on a queue of
+    the rays); CPU planes run `record_wavefront_plain`."""
     _check_wavefront(scene, cfg)
     device = d0.x.device
     if device.type == "cpu":
@@ -318,10 +320,11 @@ def _launch_record_wavefront(scene, params, cfg, eye, d0, px, py, sample,
         inside_offset=cfg.inside_offset, rr_min_prob=cfg.rr_min_prob,
         **_common_fields(cfg, (0, 0), 1, n, 0, 1, False, 1, 0, False))
     dims = scene_dims(dims, device, cfg.normal_taps == 0)
+    queue = _queue(device)
     RECORD_WAVEFRONT.launch(ctypes.byref(args), ctypes.byref(dims), n,
                             data.data_ptr(),
                             prog.data_ptr(), *(p.data_ptr() for p in planes),
-                            *(b.data_ptr() for b in banks),
+                            *(b.data_ptr() for b in banks), queue.data_ptr(),
                             *stream_args(device))
     rec = dict(zip(("t", "mid", "hit"), banks[:3]))
     if nee:

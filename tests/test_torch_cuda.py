@@ -600,6 +600,59 @@ def test_record_wavefront_kernel_matches_plain(cuda_device, case):
                  .max()) < 5e-3
 
 
+# (planes (ph, pw), scene, NEE, config extras)
+_RAY_QUEUE_CASES = {
+    "odd_ray_count": ((61, 97), "csg", True, dict(rr_start_bounce=1)),
+    "back_to_back": ((48, 80), "demo", False, {}),
+    "max_bounces_0": ((61, 97), "csg", True, dict(max_bounces=0)),
+    "two_lights_nee": ((48, 80), "lights", True, dict(rr_start_bounce=0)),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(_RAY_QUEUE_CASES))
+def test_record_wavefront_ray_queue(cuda_device, case):
+    """The wavefront recorder's lanes on the ray queue, bank for bank
+    against its plain version (max abs err 0.0): planes of 61 x 97 rays (no
+    multiple of a warp), two launches back to back (the queue's counter is
+    new for every launch: the same bytes twice), max_bounces 0 (no bank
+    slot; the plain version records none) and NEE toward two lights."""
+    shape, name, nee, extra = _RAY_QUEUE_CASES[case]
+    scene = (many_lights_scene(2) if name == "lights"
+             else _paths_scene(name))
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=128, height=96, **{
+        "max_bounces": 4, "relax_omega": 1.9, "normal_taps": 4, **extra})
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    px, py, sample, eye, d = integrator.spp_rays(cfg, corners, (9, 5), shape,
+                                                 3, 1)
+    launches = march.RECORD_WAVEFRONT.launches
+    runs = 2 if case == "back_to_back" else 1
+    got = [trace_record_wavefront(scene, params, cfg, eye, d, px, py, sample,
+                                  direct_light=nee) for _ in range(runs)]
+    torch.cuda.synchronize()
+    assert march.RECORD_WAVEFRONT.launches == launches + runs
+    want = record_wavefront_plain(scene, params, cfg, eye, d, px, py, sample,
+                                  direct_light=nee)
+    n_lights = scene.n_lights if nee else 0
+    slots = {"t": cfg.max_bounces, "mid": cfg.max_bounces,
+             "hit": cfg.max_bounces, "sd": cfg.max_bounces * n_lights}
+    for rec in got:
+        assert set(rec) == set(slots) - ({"sd"} if not nee else set())
+        for k, v in rec.items():
+            assert tuple(v.shape) == (slots[k], *shape)
+            if cfg.max_bounces == 0:
+                assert k not in want
+                continue
+            assert v.dtype == want[k].dtype
+            assert float((v.double() - want[k].double()).abs().max()) == 0.0
+        if cfg.max_bounces:
+            assert int(rec["hit"][0].sum()) > 0
+    if runs == 2:
+        assert all(torch.equal(got[0][k], got[1][k]) for k in got[0])
+
+
 @pytest.mark.requires_cuda
 def test_train_spectral_grads_kernel_banks_match_plain_banks(cuda_device):
     """One spectral step's loss and gradients (scene leaves and band rows)

@@ -74,7 +74,8 @@ def test_argument_structs_mirror_the_c_structs(cls):
 
 @pytest.mark.parametrize("name", ["MARCH_FUSED", "WAVEFRONT_PATHS",
                                   "WAVEFRONT_SPECTRAL", "MEGA_PATHS_DEFER",
-                                  "RECORD_PATHS", "RECORD_SPECTRAL"])
+                                  "RECORD_PATHS", "RECORD_SPECTRAL",
+                                  "RECORD_WAVEFRONT"])
 def test_persistent_entries_take_a_queue(name):
     """The entries that run on a queue take its counter before the
     stream."""

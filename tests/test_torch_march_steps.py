@@ -149,3 +149,60 @@ def test_spectral_wavefront_gathers_one_plane_per_march(monkeypatch):
     for plane, (args, t_max) in zip(planes, calls):
         assert torch.equal(plane, real(*args, t_max=t_max,
                                        with_steps=True)[3])
+
+
+def test_record_wavefront_gathers_one_plane_per_march(monkeypatch):
+    """`record_wavefront_plain(..., work={"lane_steps": []})`, the reading
+    behind the wavefront recorder's chain occupancy, keeps one plane of
+    per-ray steps per bounce march and per shadow march, in the order the
+    recorder makes them (bounce b's march, then its lights'): the planes
+    sum to the "march" total, each equals `march(with_steps=True)`'s
+    counts on that march's rays, and a ray that has stopped counts 0
+    steps.  csg_demo with NEE (two lights) and the roulette from bounce 0,
+    on sample-folded planes.  No JAX."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import record
+    real, calls = tint.march, []
+
+    def spy(*args, **kw):
+        calls.append((args[:7], kw.get("t_max")))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(record, "march", spy)
+    b = tbuiltin.SceneBuilder()
+    m = b.diffuse([0.6, 0.6, 0.6])
+    b.sphere(m, [0.0, 1.0, 0.0], 1.0)
+    b.box(m, [0.0, -0.05, 0.0], [8.0, 0.05, 8.0])
+    b.light([3.0, 7.0, -3.0], 60.0, 0.8)
+    b.light([-3.0, 5.0, -2.0], 20.0, 0.5)
+    scene = b.build()
+    params = scene.init_params("cpu")
+    cfg = TCfg(width=24, height=20, max_steps=96, max_bounces=3,
+               max_dist=100.0, relax_omega=1.9, rr_start_bounce=0)
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.2).corner_rays_flat(
+        "cpu")
+    px, py, sample, eye, d = tint.spp_rays(cfg, corners, (5, 3), (9, 11), 1,
+                                           2)
+    work = {"lane_steps": []}
+    rec = record.record_wavefront_plain(scene, params, cfg, eye, d, px, py,
+                                        sample, direct_light=True, work=work)
+    planes = work["lane_steps"]
+    assert len(planes) == len(calls) == cfg.max_bounces * (1 + 2)
+    assert all(p.shape == (18, 11) and p.dtype == torch.int32
+               for p in planes)
+    assert int(sum(p.sum() for p in planes)) == int(work["march"])
+    for plane, (args, t_max) in zip(planes, calls):
+        assert torch.equal(plane, real(*args, t_max=t_max,
+                                       with_steps=True)[3])
+    # bounce b's march runs on the rays that hit at b - 1 and go on; the
+    # others count 0 steps there and in their shadow marches
+    for b_ in range(cfg.max_bounces):
+        bounce, lights = planes[3 * b_], planes[3 * b_ + 1:3 * b_ + 3]
+        live = calls[3 * b_][0][6]
+        assert torch.equal(bounce > 0, live)
+        went_on = (rec["hit"][b_] > 0) & live
+        for lp, (args, _) in zip(lights, calls[3 * b_ + 1:3 * b_ + 3]):
+            assert not bool(lp[~args[6]].any())
+            assert bool((args[6] <= went_on).all())
+    assert not bool(planes[0].eq(0).any())
+    assert bool(planes[-3].eq(0).any())

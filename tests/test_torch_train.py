@@ -151,7 +151,7 @@ def test_kernels_of_one_source_build_once(tmp_path, monkeypatch):
             != tmarch.MEGA_PATHS.library_path())
     # the other recorders: entries of the render sources
     assert (tmarch.RECORD_WAVEFRONT.library_path()
-            == tmarch.MEGA_PATHS.library_path())
+            == tmarch.WAVEFRONT_PATHS.library_path())
     assert (tmarch.RECORD_SPECTRAL.library_path()
             == tmarch.MEGA_SPECTRAL.library_path())
     calls = []
