@@ -18,6 +18,11 @@ Phases (any failure raises and the script exits non-zero):
      megakernels (`PTXAS_BEFORE`, `SASS_BEFORE`): each source holds a
      stencil and an exact-normal (`normal_taps=0`, `grad_map`)
      instantiation of each kernel;
+  2b. native — the host libraries of native/ (image encoder, .hdr
+     decoder, spiral scheduler) built by g++ into build/, all started
+     together (`io/native_bindings.py`); the run fails if one does not
+     build, and the main paths' `save_image` and the tiles' spiral must
+     have called them;
   3. parity — each kernel's wrapper on CUDA tensors against its plain
      PyTorch version on the same tensors, production knobs:
        * RGB (`render_fused_patch` vs `trace_mega_paths`): the main path's
@@ -166,6 +171,19 @@ Phases (any failure raises and the script exits non-zero):
      render kernel for the final image, the smooth union's radius
      gradient non-zero (NEE's cos term differentiates the normal) and the
      printed loss falling;
+  4b. the drivers — `ProgressiveRenderer(impl="fused")` through the
+     reference's spiral of 16 tiles of 256^2, byte-equal to one full-frame
+     launch (sphere_on_floor at 128 spp, csg with NEE at 8) and its
+     `endless_passes(2)` to the running mean of full-frame launches, 16
+     launches a pass; `render --checkpoint` at 64 spp and `--resume --spp
+     128` through the CLI at 1024^2, --chunk 64, spectral and RGB,
+     byte-equal to the uninterrupted run, another scene's checkpoint
+     refused; bench.py's work counters (`utils.metrics`
+     `spectral_path_profile`, 4 samples, within 0.1% of BENCH_r05.json)
+     and march occupancy (`mega_occupancy_profile`, 4 tiles of 128
+     samples, within 0.002), plain versions run eagerly; and
+     `utils.parity.run_parity` at the x4 goldens, 2048 spp: all five
+     gated goldens pass (readings in smoke_out/drivers.json);
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
      launch (the CLI's default chunk), the RGB kernel at 128, and both
      render kernels at 128 with the exact normal, one
@@ -3152,6 +3170,268 @@ def build_kernels(card, only=None):
     return kernels
 
 
+# ---- the drivers: native libraries, tiles, resume, counters, goldens ----
+
+def native_phase(card):
+    """Phase 2b: the native host libraries of native/ (encoder, .hdr
+    decoder, scheduler) built by g++ into build/, all started together;
+    fails if one does not build.  Returns {library: g++ seconds}."""
+    from raymarchrenderer_tpu_torch.io import native_bindings as nb
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(nb.LIBRARIES)) as pool:
+        handles = list(pool.map(lambda lib: lib.load(), nb.LIBRARIES))
+    for lib, handle in zip(nb.LIBRARIES, handles):
+        if handle is None:
+            raise AssertionError(f"native library lib{lib.name} did not "
+                                 f"build: {lib.error}")
+    secs = {lib.name: lib.build_seconds for lib in nb.LIBRARIES}
+    print(f"native: " + ", ".join(f"lib{k} {v:.2f} s" for k, v in
+                                  secs.items())
+          + f" by g++ (0.00: built before), {time.perf_counter() - t0:.2f} s "
+          f"in all, into {nb.BUILD_DIR} [{card}]", flush=True)
+    return secs
+
+
+def native_calls():
+    """{C function: calls} of every native library so far."""
+    from raymarchrenderer_tpu_torch.io import native_bindings as nb
+    return {fn: n for lib in nb.LIBRARIES for fn, n in lib.calls.items()}
+
+
+def check_native_used(label, before, card, *fns):
+    """Fail unless each C function in `fns` was called since `before` (a
+    `native_calls()` snapshot)."""
+    now = native_calls()
+    used = {fn: now.get(fn, 0) - before.get(fn, 0) for fn in fns}
+    print(f"native, {label}: calls {json.dumps(used)} [{card}]", flush=True)
+    if not all(used.values()):
+        raise AssertionError(f"{label}: the native library was not used "
+                             f"({used})")
+
+
+def _rate(spp, seconds, size=1024):
+    return size * size * spp / 1e6 / seconds
+
+
+def _timed(fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def tiles_phase(dev, card):
+    """`ProgressiveRenderer(impl="fused")` through the reference's spiral
+    of 16 tiles of 256^2 (a 4 x 4 grid of the 1024^2 frame), each tile's
+    samples one launch of the RGB kernel: byte-equal to one full-frame
+    `render_fused` launch (sphere_on_floor at 128 spp, csg with NEE at 8),
+    and two endless passes byte-equal to the running mean of two
+    full-frame one-sample launches; 16 launches a pass, the spiral from
+    the native scheduler.  Returns the readings."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.tiles import ProgressiveRenderer
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    cfg = _main_cfg()
+    before = native_calls()
+    readings = {}
+    for label, scene, nee, spp in (
+            ("sphere_on_floor", builtin.sphere_on_floor(), False, 128),
+            ("csg --direct-light", builtin.csg_demo(), True, 8)):
+        params = scene.init_params(dev)
+        pr = ProgressiveRenderer(scene, params, cfg, corners, impl="fused",
+                                 direct_light=nee)
+        march.MEGA_PATHS.launches = 0
+        tiled, tile_s = _timed(lambda: pr.render_pass(spp=spp))
+        launches = march.MEGA_PATHS.launches
+        full, full_s = _timed(lambda: march.render_fused(
+            scene, params, cfg, corners, 0, n_samples=spp,
+            direct_light=nee))
+        equal = bool(torch.equal(tiled, full))
+        readings[label] = {"spp": spp, "tiles_s": tile_s,
+                           "tiles_mpix_spp_s": _rate(spp, tile_s),
+                           "full_frame_s": full_s,
+                           "full_frame_mpix_spp_s": _rate(spp, full_s),
+                           "launches": launches, "byte_equal": equal}
+        print(f"tiles, {label}: 1024x1024 @ {spp} spp in 16 spiral tiles "
+              f"of 256x256, {launches} launches, {tile_s:.3f} s "
+              f"({_rate(spp, tile_s):.2f} Mpix*spp/s); one full-frame "
+              f"launch {full_s:.3f} s ({_rate(spp, full_s):.2f}); "
+              f"byte-equal: {equal} [{card}]", flush=True)
+        if launches != 16 or not equal:
+            raise AssertionError(f"tiles, {label}: {launches} launches, "
+                                 f"byte-equal {equal}")
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    pr = ProgressiveRenderer(scene, params, cfg, corners, impl="fused")
+    march.MEGA_PATHS.launches = 0
+    got = pr.endless_passes(2)
+    launches = march.MEGA_PATHS.launches
+    want = torch.zeros_like(got)
+    for p in range(2):
+        frame = march.render_fused(scene, params, cfg, corners, p,
+                                   n_samples=1)
+        want = (want * float(p) + frame * 1.0) / (p + 1.0)
+    equal = bool(torch.equal(got, want))
+    readings["endless_passes_2"] = {"launches": launches,
+                                    "byte_equal": equal}
+    print(f"tiles, endless_passes(2), sphere_on_floor: {launches} launches, "
+          f"byte-equal to the running mean of 2 full-frame launches: "
+          f"{equal} [{card}]", flush=True)
+    if launches != 32 or not equal:
+        raise AssertionError("tiles: endless passes")
+    check_native_used("spiral_tiles", before, card, "rmr_spiral_order")
+    return readings
+
+
+def _flags(argv, **values):
+    """argv with each `--flag value` of `values` (underscores as dashes)
+    set, appended where argv lacks it."""
+    out = list(argv)
+    for k, v in values.items():
+        flag = "--" + k.replace("_", "-")
+        if flag in out:
+            out[out.index(flag) + 1] = str(v)
+        else:
+            out += [flag, str(v)]
+    return out
+
+
+def resume_phase(dev, card):
+    """`render --checkpoint` at 64 spp, then `--resume --spp 128`, through
+    the CLI at 1024^2 with --chunk 64, spectral and RGB sphere_on_floor:
+    byte-equal to one uninterrupted `--spp 128 --chunk 64` run, one launch
+    for the resumed 64 samples; a checkpoint of another scene is refused
+    (SceneMismatchError).  Returns the readings."""
+    from raymarchrenderer_tpu_torch.app import cli
+    from raymarchrenderer_tpu_torch.io.checkpoint import (SceneMismatchError,
+                                                          load_checkpoint)
+    from raymarchrenderer_tpu_torch.kernels import march
+
+    readings = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "resume.png")
+        for label, argv, kernel in (
+                ("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL),
+                ("rgb sphere_on_floor", RGB_ARGV, march.MEGA_PATHS)):
+            ckpt = os.path.join(tmp, "render.ckpt")
+
+            def run(spp, *extra):
+                args = cli.build_parser().parse_args(
+                    _flags(argv, chunk=64, spp=spp) + ["--out", out, *extra])
+                return cli.cmd_render(args)
+            run(64, "--checkpoint", ckpt)
+            kernel.launches = 0
+            resumed, n, resume_s = run(128, "--checkpoint", ckpt, "--resume")
+            launches = kernel.launches
+            whole, _, whole_s = run(128)
+            equal = bool(torch.equal(resumed, whole))
+            st = load_checkpoint(ckpt)
+            try:
+                cli.cmd_render(cli.build_parser().parse_args(
+                    ["render", "--scene", "csg", *_flags(
+                        _SIZE, chunk=64), "--out", out, "--checkpoint",
+                     ckpt, "--resume"]))
+                refused = False
+            except SceneMismatchError:
+                refused = True
+            readings[label] = {
+                "resumed_s": resume_s,
+                "resumed_mpix_spp_s": _rate(64, resume_s),
+                "uninterrupted_s": whole_s,
+                "uninterrupted_mpix_spp_s": _rate(128, whole_s),
+                "launches": launches, "byte_equal": equal,
+                "checkpoint_n": st.n, "other_scene_refused": refused}
+            print(f"resume, {label}: 1024x1024, 64 spp checkpointed, resumed "
+                  f"to {n:.0f} in {resume_s:.3f} s ({launches} launch, "
+                  f"{_rate(64, resume_s):.2f} Mpix*spp/s of the new samples, "
+                  f"the checkpoint writes included); uninterrupted 128 spp "
+                  f"--chunk 64 {whole_s:.3f} s ({_rate(128, whole_s):.2f}); "
+                  f"byte-equal: {equal}; checkpoint n {st.n:.0f}; another "
+                  f"scene's resume refused: {refused} [{card}]", flush=True)
+            if not (equal and launches == 1 and st.n == 128.0 and refused):
+                raise AssertionError(f"resume, {label}: {readings[label]}")
+    return readings
+
+
+def profile_phase(dev, card):
+    """bench.py's work counters and march occupancy on the port, at its
+    configuration (spectral_demo, 1024^2, relax 2.0, 4 taps, samples from
+    1): `spectral_path_profile` over 4 samples, each counter within 0.1%
+    of BENCH_r05.json's, and `mega_occupancy_profile` over 4 tiles of 128
+    samples within 0.002 of its occupancy.  Plain versions, eagerly, on
+    the card.  Returns the readings."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    from raymarchrenderer_tpu_torch.utils.metrics import (
+        mega_occupancy_profile, spectral_path_profile)
+
+    with open(os.path.join(_ROOT, "BENCH_r05.json")) as f:
+        bench = json.load(f)["parsed"]
+    scene, params, mats = spectral_demo(dev)
+    cfg = RenderConfig(width=1024, height=1024, relax_omega=2.0,
+                       normal_taps=4)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    prof, prof_s = _timed(lambda: spectral_path_profile(
+        scene, params, mats, cfg, corners, 1, n_samples=4))
+    occ, occ_s = _timed(lambda: mega_occupancy_profile(
+        scene, params, mats, cfg, corners, 1, n_samples=128, tiles=4))
+    keys = ("segments_per_sample", "march_map_evals_per_sample",
+            "hits_per_sample", "map_evals_per_sample")
+    rel = {k: abs(prof[k] - bench[k]) / bench[k] for k in keys}
+    occ_off = abs(occ["march_occupancy"] - bench["march_occupancy"])
+    readings = {**prof, **occ, "profile_s": prof_s, "occupancy_s": occ_s,
+                "rel_err": rel, "occupancy_abs_err": occ_off,
+                "bench_r05": {k: bench[k] for k in (*keys,
+                                                    "march_occupancy")}}
+    print("profile: " + json.dumps({**readings, "card": card}), flush=True)
+    if occ_s > 90.0:
+        print(f"profile: the occupancy count took {occ_s:.1f} s, more than "
+              f"90 s (the plain schedule, eagerly) [{card}]", flush=True)
+    if max(rel.values()) > 1e-3 or occ_off > 2e-3:
+        raise AssertionError(f"profile counters off BENCH_r05.json: {rel}, "
+                             f"occupancy {occ_off}")
+    return readings
+
+
+def golden_parity_phase(dev, card):
+    """`utils.parity.run_parity` on the port: default.scene's parity twin
+    at the 2015 golden pose, the x4 goldens (320 x 180), 2048 spp through
+    the RGB kernel in launches of 64; every one of the five gated goldens
+    must pass.  Returns the report."""
+    import contextlib
+    import io
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.utils.parity import (GATED_GOLDENS,
+                                                         run_parity)
+    buf = io.StringIO()
+    march.MEGA_PATHS.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        with contextlib.redirect_stdout(buf):
+            rc, secs = _timed(lambda: run_parity(out_dir=tmp, device=dev))
+    launches = march.MEGA_PATHS.launches
+    line = buf.getvalue().strip().splitlines()[-1]
+    report = json.loads(line)
+    print(f"golden parity: {line}", flush=True)
+    w, h = report["size"]
+    print(f"golden parity: {len(report['goldens'])} goldens, " + ", ".join(
+        f"{g['ref']} {'pass' if g['pass'] else 'FAIL'} (luma r "
+        f"{g['luma_pearson_r']}, ssim {g['ssim_luma']})"
+        for g in report["goldens"]) + f"; {w}x{h} @ {report['spp']} spp in "
+          f"{secs:.3f} s, {launches} launches "
+          f"({w * h * report['spp'] / 1e6 / secs:.2f} Mpix*spp/s) [{card}]",
+          flush=True)
+    if rc != 0 or not report["pass"] or {
+            g["ref"] for g in report["goldens"]} != set(GATED_GOLDENS):
+        raise AssertionError("golden parity failed")
+    return {**report, "seconds": secs, "launches": launches}
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3200,6 +3480,7 @@ def main(argv=None) -> int:
     from raymarchrenderer_tpu_torch.kernels import march
     only = opts.only.split(",") if opts.only else None
     build_kernels(card, only)
+    native_s = native_phase(card)
     if opts.kernel_times:
         with tempfile.TemporaryDirectory() as tmp:
             sh_scene = os.path.join(tmp, "sh.scene")
@@ -3230,11 +3511,15 @@ def main(argv=None) -> int:
     wp_err, wp_ms, wp_plain, wp_bound = parity_wavefront_paths(dev, card)
     ws_err, ws_ms, ws_plain, ws_bound = parity_wavefront_spectral(dev, card)
     exact_notes = parity_exact(dev, card, sh_scene)
+    if exact_notes["record_paths"]["max_abs_err"] != 0.0:
+        raise AssertionError("recorder #5's exact-normal patch is off its "
+                             "plain version")
     p_err = max(p_err, parity_sized_tables(dev, card))
     times = kernel_times(dev, card, sh_scene, bounds=True)
     _log_json("kernel_times", times)
 
     # 4. main paths
+    before_main = native_calls()
     s_launches = main_path("spectral", SPECTRAL_ARGV, march.MEGA_SPECTRAL,
                            card)
     p_launches = main_path("rgb sphere_on_floor", RGB_ARGV, march.MEGA_PATHS,
@@ -3305,6 +3590,15 @@ def main(argv=None) -> int:
     exact_notes["record_paths"]["main_path_launches"] = exact_train_path(
         dev, card)
     tmp_dir.cleanup()
+    check_native_used("save_image on the main paths", before_main, card,
+                      "rmr_linear_to_srgb_u8", "rmr_write_png")
+
+    # 4b. the drivers: tiles, resume, the work counters, the goldens
+    _log_json("drivers", {
+        "native_build_s": native_s, "tiles": tiles_phase(dev, card),
+        "resume": resume_phase(dev, card),
+        "profile": profile_phase(dev, card),
+        "golden_parity": golden_parity_phase(dev, card)})
 
     # 5. perf
     perf(dev, card)

@@ -28,8 +28,15 @@ TPU's place: the fused kernels on `cuda`, the oracle on the CPU.
 JAX package (a builtin scene name keeps its constant sky), for `render`
 and `train`; under `--spectral` it is accepted and unused (the spectral
 sky is a constant band in both packages).  A scene whose `environment`
-holds an `sh` array renders with that SH sky.  Checkpoints (`--checkpoint`
-/ `--resume`) and the other subcommands are not ported yet.
+holds an `sh` array renders with that SH sky.  `render --checkpoint PATH`
+writes (accum, n, config, scene digest) after every `--chunk` samples and
+at the end; with `--resume` a render continues from that file: geometry
+and seed come from the checkpoint, the spp target from `--spp` (so
+`--resume --spp 256` extends a finished 128-spp render), the chunk
+boundaries stay where an uninterrupted run with the same `--chunk` puts
+them (so the image is byte-equal to that run's), and a checkpoint of
+another scene is refused (`io.checkpoint.SceneMismatchError`).  The
+other subcommands are not ported yet.
 """
 from __future__ import annotations
 
@@ -121,7 +128,7 @@ def _add_render_flags(p):
                         "4 tetrahedron (faster), 0 the exact gradient (one "
                         "reverse sweep of the scene map)")
     p.add_argument("--chunk", type=int, default=8,
-                   help="samples per kernel launch")
+                   help="samples per kernel launch / checkpoint interval")
     p.add_argument("--out", default=None,
                    help="output image (.png/.bmp/.exr/.npy); default "
                         "output/<timestamp>.png")
@@ -144,8 +151,14 @@ def cmd_render(args):
     seconds), the seconds from the first launch to the image on the host.
     `--impl fused` renders in launches of `--chunk` samples through the
     kernels (their plain versions on the CPU); `--impl oracle` renders
-    sample by sample with the wavefront integrators in plain PyTorch."""
+    sample by sample with the wavefront integrators in plain PyTorch.
+    `--checkpoint` / `--resume` as in the module's docstring; the image and
+    n returned are the totals, the rate counts the new samples."""
+    import torch
 
+    from raymarchrenderer_tpu_torch.io.checkpoint import (load_checkpoint,
+                                                          save_checkpoint,
+                                                          scene_digest)
     from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
     from raymarchrenderer_tpu_torch.kernels.march import (
         MEGA_PATHS, MEGA_PATHS_DEFER, MEGA_SPECTRAL, prepare,
@@ -159,6 +172,24 @@ def cmd_render(args):
     params = scene.init_params(device)
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
+    digest = scene_digest(scene, params) if args.checkpoint else None
+    accum, n0 = None, 0.0
+    if (args.resume and args.checkpoint
+            and os.path.exists(args.checkpoint)):
+        # refuses (SceneMismatchError) a checkpoint of another scene
+        st = load_checkpoint(args.checkpoint, expect_scene_digest=digest)
+        # geometry and seed from the checkpoint (the accumulator and the
+        # RNG streams are bound to them), the spp target from the caller
+        accum = torch.from_numpy(st.accum).to(device)
+        n0, cfg = st.n, st.cfg.replace(spp=cfg.spp)
+        print(f"resuming at {n0:.0f} spp from {args.checkpoint}")
+    spp_left = max(0, cfg.spp - int(n0))
+
+    def save(img, n):
+        if args.checkpoint:
+            save_checkpoint(args.checkpoint, img, n, cfg,
+                            scene_digest=digest)
+
     impl = pick_impl(args.impl, device)
     if impl == "fused":
         # nvcc stays out of the render time
@@ -172,6 +203,8 @@ def cmd_render(args):
           f"({kind}, {device}) with the {impl} path")
 
     def progress(s, state):
+        # after each launch of --chunk samples: checkpoint, then report
+        save(*state)
         print(f"  {s}/{cfg.spp} spp", flush=True)
 
     def oracle_progress(s, state):
@@ -179,31 +212,34 @@ def cmd_render(args):
             progress(s + 1, state)
 
     t0 = time.perf_counter()
+    resume = dict(accum=accum, n0=n0)
     if args.spectral and impl == "fused":
         img, n = render_progressive_fused_spectral(
             scene, params, band_table(scene, device), cfg, corners,
-            spp=cfg.spp, samples_per_launch=args.chunk, callback=progress)
+            spp=spp_left, samples_per_launch=args.chunk, callback=progress,
+            **resume)
     elif args.spectral:
         img, n = render_spectral(scene, params, band_table(scene, device),
-                                 cfg, corners, spp=cfg.spp,
-                                 callback=oracle_progress)
+                                 cfg, corners, spp=spp_left,
+                                 callback=oracle_progress, **resume)
     elif impl == "fused":
         img, n = render_progressive_fused(
-            scene, params, cfg, corners, spp=cfg.spp,
+            scene, params, cfg, corners, spp=spp_left,
             samples_per_launch=args.chunk, direct_light=args.direct_light,
-            callback=progress)
+            callback=progress, **resume)
     else:
-        img, n = render(scene, params, cfg, corners, spp=cfg.spp,
+        img, n = render(scene, params, cfg, corners, spp=spp_left,
                         direct_light=args.direct_light,
-                        callback=oracle_progress)
+                        callback=oracle_progress, **resume)
     img_np = img.cpu().numpy()      # waits for the device
     dt = time.perf_counter() - t0
-    mpix_spp = cfg.width * cfg.height * n / 1e6
+    mpix_spp = cfg.width * cfg.height * (n - n0) / 1e6
     print(f"done: {n:.0f} spp in {dt:.3f}s "
           f"({mpix_spp / max(dt, 1e-9):.2f} Mpix*spp/s)")
     out = args.out or os.path.join("output", timestamp_name("png"))
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     save_image(out, img_np)
+    save(img_np, n)
     print(f"saved {out}")
     return img, n, dt
 
@@ -373,6 +409,10 @@ def build_parser() -> argparse.ArgumentParser:
                          "on the CPU); oracle: the plain wavefront "
                          "integrators; auto: fused on a card, oracle on "
                          "the CPU")
+    pr.add_argument("--checkpoint", default=None,
+                    help="write (accum, n, config) here after every chunk")
+    pr.add_argument("--resume", action="store_true",
+                    help="resume from --checkpoint if it exists")
     pr.set_defaults(fn=cmd_render)
     pt = sub.add_parser("train", help="inverse-render: fit the scene's "
                                       "parameters to a target image")

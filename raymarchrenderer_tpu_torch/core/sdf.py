@@ -130,9 +130,21 @@ def sd_capsule(p: Vec3, a: Vec3, b: Vec3, radius):
 
 
 def smin(a, b, k):
-    """Polynomial smooth min (`RayMarch.glsl:115-119`)."""
+    """Polynomial smooth min (`RayMarch.glsl:115-119`):
+    (b (1 - h) + a h) - (k h) (1 - h), h = clamp(0.5 + 0.5 (b - a) / k).
+
+    The ops are created in the order that makes autograd sum h's four
+    cotangents as the kernels' reverse sweep does (`grad_map`,
+    csrc/scene_map.cuh: ((g a + gkh k) - g b) - grhs kh): autograd runs
+    the later-created backward nodes first, so the product a h comes after
+    the other three terms.  The values are the same ops on the same
+    operands."""
     h = jclamp(0.5 + 0.5 * (b - a) / k, 0.0, 1.0)
-    return (b * (1.0 - h) + a * h) - k * h * (1.0 - h)
+    omh_r = 1.0 - h
+    omh_l = 1.0 - h
+    b_omh = b * omh_l
+    rhs = (k * h) * omh_r
+    return (b_omh + a * h) - rhs
 
 
 def domain_repeat(p: Vec3, m: Vec3) -> Vec3:

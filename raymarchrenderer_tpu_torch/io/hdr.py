@@ -7,8 +7,9 @@ Decode a .hdr into an (H, W, 3) linear float32 image for the equirect sky
 header (``#?RADIANCE``, ``FORMAT=32-bit_rle_rgbe``), a blank line,
 ``-Y H +X W``, then H scanlines, each flat RGBE quads or new-style RLE
 (leading ``0x02 0x02 hi lo``, four per-component run-length streams).
-Pixel decode: rgb = mantissa * 2^(e - 136).  The JAX package also tries a
-native decoder; this module is its pure-Python path.
+Pixel decode: rgb = mantissa * 2^(e - 136).  As in the JAX package,
+`load_hdr` takes the native decoder of `native/hdr.cpp` where its library
+loads (`io.native_bindings`); `loads_hdr` is the pure-Python path.
 """
 from __future__ import annotations
 
@@ -101,9 +102,15 @@ def loads_hdr(data: bytes) -> np.ndarray:
 
 
 def load_hdr(path: str) -> np.ndarray:
-    """Decode a .hdr file -> (H, W, 3) linear float32."""
+    """Decode a .hdr file -> (H, W, 3) linear float32: the native C++
+    decoder where its library loads (`io.native_bindings`), else
+    `loads_hdr`, its plain version."""
+    from raymarchrenderer_tpu_torch.io import native_bindings
     with open(path, "rb") as f:
-        return loads_hdr(f.read())
+        data = f.read()
+    if native_bindings.available_hdr():
+        return native_bindings.decode_hdr(data)
+    return loads_hdr(data)
 
 
 def save_hdr(path: str, rgb: np.ndarray) -> None:

@@ -8,7 +8,10 @@ linear and ONE explicit sRGB OETF applies at encode time.  These are the
 JAX package's pure-Python encoders (24-bit bottom-up BGR BMP, zlib PNG)
 and its OpenEXR writer (`save_exr`), byte for byte, and its numpy-only
 readers (`load_bmp`, `load_png`, `load_png_bytes`, `load_exr`,
-`_srgb_to_linear_np`); the native C++ encoder is not bound here.  Images
+`_srgb_to_linear_np`).  As there, the native C++ encoder of `native/`
+(`io.native_bindings`: the sRGB conversion, the BMP and PNG writers) is
+used where its library loads, and the Python encoders, which write the
+same bytes from the same 8-bit values, are the plain versions.  Images
 are numpy arrays: callers hand over `tensor.cpu().numpy()`.
 """
 from __future__ import annotations
@@ -35,15 +38,29 @@ def _linear_to_srgb_np(c: np.ndarray) -> np.ndarray:
 
 
 def to_srgb_u8(img_linear: np.ndarray) -> np.ndarray:
-    """(H, W, 3) linear float → (H, W, 3) uint8 sRGB."""
-    srgb = _linear_to_srgb_np(np.asarray(img_linear, np.float32))
+    """(H, W, 3) linear float → (H, W, 3) uint8 sRGB (the native encoder
+    where it loads: within one level of the numpy OETF)."""
+    src = np.asarray(img_linear, np.float32)
+    native = _native_encoder()
+    if native is not None:
+        return native.linear_to_srgb_u8(src)
+    srgb = _linear_to_srgb_np(src)
     return np.clip(np.round(srgb * 255.0), 0, 255).astype(np.uint8)
+
+
+def _native_encoder():
+    from raymarchrenderer_tpu_torch.io import native_bindings
+    return native_bindings if native_bindings.available() else None
 
 
 def save_bmp(path: str, img_linear: np.ndarray) -> None:
     """24-bit BGR bottom-up BMP — byte-compatible with SOIL's BMP output
     layout (`Graphics.cpp:788-796`)."""
     u8 = to_srgb_u8(img_linear)
+    native = _native_encoder()
+    if native is not None:
+        native.write_bmp(path, u8)
+        return
     h, w, _ = u8.shape
     row_size = (w * 3 + 3) & ~3
     img_size = row_size * h
@@ -78,6 +95,10 @@ def png_bytes(img_linear: np.ndarray) -> bytes:
 
 def save_png(path: str, img_linear: np.ndarray) -> None:
     """Minimal zlib PNG encoder (8-bit RGB, sRGB-encoded)."""
+    native = _native_encoder()
+    if native is not None:
+        native.write_png(path, to_srgb_u8(img_linear))
+        return
     with open(path, "wb") as f:
         f.write(png_bytes(img_linear))
 

@@ -662,21 +662,33 @@ def render_sample_fused(scene: Scene, params, cfg: RenderConfig, corners,
                         direct_light=direct_light)
 
 
+def _resume_state(cfg: RenderConfig, corners, accum, n0: float):
+    """The accumulator (zeros, or `accum` on the corners' device) and the
+    running count of a progressive render resumed at sample `n0`."""
+    if accum is None:
+        accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
+                            device=corners.device)
+    else:
+        accum = torch.as_tensor(accum, dtype=torch.float32).to(
+            corners.device)
+    return accum, float(n0)
+
+
 def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,
                              corners, spp: int = None,
                              samples_per_launch: int = 8,
-                             direct_light: bool = False, callback=None):
-    """Progressive RGB render in launches of `samples_per_launch` samples,
-    folded by the running mean (accum*n + chunk*k)/(n+k).
-    `callback(s, (accum, n))` runs after each launch.  Returns
-    (image (H, W, 3), n)."""
+                             direct_light: bool = False, accum=None,
+                             n0: float = 0.0, callback=None):
+    """Progressive RGB render of `spp` samples from sample `int(n0)`, in
+    launches of `samples_per_launch` samples, each folded into the running
+    mean (accum*n + chunk*k)/(n+k); resumable from a checkpoint's
+    (`accum`, `n0`).  `callback(s, (accum, n))` runs after each launch, `s`
+    the next sample index.  Returns (image (H, W, 3), n)."""
     spp = cfg.spp if spp is None else spp
-    accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                        device=corners.device)
-    n = 0.0
-    s = 0
-    while s < spp:
-        k = min(samples_per_launch, spp - s)
+    accum, n = _resume_state(cfg, corners, accum, n0)
+    s = int(n0)
+    while s < int(n0) + spp:
+        k = min(samples_per_launch, int(n0) + spp - s)
         chunk = render_fused(scene, params, cfg, corners, s, n_samples=k,
                              direct_light=direct_light)
         accum = (accum * n + chunk * k) / (n + k)
@@ -691,18 +703,15 @@ def render_progressive_fused_spectral(scene: Scene, params, mats,
                                       cfg: RenderConfig, corners,
                                       spp: int = None,
                                       samples_per_launch: int = 8,
+                                      accum=None, n0: float = 0.0,
                                       callback=None):
-    """Progressive spectral render in launches of `samples_per_launch`
-    samples, folded by the running mean (accum*n + chunk*k)/(n+k).
-    `callback(s, (accum, n))` runs after each launch.  Returns
-    (image (H, W, 3), n)."""
+    """Progressive spectral render, resumable, as
+    `render_progressive_fused`.  Returns (image (H, W, 3), n)."""
     spp = cfg.spp if spp is None else spp
-    accum = torch.zeros((cfg.height, cfg.width, 3), dtype=torch.float32,
-                        device=corners.device)
-    n = 0.0
-    s = 0
-    while s < spp:
-        k = min(samples_per_launch, spp - s)
+    accum, n = _resume_state(cfg, corners, accum, n0)
+    s = int(n0)
+    while s < int(n0) + spp:
+        k = min(samples_per_launch, int(n0) + spp - s)
         chunk = render_fused_spectral(scene, params, mats, cfg, corners, s,
                                       n_samples=k)
         accum = (accum * n + chunk * k) / (n + k)

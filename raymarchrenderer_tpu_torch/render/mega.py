@@ -24,8 +24,9 @@ lanes overshoot `max_dist`, so the peel is part of the semantics.  Every
 random draw is keyed on (seed, px, py, sample, bounce, slot), so a lane's
 paths do not depend on the batch it runs in.  Forward only;
 `shade_gate` is fixed at 0 (an unconditional pass per body; the gate is
-bitwise-invariant in the JAX package), and the occupancy counters are not
-ported.
+bitwise-invariant in the JAX package).  `with_occupancy` counts, per lane,
+the march steps it marched and the steps it ran
+(`utils.metrics.mega_occupancy_profile`).
 
 `trace_mega_paths` runs the gen-1 RGB transport the same way, with the
 scene's material graphs (`Scene.shade`), Russian roulette, dispersion and
@@ -112,7 +113,8 @@ class _Lanes:
     fields to new tensors)."""
 
     __slots__ = ("o", "d", "t", "wl", "power", "acc", "bounce", "s_idx",
-                 "state", "steps", "omega", "prev_r", "step_len", "gstep")
+                 "state", "steps", "omega", "prev_r", "step_len", "gstep",
+                 "m_cnt", "tot_cnt")
 
 
 def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
@@ -120,6 +122,7 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
                         n_samples: int = 1, march_unroll: int = 1,
                         lazy_miss: bool = False,
                         regen_cadence: int = 0, record_banks: bool = False,
+                        with_occupancy: bool = False,
                         work: dict = None) -> Vec3:
     """Sum over `n_samples` paths per pixel of `wavelength_to_rgb(wl) *
     power`, for int32 pixel coordinates `px`, `py` (any shape, absolute
@@ -138,8 +141,18 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     bounce * n_samples + sample; unreached slots keep the march's miss
     values (t = max_dist, mid = -1, hit = 0).  A recording path ends only
     on an emitter hit or a miss, not on an absorption, because the soft
-    band filter of the replay (`_apply_band_soft`) never absorbs."""
+    band filter of the replay (`_apply_band_soft`) never absorbs.
+
+    `with_occupancy`: returns (sum, m_cnt, tot_cnt), int32 planes of
+    `px`'s shape: every `march_step` call (the peeled first one included)
+    adds one to `tot_cnt` of every lane and to `m_cnt` of the lanes in
+    `_MARCH`; their ratio is the schedule's masked-lane occupancy.  A
+    render-only counter, as in the JAX package: it refuses
+    `record_banks`."""
     check_knobs(march_unroll, regen_cadence)
+    if record_banks and with_occupancy:
+        raise ValueError("record_banks keeps the strict miss schedule "
+                         "(occupancy is a render-only knob)")
     shape = px.shape
     device = px.device
     e = eye_vec(corners)
@@ -174,6 +187,9 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     def march_step(st):
         marching = st.state == _MARCH
         _count(work, "march", marching)
+        if with_occupancy:
+            st.m_cnt = st.m_cnt + marching.to(torch.int32)
+            st.tot_cnt = st.tot_cnt + 1
         p = st.o + st.d * st.t
         dist = scene.map_dist(params, p, cfg.max_dist)
         not_fail = marching
@@ -311,9 +327,12 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     st.omega = torch.full_like(zero, max(cfg.relax_omega, 1.0))
     st.prev_r, st.step_len = zero, zero
     st.gstep = 0
+    st.m_cnt, st.tot_cnt = izero, izero
     march_step(st)                      # the peeled first step
     while bool((st.state < _EXH).any()):
         body(st)
+    if with_occupancy:
+        return st.acc, st.m_cnt, st.tot_cnt
     return (st.acc, banks) if record_banks else st.acc
 
 

@@ -13,7 +13,8 @@ transport `trace_spectral` over planes of rays, with
 `train --spectral` forward), and the progressive oracle
 `render_sample_spectral` / `render_spectral` (`render --spectral --impl
 oracle`); the megakernel schedule is `render/mega.py`.
-`trace_spectral(profile=True)` is not ported yet.
+`trace_spectral(profile=True)` carries the per-lane work counters that
+`utils.metrics.spectral_path_profile` reads.
 """
 from __future__ import annotations
 
@@ -30,7 +31,7 @@ from raymarchrenderer_tpu_torch.core.vecmath import Vec3, div, vselect
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (_march_fns,
                                                           accumulate,
-                                                          get_normal,
+                                                          get_normal, march,
                                                           spp_rays)
 from raymarchrenderer_tpu_torch.scene.graph import Scene
 
@@ -114,8 +115,9 @@ def _apply_band_soft(wl, power, u, min_w, max_w, mat_p, edge):
 
 def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
                    cfg: RenderConfig, eye: Vec3, d0: Vec3, px, py, sample,
-                   differentiable: bool = False, march_impl: str = "oracle",
-                   soft_edge: float = 8.0, recorded=None, work: dict = None):
+                   profile: bool = False, differentiable: bool = False,
+                   march_impl: str = "oracle", soft_edge: float = 8.0,
+                   recorded=None, work: dict = None):
     """Gen-3 `trace` (`RayMarch3.glsl:347-444`) over planes of rays, one
     Python loop over bounces: returns (wavelength, power) per lane.
 
@@ -133,7 +135,14 @@ def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
     "recorded" (replay `recorded`, the banks of
     `kernels.record.trace_record_fused_spectral`; differentiable only).
     `work` counts the oracle march's steps and the hits shaded, as
-    `integrator.trace_rgb` does."""
+    `integrator.trace_rgb` does.
+
+    `profile=True` returns (wl, power, segs, msteps, hits): per-lane int32
+    counts of the segments marched (+1 per active lane and bounce), the
+    map evaluations of those marches (`march(with_steps=True)`) and the
+    hits shaded.  As in the JAX package, a profiled bounce marches with the
+    plain `march` whatever `march_impl`; its sums equal `work`'s "march"
+    and "shade"."""
     if march_impl == "recorded" and recorded is None:
         raise ValueError("march_impl='recorded' needs recorded planes")
     march_fn, _ = _march_fns(scene, params, cfg, march_impl, differentiable,
@@ -152,10 +161,21 @@ def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
     wl = torch.zeros(shape, dtype=torch.float32, device=dev)
     power = ones
     active = torch.ones(shape, dtype=torch.bool, device=dev)
+    if profile:
+        segs, msteps, hits = (torch.zeros(shape, dtype=torch.int32,
+                                          device=dev) for _ in range(3))
     for b in range(cfg.max_bounces):
         rec_b = (None if recorded is None
                  else {k: recorded[k][b] for k in ("t", "mid", "hit")})
-        t, mid, hitm = march_fn(o, d, ones, active, rec_b)
+        if profile:
+            with torch.no_grad():
+                t, mid, hitm, steps = march(scene, params, cfg, o, d, ones,
+                                            active, work=work,
+                                            with_steps=True)
+            segs = segs + active.to(torch.int32)
+            msteps = msteps + steps
+        else:
+            t, mid, hitm = march_fn(o, d, ones, active, rec_b)
         hitp = o + d * t
         normal = get_normal(scene, params, cfg, hitp)
         rng = RNGStream(cfg.seed, px, py, sample, b)
@@ -165,6 +185,8 @@ def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
         miss_active = active & ~hitm
         if work is not None:
             work["shade"] = work.get("shade", 0) + hit_active.sum()
+        if profile:
+            hits = hits + hit_active.to(torch.int32)
         wl_h, pw_h, absorbed = band(wl, power, u, m_min, m_max, m_pow)
         wl_s, pw_s, _ = band(wl, power, u, sky_min, sky_max, sky_p)
         new_wl = torch.where(hit_active, wl_h,
@@ -177,6 +199,8 @@ def trace_spectral(scene: Scene, params, mats: SpectralMaterials,
         new_dir = uniform_sphere_or_hemisphere(rng.next(), rng.next(), normal)
         o = vselect(active, hitp + normal * cfg.surface_offset, o)
         d = vselect(active, new_dir, d)
+    if profile:
+        return wl, power, segs, msteps, hits
     return wl, power
 
 

@@ -129,7 +129,15 @@ def test_port_imports_no_jax():
             "raymarchrenderer_tpu_torch.render.spectral_integrator, "
             "raymarchrenderer_tpu_torch.scene.nodes, "
             "raymarchrenderer_tpu_torch.scene.graph, "
-            "raymarchrenderer_tpu_torch.core.sampling; "
+            "raymarchrenderer_tpu_torch.core.sampling, "
+            "raymarchrenderer_tpu_torch.io.checkpoint, "
+            "raymarchrenderer_tpu_torch.io.hdr, "
+            "raymarchrenderer_tpu_torch.io.native_bindings, "
+            "raymarchrenderer_tpu_torch.render.scheduler_native, "
+            "raymarchrenderer_tpu_torch.render.tiles, "
+            "raymarchrenderer_tpu_torch.utils, "
+            "raymarchrenderer_tpu_torch.utils.metrics, "
+            "raymarchrenderer_tpu_torch.utils.parity; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('raymarchrenderer_tpu.') "
             "or m == 'raymarchrenderer_tpu' for m in sys.modules)")

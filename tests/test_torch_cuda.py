@@ -1044,3 +1044,98 @@ def test_render_impl_oracle_on_the_card(cuda_device, tmp_path, spectral):
     assert frac_off(imgs[("cpu", "oracle")], imgs[("cuda", "oracle")]) < \
         MAX_FRAC_OFF
     assert float(imgs[("cuda", "fused")].mean()) > 0.0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
+def test_tiles_byte_equal_full_frame(cuda_device, nee):
+    """`ProgressiveRenderer` ("auto" is the kernel on the card) through a
+    4 x 4 spiral of 64^2 tiles, byte-equal to one full-frame launch, and
+    two endless passes to the running mean of two full-frame launches."""
+    from raymarchrenderer_tpu_torch.render.tiles import ProgressiveRenderer
+    scene = builtin.csg_demo() if nee else builtin.sphere_on_floor()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=256, height=256, max_steps=192, max_bounces=4,
+                       relax_omega=2.0, normal_taps=4)
+    corners = Camera(aspect=1.0).corner_rays_flat(cuda_device)
+    march.MEGA_PATHS.launches = 0
+    pr = ProgressiveRenderer(scene, params, cfg, corners, direct_light=nee)
+    assert pr.impl == "fused"
+    tiled = pr.render_pass(spp=4)
+    assert march.MEGA_PATHS.launches == 16
+    full = march.render_fused(scene, params, cfg, corners, 0, n_samples=4,
+                              direct_light=nee)
+    assert full.mean() > 0.0 and torch.equal(tiled, full)
+    pr = ProgressiveRenderer(scene, params, cfg, corners, direct_light=nee)
+    got = pr.endless_passes(2)
+    want = torch.zeros_like(got)
+    for p in range(2):
+        frame = march.render_fused(scene, params, cfg, corners, p,
+                                   n_samples=1, direct_light=nee)
+        want = (want * float(p) + frame * 1.0) / (p + 1.0)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("spectral", [False, True], ids=["rgb", "spectral"])
+def test_resume_byte_equal_on_the_card(cuda_device, tmp_path, spectral):
+    """`render --checkpoint` at 8 spp, `--resume --spp 16`: byte-equal to
+    the uninterrupted 16-spp run with the same `--chunk`."""
+    from raymarchrenderer_tpu_torch.app import cli
+    flags = ["render", "--width", "128", "--height", "128", "--chunk", "8",
+             "--relax", "2.0", "--normal-taps", "4"] + (
+                 ["--spectral"] if spectral else [])
+    ckpt = str(tmp_path / "r.ckpt")
+
+    def run(spp, *extra):
+        out = str(tmp_path / "o.npy")
+        args = cli.build_parser().parse_args(
+            flags + ["--spp", str(spp), "--out", out, *extra])
+        return cli.cmd_render(args)[0]
+    run(8, "--checkpoint", ckpt)
+    resumed = run(16, "--checkpoint", ckpt, "--resume")
+    whole = run(16)
+    assert whole.mean() > 0.0 and torch.equal(resumed, whole)
+
+
+@pytest.mark.requires_cuda
+def test_record_exact_normal_nee_patch_at_zero(cuda_device):
+    """Recorder #5 with the exact normal on csg_demo with NEE, a 128^2
+    patch at (384, 512) of the 1024^2 frame, 2 samples: its banks equal
+    the plain version's on the card bit for bit (the smooth union's
+    reverse sweep sums its four cotangents of h in the kernel's order,
+    `core.sdf.smin`)."""
+    from test_torch_record_drift import record_exact
+    got = record_exact(cuda_device, kernel=True)
+    want = record_exact(cuda_device)
+    for k in ("t", "mid", "hit", "sd"):
+        assert torch.equal(got[k], want[k]), k
+
+
+@pytest.mark.requires_cuda
+def test_profile_counters_on_the_card_equal_the_cpu(cuda_device):
+    """The work counters of `utils.metrics` computed on the card against
+    the CPU's on the same small frame: the counts of the strict oracle and
+    the counter-based RNG, so equal but for a lane whose march an ulp of
+    the CPU's sqrt, sin or cos moves; held to the CPU tests' bar against
+    JAX (0.5%, occupancy 2e-3)."""
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    from raymarchrenderer_tpu_torch.utils.metrics import (
+        mega_occupancy_profile, spectral_path_profile)
+    cfg = RenderConfig(width=64, height=48, max_steps=192, max_bounces=6,
+                       relax_omega=2.0, normal_taps=4)
+    out = {}
+    for dev in (cuda_device, torch.device("cpu")):
+        scene, params, mats = spectral_demo(dev)
+        corners = Camera(aspect=64 / 48).corner_rays_flat(dev)
+        out[dev.type] = (
+            spectral_path_profile(scene, params, mats, cfg, corners, 1,
+                                  n_samples=2),
+            mega_occupancy_profile(scene, params, mats, cfg, corners, 1,
+                                   n_samples=4, tiles=2, bh=16, bw=32))
+    (prof, occ), (prof_cpu, occ_cpu) = out["cuda"], out["cpu"]
+    assert set(prof) == set(prof_cpu) and prof["hits_per_sample"] > 0.0
+    for k in prof:
+        assert abs(prof[k] - prof_cpu[k]) <= 5e-3 * abs(prof_cpu[k]), k
+    assert abs(occ["march_occupancy"] - occ_cpu["march_occupancy"]) <= 2e-3

@@ -26,7 +26,8 @@ CPU against itself with sin and cos one ulp up reads 1.07% and 1.11% at
 192 steps: the kernel and the card's plain version share CUDA's sin and
 cos, an ulp from the CPU's.
 
-    PYTHONPATH=. python tests/test_torch_record_drift.py [--bisect]
+    PYTHONPATH=. python tests/test_torch_record_drift.py [--bisect |
+                                                          --bisect-exact]
 
 prints, on the card, one JSON line per configuration: the kernel against
 the plain version on the card and on the CPU, the two plain versions
@@ -35,6 +36,18 @@ another checkout's root, with PYTHONPATH=., to read that tree's kernel);
 with `--bisect`, the card's plain run with torch's float ops moved to
 the CPU one by one (`bisect`).  Without a card it prints the plain
 version against itself with sin and cos one ulp up.
+
+`--bisect-exact` reads the exact-normal NEE case of recorder #5
+(`record_exact`): the kernel against two plain runs on the card, then
+against the plain run with each float aten op alone on the CPU (a
+dispatch mode, so the exact normal's backward ops are moved too).  On an
+NVIDIA H100 80GB HBM3 it read one t entry of 131072 off by 4.77e-7, the
+plain version deterministic, and no op whose move brought it to 0: the
+drift was not a device op but the order in which torch.autograd summed
+`core.sdf.smin`'s four cotangents of h, another order than the kernels'
+`grad_map` (tests/test_torch_grad_map_host.py).  Since `smin` creates
+its ops in that order the banks are equal bit for bit
+(tests/test_torch_cuda.py `test_record_exact_normal_nee_patch_at_zero`).
 """
 import hashlib
 import json
@@ -228,6 +241,122 @@ def bisect(steps, seed, device):
              "t_later": p["t_later"]}), flush=True)
 
 
+# the exact-normal case of chip_smoke.py's parity_exact (the recorder #5 on
+# csg_demo with NEE, a 128^2 patch at (384, 512) of the 1024^2 frame, 2
+# samples, 4 bounces, relax 1.9, normal_taps 0)
+EXACT_ORIGIN, EXACT_SHAPE = (384, 512), (128, 128)
+
+
+def record_exact(device, kernel=False, size=1024, origin=EXACT_ORIGIN,
+                 shape=EXACT_SHAPE):
+    """The recorder's banks on the exact-normal NEE case: the kernel's (a
+    CUDA `device`) or the plain version's."""
+    scene = builtin.csg_demo()
+    params = scene.init_params(device)
+    cfg = RenderConfig(width=size, height=size, max_bounces=4,
+                       relax_omega=1.9, normal_taps=0)
+    corners = Camera(aspect=1.0).corner_rays_flat(device)
+    fn = trace_record_fused if kernel else record_plain
+    return fn(scene, params, cfg, corners, origin, shape, 0, n_samples=2,
+              direct_light=True)
+
+
+def _max_t_err(got, want):
+    hit = (got["hit"] > 0) & (want["hit"] > 0)
+    dt = torch.where(hit, (got["t"] - want["t"]).abs(), 0.0)
+    return {"max_abs_t": float(dt.max()), "t_entries_off": int((dt > 0).sum()),
+            "decisions_off": int(((got["mid"] != want["mid"])
+                                  | (got["hit"] != want["hit"])).sum()),
+            "sd_off": int((got["sd"] != want["sd"]).sum())}
+
+
+# aten ops that only move, view, select or make data: the same bits on
+# every device, so the exact bisection leaves them on the card
+_ATEN_EXACT = {"where", "clone", "copy_", "_to_copy", "view", "expand",
+               "select", "slice", "unsqueeze", "squeeze", "stack", "cat",
+               "index", "index_put_", "full", "full_like", "zeros_like",
+               "ones_like", "empty_like", "empty", "zeros", "ones", "fill_",
+               "lift_fresh", "detach", "alias", "_unsafe_view", "permute",
+               "t", "transpose", "reshape", "nonzero", "masked_fill",
+               "scalar_tensor", "le", "lt", "ge", "gt", "eq", "ne",
+               "logical_and", "logical_or", "logical_not", "bitwise_and",
+               "bitwise_or", "bitwise_not", "bitwise_xor", "all", "any",
+               "neg", "abs", "maximum", "minimum", "clamp", "sign",
+               "new_zeros", "new_ones", "new_empty", "new_full",
+               "_local_scalar_dense", "view_as_real", "as_strided", "sum",
+               "is_nonzero"}
+
+
+class _AtenOnCpu:
+    """A torch dispatch mode over a plain run on the card: `seen` counts
+    the aten ops that return floats (the backward of the exact normal's
+    reverse sweep included, which a function mode does not see); those
+    named in `names` run on the CPU, their inputs copied there and their
+    outputs back."""
+
+    def __init__(self, names=()):
+        from torch.utils._python_dispatch import TorchDispatchMode
+        from torch.utils._pytree import tree_map
+        outer = self
+        self.names, self.seen = set(names), {}
+
+        class Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                kwargs = kwargs or {}
+                name = func._schema.name.split("::")[-1]
+                if name in outer.names:
+                    dev = next((x.device for x in (*args, *kwargs.values())
+                                if isinstance(x, torch.Tensor)), None)
+
+                    def cpu(x):
+                        return x.cpu() if isinstance(x, torch.Tensor) else x
+                    out = func(*tree_map(cpu, args), **tree_map(cpu, kwargs))
+                    out = tree_map(lambda x: x.to(dev) if isinstance(
+                        x, torch.Tensor) else x, out)
+                else:
+                    out = func(*args, **kwargs)
+                flat = out if isinstance(out, (tuple, list)) else (out,)
+                if any(isinstance(x, torch.Tensor) and x.is_floating_point()
+                       for x in flat):
+                    outer.seen[name] = outer.seen.get(name, 0) + 1
+                return out
+
+        self.mode = Mode()
+
+
+def bisect_exact(device):
+    """Which of torch's CUDA ops moves the plain recorder off the kernel on
+    the exact-normal NEE case: the kernel against two plain runs (is the
+    plain version deterministic?), then against the plain run with each
+    float aten op alone on the CPU; an op whose move brings the banks to
+    the kernel's is the one that computes otherwise on the card.  One JSON
+    line each."""
+    kern = record_exact(device, kernel=True)
+    torch.cuda.synchronize()
+    plains = [record_exact(device) for _ in range(2)]
+    print("record exact bisect: " + json.dumps(
+        {"kernel_vs_plain": _max_t_err(kern, plains[0]),
+         "kernel_vs_plain_again": _max_t_err(kern, plains[1]),
+         "plain_vs_plain": _max_t_err(plains[0], plains[1]),
+         "kernel_banks_sha256": _digest(kern)}), flush=True)
+
+    def run(names):
+        ops = _AtenOnCpu(names)
+        with ops.mode:
+            got = record_exact(device)
+        torch.cuda.synchronize()
+        return _max_t_err(kern, got), ops.seen
+
+    base, seen = run(())
+    print("record exact bisect: " + json.dumps(
+        {"moved": "none (under the mode)", **base, "float_ops": seen}),
+        flush=True)
+    for name in sorted(n for n in seen if n not in _ATEN_EXACT):
+        err = run((name,))[0]
+        print("record exact bisect: " + json.dumps(
+            {"moved": name, "calls": seen[name], **err}), flush=True)
+
+
 def _digest(banks):
     h = hashlib.sha256()
     for k in sorted(banks):
@@ -238,6 +367,9 @@ def _digest(banks):
 if __name__ == "__main__":
     import sys
     torch.set_num_threads(8)
+    if "--bisect-exact" in sys.argv:
+        bisect_exact(torch.device("cuda", 0))
+        sys.exit(0)
     if "--bisect" in sys.argv:
         bisect(*CASES[0], torch.device("cuda", 0)
                if torch.cuda.is_available() else torch.device("cpu"))
