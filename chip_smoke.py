@@ -181,9 +181,28 @@ Phases (any failure raises and the script exits non-zero):
      refused; bench.py's work counters (`utils.metrics`
      `spectral_path_profile`, 4 samples, within 0.1% of BENCH_r05.json)
      and march occupancy (`mega_occupancy_profile`, 4 tiles of 128
-     samples, within 0.002), plain versions run eagerly; and
-     `utils.parity.run_parity` at the x4 goldens, 2048 spp: all five
-     gated goldens pass (readings in smoke_out/drivers.json);
+     samples, within 0.002), plain versions run eagerly while phase 2's
+     nvcc processes build, since they need no kernel (readings in
+     smoke_out/drivers.json);
+  4c. the frontends — each verb through `cli.main`, its kernels' launch
+     counters zeroed just before and read just after: `bench --size 1024
+     --spp 128` (BENCH_PROFILE=0; 3 spectral launches, its JSON line
+     beside phase 4's spectral rate); the viewer (`app.viewer`, port 0,
+     on the card) in a thread over HTTP: spectral 1024^2 at 128 spp (32
+     launches of 4, byte-equal to `render_progressive_fused_spectral` in
+     launches of 4), csg with NEE at 512^2, 16 spp (4 launches, byte-equal
+     to the same chunks), an orbit that restarts it, a reset that gives
+     its bytes again, default.scene under the gradient sky (4 deferred
+     launches, none of the constant sky) and a stop that keeps the
+     partial image; `repl` (samples 128, 1024^2, a 4 x 4 grid, render,
+     save: 16 launches, byte-equal to one full-frame launch); `info`;
+     `parity` (`run_parity` at the x4 goldens, 2048 spp: exit code 0, all
+     five gated goldens pass); `render --spectral --metrics --profile` at
+     the headline (the JSONL events, and the trace's `record_function`
+     span of `rmr_mega_spectral` and its count of GPU kernel events); and
+     `checked_render_sample` on the card at 64^2 (clean parameters pass,
+     NaN parameters raise); the phase's seconds (readings in
+     smoke_out/frontends.json);
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
      launch (the CLI's default chunk), the RGB kernel at 128, and both
      render kernels at 128 with the exact normal, one
@@ -203,6 +222,8 @@ nvcc (`NVCC_BEFORE`) a differing byte fails the run; under another the
 differences are printed and the plain-version bars decide.  The JSON
 readings go to smoke_out/.
 
+    python3 chip_smoke.py --frontends           # build the render
+                                                # kernels, phase 4c alone
     python3 chip_smoke.py --kernel-times        # build, counts, times,
                                                 # digests; no plain version
     python3 chip_smoke.py --kernel-times --only march_fused,wavefront_paths
@@ -220,7 +241,8 @@ exact-normal patch's max error, times and bound, and its launches on the
 exact-normal main path where one runs it; march_fused's with a
 `train_step` note: the 8 launches of one `train --impl fused` step, their
 ms, bound and max abs error against the plain march); the last line is
-{"ok": true, "device": {...}}.
+{"ok": true, "device": {...}}.  A run with a mode flag checks only that
+mode and ends in {"ok": true, "partial": "<mode>", "device": {...}}.
 Imports nothing of JAX.
 """
 from __future__ import annotations
@@ -1622,6 +1644,9 @@ def wavefront_path(dev, card):
     return launches
 
 
+MAIN_RATES = {}      # label -> Mpix*spp/s of each main path's render
+
+
 def main_path(label, argv, kernel, card):
     """One main path through the CLI; returns the kernel's launches."""
     from raymarchrenderer_tpu_torch.app import cli
@@ -1648,6 +1673,7 @@ def main_path(label, argv, kernel, card):
         if not mean > 0.0:
             raise AssertionError(f"{label}: the image is black")
     rate = 1024 * 1024 * n / 1e6 / render_s
+    MAIN_RATES[label] = rate
     print(f"main path, {label}: 1024x1024 @ {n:.0f} spp, render "
           f"{render_s:.3f} s ({rate:.2f} Mpix*spp/s), wall with scene setup "
           f"and PNG {wall:.3f} s, {launches} launch(es), image mean "
@@ -1686,11 +1712,11 @@ _PRIME_SPP = 11               # dispersion env patch: 30 + 3 paths
 
 
 def gradient_env():
-    """bench.py:92-96's 512 x 1024 equirect sky: a vertical gradient from
-    (0.3, 0.5, 1.0) at the top to (1.0, 0.6, 0.2) at the bottom."""
-    v = np.linspace(0.0, 1.0, 512)[:, None, None]
-    img = np.array([0.3, 0.5, 1.0]) * (1 - v) + np.array([1.0, 0.6, 0.2]) * v
-    return np.broadcast_to(img, (512, 1024, 3)).astype(np.float32)
+    """bench.py:92-96's 512 x 1024 equirect sky (`app.bench.gradient_env`):
+    a vertical gradient from (0.3, 0.5, 1.0) at the top to (1.0, 0.6,
+    0.2) at the bottom."""
+    from raymarchrenderer_tpu_torch.app.bench import gradient_env as sky
+    return sky()
 
 
 def _env_scene(env_gather="exact", image=None, name=None):
@@ -3400,22 +3426,18 @@ def profile_phase(dev, card):
 
 
 def golden_parity_phase(dev, card):
-    """`utils.parity.run_parity` on the port: default.scene's parity twin
-    at the 2015 golden pose, the x4 goldens (320 x 180), 2048 spp through
-    the RGB kernel in launches of 64; every one of the five gated goldens
-    must pass.  Returns the report."""
-    import contextlib
-    import io
+    """The `parity` verb (`cli.main(["parity"])`, `utils.parity.run_parity`
+    on the card): default.scene's parity twin at the 2015 golden pose, the
+    x4 goldens (320 x 180), 2048 spp through the RGB kernel in launches of
+    64; exit code 0, and every one of the five gated goldens must pass.
+    Returns the report."""
     from raymarchrenderer_tpu_torch.kernels import march
-    from raymarchrenderer_tpu_torch.utils.parity import (GATED_GOLDENS,
-                                                         run_parity)
-    buf = io.StringIO()
+    from raymarchrenderer_tpu_torch.utils.parity import GATED_GOLDENS
     march.MEGA_PATHS.launches = 0
     with tempfile.TemporaryDirectory() as tmp:
-        with contextlib.redirect_stdout(buf):
-            rc, secs = _timed(lambda: run_parity(out_dir=tmp, device=dev))
+        (rc, text), secs = _timed(lambda: _cli(["parity", "--out-dir", tmp]))
     launches = march.MEGA_PATHS.launches
-    line = buf.getvalue().strip().splitlines()[-1]
+    line = text.strip().splitlines()[-1]
     report = json.loads(line)
     print(f"golden parity: {line}", flush=True)
     w, h = report["size"]
@@ -3432,6 +3454,353 @@ def golden_parity_phase(dev, card):
     return {**report, "seconds": secs, "launches": launches}
 
 
+# ---- 4c. the frontends: bench, viewer, repl, info, parity, metrics --------
+
+def _cli(argv, stdin=None):
+    """`cli.main(argv)` in this process with its stdout captured (and
+    `stdin` as its standard input); returns (exit code, stdout)."""
+    import contextlib
+    import io
+    from raymarchrenderer_tpu_torch.app import cli
+    buf = io.StringIO()
+    saved = sys.stdin
+    if stdin is not None:
+        sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(buf):
+            rc = cli.main(argv)
+    finally:
+        sys.stdin = saved
+    return rc, buf.getvalue()
+
+
+def _zero(*kernels):
+    for k in kernels:
+        k.launches = 0
+
+
+def bench_verb(card):
+    """`bench --size 1024 --spp 128` (BENCH_PROFILE=0: the counters ran in
+    4b): a warm-up and two timed launches of the spectral kernel, the JSON
+    line printed beside phase 4's spectral render rate."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    saved = {k: os.environ.pop(k) for k in list(os.environ)
+             if k.startswith("BENCH_")}
+    os.environ["BENCH_PROFILE"] = "0"
+    _zero(march.MEGA_SPECTRAL, march.MEGA_PATHS)
+    try:
+        rc, out = _cli(["bench", "--size", "1024", "--spp", "128"])
+    finally:
+        os.environ.pop("BENCH_PROFILE")
+        os.environ.update(saved)
+    launches = march.MEGA_SPECTRAL.launches
+    line = json.loads(out.strip().splitlines()[-1])
+    print(f"frontends, bench: {json.dumps(line)}; {launches} launches of "
+          f"rmr_mega_spectral; phase 4's `render --spectral` "
+          f"{MAIN_RATES.get('spectral', float('nan')):.2f} Mpix*spp/s "
+          f"[{card}]", flush=True)
+    if (rc != 0 or launches != 3 or march.MEGA_PATHS.launches != 0
+            or "platform=cuda" not in line["metric"]
+            or not line["value"] > 0):
+        raise AssertionError(f"bench verb: rc {rc}, {launches} launches, "
+                             f"{line}")
+    return {**line, "launches": launches}
+
+
+def _http(base, path, body=None):
+    import urllib.request
+    req = urllib.request.Request(
+        base + path, method="GET" if body is None else "POST",
+        data=None if body is None else json.dumps(body).encode())
+    with urllib.request.urlopen(req, timeout=600) as r:
+        return json.loads(r.read()) if path != "/api/image.png" else r.read()
+
+
+def _viewer_wait(base, n, timeout=600):
+    deadline = time.perf_counter() + timeout
+    while time.perf_counter() < deadline:
+        st = _http(base, "/api/state")
+        if st["error"]:
+            raise AssertionError(f"viewer: {st['error']}")
+        if st["n"] >= n and not st["rendering"]:
+            return st
+        time.sleep(0.02)
+    raise AssertionError(f"viewer: no image after {timeout} s: {st}")
+
+
+def viewer_verb(dev, card, sky_path):
+    """The viewer (`app.viewer.make_server(port=0, device=cuda)`) in a
+    thread, driven over HTTP on localhost: spectral 1024^2 at 128 spp (32
+    launches of 4, byte-equal to `render_progressive_fused_spectral` in
+    launches of 4), csg with NEE at 512^2, 16 spp (4 launches, byte-equal
+    to the same chunks), an orbit that restarts it (another image), a
+    reset that gives its bytes again, default.scene under the phase's
+    gradient sky (deferred launches only), and a stop that keeps the
+    partial image.  Returns the readings."""
+    import threading
+    from raymarchrenderer_tpu_torch.app import cli
+    from raymarchrenderer_tpu_torch.app.viewer import make_server
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        band_table)
+
+    kernels = (march.MEGA_SPECTRAL, march.MEGA_PATHS, march.MEGA_PATHS_DEFER)
+    srv = make_server(port=0, device=dev)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+    base = f"http://127.0.0.1:{srv.server_address[1]}"
+    state = srv.viewer_state
+    readings = {}
+
+    def run(label, req, ref=None, expect=None):
+        _zero(*kernels)
+        t0 = time.perf_counter()
+        _http(base, "/api/render", req)
+        st = _viewer_wait(base, req["spp"])
+        secs = time.perf_counter() - t0
+        counts = {k.entry: k.launches for k in kernels}
+        img = state.accum.copy()
+        equal = None
+        if ref is not None:
+            scene = cli.build_scene(req["scene"], req.get("env_map"))
+            cfg = RenderConfig(
+                width=req["width"], height=req["height"], spp=req["spp"],
+                max_steps=req["max_steps"], max_bounces=req["max_bounces"])
+            corners = Camera(aspect=cfg.width / cfg.height).corner_rays_flat(
+                dev)
+            want = ref(scene, scene.init_params(dev), cfg, corners)
+            equal = bool(np.array_equal(img, want.cpu().numpy()))
+        readings[label] = {"seconds": secs, "launches": counts,
+                           "n": st["n"], "byte_equal": equal,
+                           "mean": float(img.mean())}
+        print(f"frontends, viewer {label}: {req['width']}x{req['height']} "
+              f"@ {st['n']:.0f} spp in {secs:.3f} s (request to image, "
+              f"polled), launches {json.dumps(counts)}, byte-equal to the "
+              f"library's progressive render: {equal}, image mean "
+              f"{img.mean():.6f} [{card}]", flush=True)
+        if (expect is not None and counts != expect) or equal is False or \
+                not np.isfinite(img).all() or not img.mean() > 0.0:
+            raise AssertionError(f"viewer {label}: {readings[label]}")
+        return img
+
+    def fused(nee):
+        return lambda scene, params, cfg, corners: \
+            march.render_progressive_fused(
+                scene, params, cfg, corners, spp=16, samples_per_launch=4,
+                direct_light=nee)[0]
+
+    steps = {"max_steps": 512, "max_bounces": 16}
+    try:
+        run("spectral", {"scene": "sphere_on_floor", "spectral": True,
+                         "width": 1024, "height": 1024, "spp": 128, **steps},
+            lambda scene, params, cfg, corners:
+                march.render_progressive_fused_spectral(
+                    scene, params, band_table(scene, dev), cfg, corners,
+                    spp=128, samples_per_launch=4)[0],
+            {"rmr_mega_spectral": 32, "rmr_mega_paths": 0,
+             "rmr_mega_paths_defer": 0})
+        nee = {"scene": "csg", "direct_light": True, "width": 512,
+               "height": 512, "spp": 16, **steps}
+        rgb_counts = {"rmr_mega_spectral": 0, "rmr_mega_paths": 4,
+                      "rmr_mega_paths_defer": 0}
+        first = run("csg --direct-light", nee, fused(True), rgb_counts)
+        _zero(*kernels)
+        pose = _http(base, "/api/camera", {"op": "orbit", "ax": 0.4,
+                                           "ay": 0.1})
+        _viewer_wait(base, 16)
+        orbit_launches = march.MEGA_PATHS.launches
+        orbited = state.accum.copy()
+        _http(base, "/api/camera", {"op": "reset"})
+        st = _viewer_wait(base, 16)
+        reset_equal = bool(np.array_equal(state.accum, first))
+        readings["camera"] = {
+            "orbit_launches": orbit_launches, "orbit_pose": pose,
+            "orbit_changed_image": not np.array_equal(orbited, first),
+            "reset_eye": st["camera"]["eye"],
+            "reset_byte_equal": reset_equal}
+        print(f"frontends, viewer camera: an orbit restarted the render "
+              f"({orbit_launches} launches, another image: "
+              f"{readings['camera']['orbit_changed_image']}); reset: eye "
+              f"{st['camera']['eye']}, the first image's bytes: "
+              f"{reset_equal} [{card}]", flush=True)
+        if (orbit_launches != 4 or not readings["camera"][
+                "orbit_changed_image"] or not reset_equal
+                or st["camera"]["eye"] != [0.0, 4.0, -6.0]):
+            raise AssertionError(f"viewer camera: {readings['camera']}")
+        run("default.scene under the gradient sky",
+            {"scene": ENV_SCENE, "env_map": sky_path, "width": 512,
+             "height": 512, "spp": 16, **steps}, fused(False),
+            {"rmr_mega_spectral": 0, "rmr_mega_paths": 0,
+             "rmr_mega_paths_defer": 4})
+        _zero(*kernels)
+        _http(base, "/api/render", {**nee, "spp": 4096})
+        deadline = time.perf_counter() + 600
+        while _http(base, "/api/state")["n"] < 8:
+            if time.perf_counter() > deadline:
+                raise AssertionError("viewer stop: no progress")
+            time.sleep(0.01)
+        _http(base, "/api/stop", {})
+        st = _http(base, "/api/state")
+        time.sleep(0.2)
+        later = _http(base, "/api/state")
+        kept = state.accum is not None and float(state.accum.mean()) > 0.0
+        readings["stop"] = {"n": st["n"], "n_later": later["n"],
+                            "rendering": st["rendering"], "kept": kept,
+                            "launches": march.MEGA_PATHS.launches}
+        print(f"frontends, viewer stop: at {st['n']:.0f} of 4096 spp, "
+              f"rendering {st['rendering']}, n {later['n']:.0f} 0.2 s "
+              f"later, partial image kept: {kept}, "
+              f"{march.MEGA_PATHS.launches} launches [{card}]", flush=True)
+        if (st["rendering"] or not 8 <= st["n"] < 4096
+                or later["n"] != st["n"] or not kept
+                or march.MEGA_PATHS.launches != st["n"] // 4):
+            raise AssertionError(f"viewer stop: {readings['stop']}")
+    finally:
+        state.stop()
+        srv.shutdown()
+        srv.server_close()
+        thread.join(timeout=60)
+    return readings
+
+
+def repl_verb(dev, card):
+    """`repl` fed `samples 128`, `image_width 1024`, `image_height 1024`,
+    `grid_width 4`, `grid_height 4`, `render`, `save`: 16 launches of the
+    RGB kernel (the spiral tiles), the saved image byte-equal to one
+    full-frame launch at the repl's configuration."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out = os.path.join(tmp, "repl.npy")
+        _zero(march.MEGA_PATHS)
+        t0 = time.perf_counter()
+        rc, text = _cli(["repl"], "samples 128\nimage_width 1024\n"
+                        "image_height 1024\ngrid_width 4\ngrid_height 4\n"
+                        f"render\nsave {out}\nquit\n")
+        secs = time.perf_counter() - t0
+        launches = march.MEGA_PATHS.launches
+        img = np.load(out)
+    scene = builtin.sphere_on_floor()
+    cfg = RenderConfig(width=1024, height=1024, spp=128)
+    want = march.render_fused(scene, scene.init_params(dev), cfg,
+                              Camera(aspect=1.0).corner_rays_flat(dev), 0,
+                              n_samples=128)
+    equal = bool(np.array_equal(img, want.cpu().numpy()))
+    render_s = float(re.search(r"render time: ([\d.]+)s", text).group(1))
+    print(f"frontends, repl: 1024x1024 @ 128 spp in 16 spiral tiles, "
+          f"{launches} launches, render {render_s:.2f} s, session "
+          f"{secs:.3f} s; the saved image byte-equal to one full-frame "
+          f"launch: {equal} [{card}]", flush=True)
+    if rc != 0 or launches != 16 or not equal or "16/16" not in text:
+        raise AssertionError(f"repl: rc {rc}, {launches} launches, "
+                             f"byte-equal {equal}")
+    return {"launches": launches, "render_s": render_s, "session_s": secs,
+            "byte_equal": equal}
+
+
+def info_verb(card):
+    rc, text = _cli(["info", "--scene", "csg"])
+    info = json.loads(text)
+    print(f"frontends, info --scene csg: {json.dumps(info)} [{card}]",
+          flush=True)
+    if rc != 0 or info != {"materials": 4, "objects": 4, "lights": 1,
+                           "env_map": False, "differentiable_params": 78}:
+        raise AssertionError(f"info: rc {rc}, {info}")
+    return info
+
+
+def metrics_profile_verb(card):
+    """`render --spectral --metrics --profile` at the headline: one launch,
+    the JSONL events `render_start` / `render_done`, and a trace holding
+    the `record_function` span of `rmr_mega_spectral` (and however many
+    GPU kernel events CUPTI recorded)."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    with tempfile.TemporaryDirectory() as tmp:
+        m, prof = os.path.join(tmp, "m.jsonl"), os.path.join(tmp, "prof")
+        _zero(march.MEGA_SPECTRAL)
+        rc, text = _cli(SPECTRAL_ARGV + ["--metrics", m, "--profile", prof,
+                                         "--out",
+                                         os.path.join(tmp, "o.png")])
+        launches = march.MEGA_SPECTRAL.launches
+        with open(m) as f:
+            events = [json.loads(x) for x in f]
+        traces = [os.path.join(prof, x) for x in os.listdir(prof)]
+        with open(traces[0]) as f:
+            trace = json.load(f)["traceEvents"]
+    spans = [e for e in trace if e.get("name") == "rmr_mega_spectral"]
+    kernels = [e for e in trace if e.get("cat") == "kernel"]
+    ours = [e for e in kernels if "mega_spectral" in e.get("name", "")]
+    readings = {
+        "launches": launches, "events": [e["event"] for e in events],
+        "render_done": events[-1], "trace_events": len(trace),
+        "spans": sorted({e.get("cat") for e in spans}),
+        "span_count": len(spans), "gpu_kernel_events": len(kernels),
+        "gpu_kernel_events_mega_spectral": len(ours),
+        "mega_spectral_gpu_ms": sum(e.get("dur", 0) for e in ours) / 1e3}
+    print("frontends, render --metrics --profile: " + json.dumps(
+        {**readings, "card": card}), flush=True)
+    if (rc != 0 or launches != 1 or readings["events"] != [
+            "render_start", "render_done"]
+            or set(events[0]) != {"ts", "event", "width", "height", "spp",
+                                  "impl", "platform"}
+            or events[0]["platform"] != "cuda" or not spans):
+        raise AssertionError(f"render --metrics --profile: {readings}")
+    return readings
+
+
+def guards_check(dev, card):
+    """`checked_render_sample` on the card at 64^2: clean parameters pass,
+    NaN parameters raise."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    from raymarchrenderer_tpu_torch.scene import builtin
+    from raymarchrenderer_tpu_torch.scene.graph import (param_leaves,
+                                                        params_replace)
+    from raymarchrenderer_tpu_torch.utils import checked_render_sample
+    scene = builtin.csg_demo()
+    params = scene.init_params(dev)
+    cfg = RenderConfig(width=64, height=64, max_steps=128, max_bounces=4)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    err, img = checked_render_sample(scene, params, cfg, corners, 0,
+                                     direct_light=True)
+    bad = params_replace(params, [x * float("nan")
+                                  for x in param_leaves(params)])
+    try:
+        checked_render_sample(scene, bad, cfg, corners, 0)
+        raised = None
+    except FloatingPointError as e:
+        raised = str(e)
+    print(f"frontends, checked_render_sample (csg, NEE, 64x64 on "
+          f"{img.device}): clean {err}, NaN parameters raised {raised!r} "
+          f"[{card}]", flush=True)
+    if err is not None or raised is None or img.device.type != "cuda":
+        raise AssertionError("checked_render_sample on the card")
+    return {"clean": err, "nan": raised}
+
+
+def frontends_phase(dev, card, sky_path):
+    """Phase 4c: the frontends on the card, each verb with its kernels'
+    launch counters zeroed just before and read just after (readings in
+    smoke_out/frontends.json)."""
+    t0 = time.perf_counter()
+    readings = {"bench": bench_verb(card),
+                "viewer": viewer_verb(dev, card, sky_path),
+                "repl": repl_verb(dev, card), "info": info_verb(card),
+                "golden_parity": golden_parity_phase(dev, card),
+                "metrics_profile": metrics_profile_verb(card),
+                "guards": guards_check(dev, card)}
+    readings["seconds"] = time.perf_counter() - t0
+    print(f"frontends: phase 4c in {readings['seconds']:.1f} s [{card}]",
+          flush=True)
+    _log_json("frontends", readings)
+    return readings
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3442,6 +3811,9 @@ def main(argv=None) -> int:
     ap.add_argument("--only", metavar="NAME,NAME,...",
                     help="with --kernel-times: build and time only these "
                     "kernels (names of the kernels line)")
+    ap.add_argument("--frontends", action="store_true",
+                    help="build the render kernels and run phase 4c (the "
+                    "frontends) alone")
     ap.add_argument("--sweep-min-blocks", metavar="N,N,...",
                     help="time the kernels built with each launch bound in "
                     "the list, each source's bound on its own (a "
@@ -3463,9 +3835,12 @@ def main(argv=None) -> int:
     nvcc = _nvcc_version()
     print(f"torch {torch.__version__} cuda {torch.version.cuda}; nvcc "
           f"{nvcc}", flush=True)
-    ok = json.dumps({"ok": True, "device": {
-        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
-        "count": torch.cuda.device_count()}})
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    ok = json.dumps({"ok": True, "device": device})
+
+    def partial(mode):   # the last line of a run of one mode, not a proof
+        return json.dumps({"ok": True, "partial": mode, "device": device})
 
     specs = list(opts.sweep_const)
     if opts.sweep_min_blocks:
@@ -3473,14 +3848,29 @@ def main(argv=None) -> int:
                   for _, const in _BOUNDS.values()]
     if specs:
         sweep_consts(dev, card, specs)
-        print(ok)
+        print(partial("sweep"))
         return 0
 
-    # 2. build
+    # 2. build; a full run counts bench.py's work (4b: plain versions,
+    # no kernel) on the card meanwhile
     from raymarchrenderer_tpu_torch.kernels import march
     only = opts.only.split(",") if opts.only else None
-    build_kernels(card, only)
+    if opts.frontends:
+        only = ["mega_paths", "mega_spectral", "mega_paths_defer"]
+    with ThreadPoolExecutor(1) as pool:
+        built = pool.submit(build_kernels, card, only)
+        profile = (None if opts.frontends or opts.kernel_times
+                   else profile_phase(dev, card))
+        built.result()
     native_s = native_phase(card)
+    if opts.frontends:
+        with tempfile.TemporaryDirectory() as tmp:
+            from raymarchrenderer_tpu_torch.io import save_hdr
+            sky_path = os.path.join(tmp, "sky.hdr")
+            save_hdr(sky_path, gradient_env())
+            frontends_phase(dev, card, sky_path)
+        print(partial("frontends"))
+        return 0
     if opts.kernel_times:
         with tempfile.TemporaryDirectory() as tmp:
             sh_scene = os.path.join(tmp, "sh.scene")
@@ -3488,7 +3878,7 @@ def main(argv=None) -> int:
             _log_json("kernel_times", kernel_times(dev, card, sh_scene,
                                                    only=only))
         check_digests(nvcc)
-        print(ok)
+        print(partial("kernel_times"))
         return 0
 
     # 3. parity (its launches do not count for the main paths)
@@ -3589,16 +3979,19 @@ def main(argv=None) -> int:
         "env perf (exact normal)")
     exact_notes["record_paths"]["main_path_launches"] = exact_train_path(
         dev, card)
-    tmp_dir.cleanup()
     check_native_used("save_image on the main paths", before_main, card,
                       "rmr_linear_to_srgb_u8", "rmr_write_png")
 
-    # 4b. the drivers: tiles, resume, the work counters, the goldens
+    # 4b. the drivers: tiles, resume, the work counters
     _log_json("drivers", {
         "native_build_s": native_s, "tiles": tiles_phase(dev, card),
         "resume": resume_phase(dev, card),
-        "profile": profile_phase(dev, card),
-        "golden_parity": golden_parity_phase(dev, card)})
+        "profile": profile})
+
+    # 4c. the frontends: bench, viewer, repl, info, parity (the goldens),
+    # render --metrics --profile, the NaN guard
+    frontends_phase(dev, card, sky_path)
+    tmp_dir.cleanup()
 
     # 5. perf
     perf(dev, card)

@@ -35,37 +35,62 @@ and seed come from the checkpoint, the spp target from `--spp` (so
 `--resume --spp 256` extends a finished 128-spp render), the chunk
 boundaries stay where an uninterrupted run with the same `--chunk` puts
 them (so the image is byte-equal to that run's), and a checkpoint of
-another scene is refused (`io.checkpoint.SceneMismatchError`).  The
-other subcommands are not ported yet.
+another scene is refused (`io.checkpoint.SceneMismatchError`).
+`render --metrics PATH` appends the JAX CLI's `render_start` /
+`render_done` JSONL events, `render --profile DIR` writes a
+`torch.profiler` Chrome trace of the render (`utils.profiling.trace_to`).
+
+The other verbs of the JAX CLI:
+
+    python -m raymarchrenderer_tpu_torch bench --size 1024 --spp 128
+    python -m raymarchrenderer_tpu_torch parity
+    python -m raymarchrenderer_tpu_torch info --scene csg
+    python -m raymarchrenderer_tpu_torch repl
+    python -m raymarchrenderer_tpu_torch viewer --port 8000
+
+`bench` is `app.bench` (the root `bench.py`'s knobs and JSON keys),
+`parity` the golden-image gates (`utils.parity.run_parity`; its exit code
+is the process's), `info` a scene's counts, `repl` the reference's stdin
+verbs with the spiral tile driver, `viewer` the HTTP viewer (`app.viewer`).
+Each runs on `--device` (default `cuda`).  `--cpu` is the JAX spelling of
+`--device cpu`.  The global `--cache-dir DIR` builds the CUDA kernels'
+libraries into DIR and loads them from there; `--no-cache` builds them
+into a temporary directory removed when the verb ends (the port's
+counterpart of the JAX package's compilation cache,
+`kernels.build.library_dir`).  `main` returns the verb's exit code.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
+import json
 import os
 import sys
 import time
 
 
-def _build_scene(args):
+# the builtin scenes by their CLI names: name -> `scene.builtin` function
+BUILTIN_SCENES = {"sphere_on_floor": "sphere_on_floor",
+                  "single_sphere": "single_sphere", "csg": "csg_demo",
+                  "cornell": "cornell", "glass": "glass_demo",
+                  "volume": "volume_demo"}
+
+
+def build_scene(name: str, env_map: str = None):
+    """The scene a command line names: a `.scene` file (lit by the image
+    at `env_map`, when given) or a builtin by its CLI name, which renders
+    its own sky.  An unknown name raises SystemExit."""
     from raymarchrenderer_tpu_torch.scene import builtin, load_scene
     env = None
-    if getattr(args, "env_map", None):
+    if env_map:
         from raymarchrenderer_tpu_torch.io import load_env_map
-        env = load_env_map(args.env_map)
-    if args.scene and os.path.exists(args.scene):
-        return load_scene(args.scene, env_image=env)
-    builtins_ = {
-        "sphere_on_floor": builtin.sphere_on_floor,
-        "single_sphere": builtin.single_sphere,
-        "csg": builtin.csg_demo,
-        "cornell": builtin.cornell,
-        "glass": builtin.glass_demo,
-        "volume": builtin.volume_demo,
-    }
-    if args.scene in builtins_:
-        return builtins_[args.scene]()
-    raise SystemExit(f"scene not found: {args.scene!r} "
-                     f"(builtins: {', '.join(builtins_)})")
+        env = load_env_map(env_map)
+    if name and os.path.exists(name):
+        return load_scene(name, env_image=env)
+    if name in BUILTIN_SCENES:
+        return getattr(builtin, BUILTIN_SCENES[name])()
+    raise SystemExit(f"scene not found: {name!r} "
+                     f"(builtins: {', '.join(BUILTIN_SCENES)})")
 
 
 def _camera(args):
@@ -132,9 +157,26 @@ def _add_render_flags(p):
     p.add_argument("--out", default=None,
                    help="output image (.png/.bmp/.exr/.npy); default "
                         "output/<timestamp>.png")
+    p.add_argument("--checkpoint", default=None,
+                   help="render: write (accum, n, config) here after every "
+                        "chunk")
+    p.add_argument("--resume", action="store_true",
+                   help="render: resume from --checkpoint if it exists")
+    _add_device_flag(p)
+    p.add_argument("--cpu", action="store_true",
+                   help="the JAX CLI's spelling of --device cpu")
+    p.add_argument("--metrics", default=None,
+                   help="render: append structured JSONL metrics to this "
+                        "file")
+    p.add_argument("--profile", default=None,
+                   help="render: write a torch.profiler trace into this "
+                        "directory")
+
+
+def _add_device_flag(p):
     p.add_argument("--device", default="cuda",
-                   help="cuda (the CUDA kernel) or cpu (its plain PyTorch "
-                        "version)")
+                   help="cuda (the CUDA kernels) or cpu (their plain "
+                        "PyTorch versions)")
 
 
 def pick_impl(impl: str, device) -> str:
@@ -167,8 +209,8 @@ def cmd_render(args):
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         band_table, render_spectral)
 
-    device = _device(args.device)
-    scene = _build_scene(args)
+    device = _device("cpu" if args.cpu else args.device)
+    scene = build_scene(args.scene, args.env_map)
     params = scene.init_params(device)
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
@@ -211,31 +253,47 @@ def cmd_render(args):
         if (s + 1) % args.chunk == 0 or s + 1 == cfg.spp:
             progress(s + 1, state)
 
-    t0 = time.perf_counter()
     resume = dict(accum=accum, n0=n0)
-    if args.spectral and impl == "fused":
-        img, n = render_progressive_fused_spectral(
-            scene, params, band_table(scene, device), cfg, corners,
-            spp=spp_left, samples_per_launch=args.chunk, callback=progress,
-            **resume)
-    elif args.spectral:
-        img, n = render_spectral(scene, params, band_table(scene, device),
-                                 cfg, corners, spp=spp_left,
-                                 callback=oracle_progress, **resume)
-    elif impl == "fused":
-        img, n = render_progressive_fused(
-            scene, params, cfg, corners, spp=spp_left,
-            samples_per_launch=args.chunk, direct_light=args.direct_light,
-            callback=progress, **resume)
-    else:
-        img, n = render(scene, params, cfg, corners, spp=spp_left,
-                        direct_light=args.direct_light,
-                        callback=oracle_progress, **resume)
-    img_np = img.cpu().numpy()      # waits for the device
-    dt = time.perf_counter() - t0
-    mpix_spp = cfg.width * cfg.height * (n - n0) / 1e6
-    print(f"done: {n:.0f} spp in {dt:.3f}s "
-          f"({mpix_spp / max(dt, 1e-9):.2f} Mpix*spp/s)")
+    with contextlib.ExitStack() as stack:
+        metrics = None
+        if args.metrics:
+            from raymarchrenderer_tpu_torch.utils.metrics import (
+                MetricsLogger)
+            metrics = stack.enter_context(
+                contextlib.closing(MetricsLogger(args.metrics)))
+            metrics.log("render_start", width=cfg.width, height=cfg.height,
+                        spp=cfg.spp, impl=impl, platform=device.type)
+        if args.profile:
+            from raymarchrenderer_tpu_torch.utils.profiling import trace_to
+            stack.enter_context(trace_to(args.profile))
+        t0 = time.perf_counter()
+        if args.spectral and impl == "fused":
+            img, n = render_progressive_fused_spectral(
+                scene, params, band_table(scene, device), cfg, corners,
+                spp=spp_left, samples_per_launch=args.chunk,
+                callback=progress, **resume)
+        elif args.spectral:
+            img, n = render_spectral(scene, params,
+                                     band_table(scene, device), cfg, corners,
+                                     spp=spp_left, callback=oracle_progress,
+                                     **resume)
+        elif impl == "fused":
+            img, n = render_progressive_fused(
+                scene, params, cfg, corners, spp=spp_left,
+                samples_per_launch=args.chunk,
+                direct_light=args.direct_light, callback=progress, **resume)
+        else:
+            img, n = render(scene, params, cfg, corners, spp=spp_left,
+                            direct_light=args.direct_light,
+                            callback=oracle_progress, **resume)
+        img_np = img.cpu().numpy()      # waits for the device
+        dt = time.perf_counter() - t0
+        mpix_spp = cfg.width * cfg.height * (n - n0) / 1e6
+        print(f"done: {n:.0f} spp in {dt:.3f}s "
+              f"({mpix_spp / max(dt, 1e-9):.2f} Mpix*spp/s)")
+        if metrics is not None:
+            metrics.log("render_done", spp=float(n), wall_s=round(dt, 3),
+                        mpix_spp_per_s=round(mpix_spp / max(dt, 1e-9), 4))
     out = args.out or os.path.join("output", timestamp_name("png"))
     os.makedirs(os.path.dirname(out) or ".", exist_ok=True)
     save_image(out, img_np)
@@ -288,8 +346,8 @@ def cmd_train(args):
 
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
-    device = _device(args.device)
-    scene = _build_scene(args)
+    device = _device("cpu" if args.cpu else args.device)
+    scene = build_scene(args.scene, args.env_map)
     params = scene.init_params(device)
     cfg = _config(args)
     corners = _camera(args).corner_rays_flat(device)
@@ -396,10 +454,132 @@ def _train_spectral(args, device, scene, params, cfg, corners, target,
     return loss, params, mats, (grads, band_grads), img
 
 
+def cmd_bench(args) -> int:
+    """The headline benchmark (`app.bench`): --size, --spp and --impl are
+    the defaults of BENCH_SIZE, BENCH_SPP and BENCH_IMPL, which win where
+    set (as the JAX CLI's `os.environ.setdefault`)."""
+    from raymarchrenderer_tpu_torch.app import bench
+    env = {"BENCH_SIZE": str(args.size), "BENCH_SPP": str(args.spp),
+           "BENCH_IMPL": args.impl, **os.environ}
+    bench.main(env, _device(args.device))
+    return 0
+
+
+def cmd_parity(args) -> int:
+    """The gated golden-image parity check; a failed gate exits non-zero."""
+    from raymarchrenderer_tpu_torch.utils.parity import run_parity
+    return run_parity(out_dir=args.out_dir, device=_device(args.device))
+
+
+def cmd_info(args) -> int:
+    """A scene's counts as JSON; `differentiable_params` counts the
+    elements of its parameter leaves."""
+    from raymarchrenderer_tpu_torch.scene.graph import param_leaves
+    scene = build_scene(args.scene)
+    params = scene.init_params("cpu")
+    print(json.dumps({
+        "materials": len(scene.materials),
+        "objects": len(scene.objects),
+        "lights": scene.n_lights,
+        "env_map": scene.has_env_map,
+        "differentiable_params": int(sum(x.numel()
+                                         for x in param_leaves(params))),
+    }, indent=2))
+    return 0
+
+
+def _repl_render(state, device):
+    """The repl's `render`: every tile of the grid gets all the samples,
+    tiles in the reference's spiral from the centre (`CLI.cpp:95-126`,
+    `Program.cpp:107-119`), through `render.tiles.ProgressiveRenderer`
+    (one kernel launch a tile on the card).  Returns the image (numpy)."""
+    from raymarchrenderer_tpu_torch.render.tiles import ProgressiveRenderer
+    ns = argparse.Namespace(
+        scene=state["scene"], env_map=None, seed=0, width=state["width"],
+        height=state["height"], spp=state["spp"], max_steps=512,
+        max_bounces=16, max_dist=1000.0, relax=0.0, normal_taps=6, eye=None,
+        look_at=None, fov=None)
+    scene = build_scene(state["scene"])
+    cfg = _config(ns).replace(grid_width=state["grid_w"],
+                              grid_height=state["grid_h"])
+    pr = ProgressiveRenderer(scene, scene.init_params(device), cfg,
+                             _camera(ns).corner_rays_flat(device))
+    t0 = time.perf_counter()
+    n_tiles = state["grid_w"] * state["grid_h"]
+    done = [0]
+
+    def tile_done(tx, ty, accum):
+        done[0] += 1
+        print(f"  tile ({tx},{ty}) {done[0]}/{n_tiles}", flush=True)
+
+    img = pr.render_pass(spp=state["spp"], callback=tile_done).cpu().numpy()
+    print(f"render time: {time.perf_counter() - t0:.2f}s")  # Program.cpp:296
+    return img
+
+
+def cmd_repl(args) -> int:
+    """The reference REPL verbs (`CLI.cpp:95-219`), line by line from
+    stdin.  The rendered image stays in memory; `save [path]` writes it."""
+    from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
+    device = _device(getattr(args, "device", "cuda"))
+    state = {"scene": "sphere_on_floor", "spp": 16, "width": 256,
+             "height": 256, "grid_w": 4, "grid_h": 4, "img": None}
+    print("raymarch repl — verbs: load_scene <path>, samples <n>, "
+          "image_width <n>, image_height <n>, grid_width <n>, "
+          "grid_height <n>, render, save [path], quit")
+    for line in sys.stdin:
+        parts = line.split()
+        if not parts:
+            continue
+        verb, rest = parts[0], parts[1:]
+        try:
+            if verb == "quit":
+                break
+            elif verb == "load_scene":
+                state["scene"] = rest[0]
+                print(f"scene = {rest[0]}")
+            elif verb == "samples":
+                state["spp"] = int(rest[0])
+            elif verb in ("image_width", "image_height", "grid_width",
+                          "grid_height"):
+                key = {"image_width": "width", "image_height": "height",
+                       "grid_width": "grid_w", "grid_height": "grid_h"}[verb]
+                state[key] = int(rest[0])
+            elif verb == "render":
+                state["img"] = _repl_render(state, device)
+            elif verb == "save":
+                if state["img"] is None:
+                    print("nothing rendered yet")
+                else:
+                    dst = rest[0] if rest else os.path.join(
+                        "output", timestamp_name("png"))
+                    os.makedirs(os.path.dirname(dst) or ".", exist_ok=True)
+                    save_image(dst, state["img"])
+                    print(f"saved {dst}")
+            else:
+                print(f"unknown verb: {verb}")
+        except (IndexError, ValueError) as e:
+            print(f"bad arguments for {verb}: {e}")
+    return 0
+
+
+def cmd_viewer(args) -> int:
+    from raymarchrenderer_tpu_torch.app.viewer import serve
+    serve(port=args.port, host=args.host, device=_device(args.device))
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="raymarchrenderer_tpu_torch",
         description="sphere-tracing path tracer, PyTorch + CUDA port")
+    p.add_argument("--no-cache", action="store_true",
+                   help="build the CUDA kernels into a temporary directory "
+                        "removed at the end (nvcc runs again)")
+    p.add_argument("--cache-dir", default=None,
+                   help="build the CUDA kernels' libraries into and load "
+                        "them from this directory (default "
+                        "build/raymarchrenderer_tpu_torch/)")
     sub = p.add_subparsers(dest="cmd", required=True)
     pr = sub.add_parser("render", help="render a scene to an image")
     _add_render_flags(pr)
@@ -409,11 +589,14 @@ def build_parser() -> argparse.ArgumentParser:
                          "on the CPU); oracle: the plain wavefront "
                          "integrators; auto: fused on a card, oracle on "
                          "the CPU")
-    pr.add_argument("--checkpoint", default=None,
-                    help="write (accum, n, config) here after every chunk")
-    pr.add_argument("--resume", action="store_true",
-                    help="resume from --checkpoint if it exists")
     pr.set_defaults(fn=cmd_render)
+    pb = sub.add_parser("bench", help="run the headline benchmark")
+    pb.add_argument("--size", type=int, default=1024)
+    pb.add_argument("--spp", type=int, default=8)
+    pb.add_argument("--impl", choices=("auto", "fused", "oracle"),
+                    default="auto")
+    _add_device_flag(pb)
+    pb.set_defaults(fn=cmd_bench)
     pt = sub.add_parser("train", help="inverse-render: fit the scene's "
                                       "parameters to a target image")
     _add_render_flags(pt)
@@ -427,13 +610,41 @@ def build_parser() -> argparse.ArgumentParser:
                     help="auto: the recording megakernel; fused: "
                          "march_fused per bounce; oracle: the plain march")
     pt.set_defaults(fn=cmd_train)
+    pi = sub.add_parser("info", help="describe a scene")
+    pi.add_argument("--scene", default="sphere_on_floor")
+    pi.set_defaults(fn=cmd_info)
+    pp = sub.add_parser("repl", help="reference-CLI-compatible REPL")
+    _add_device_flag(pp)
+    pp.set_defaults(fn=cmd_repl)
+    pg = sub.add_parser(
+        "parity", help="gated parity check against the reference's 2015 "
+                       "golden BMPs")
+    _add_device_flag(pg)
+    pg.add_argument("--out-dir", default="output",
+                    help="where the side-by-side PNG is written")
+    pg.set_defaults(fn=cmd_parity)
+    pv = sub.add_parser("viewer",
+                        help="interactive browser viewer (the GUI frontend)")
+    pv.add_argument("--port", type=int, default=8000)
+    pv.add_argument("--host", default="127.0.0.1")
+    _add_device_flag(pv)
+    pv.set_defaults(fn=cmd_viewer)
     return p
 
 
 def main(argv=None) -> int:
+    """Parse `argv`, run the verb and return its exit code (`render` and
+    `train`, which return their results to in-process callers, give 0)."""
+    from raymarchrenderer_tpu_torch.kernels import build
     args = build_parser().parse_args(argv)
-    args.fn(args)
-    return 0
+    with contextlib.ExitStack() as stack:
+        if args.no_cache:
+            stack.enter_context(build.fresh_library_dir())
+        elif args.cache_dir:
+            previous = build.set_library_dir(args.cache_dir)
+            stack.callback(build.set_library_dir, previous)
+        rc = args.fn(args)
+    return rc if isinstance(rc, int) else 0
 
 
 if __name__ == "__main__":

@@ -5,9 +5,15 @@ for the deviation from reference HEAD's camera, which this keeps).  The
 corner math is host-side Python over float32 numpy scalars, in the JAX
 package's op order, so the corners agree with it to the last ulp or two
 (its `lax.rsqrt` differs from the 1/sqrt used here by 1 ulp).
-`corner_rays_flat` returns one (5, 3) float32 tensor:
-(eye, ray00, ray10, ray01, ray11), first digit horizontal (0 = left),
-second vertical (0 = top image row).
+`corner_rays` returns (eye, ray00, ray10, ray01, ray11) as five (3,)
+float32 arrays, first digit horizontal (0 = left), second vertical (0 =
+top image row); `corner_rays_flat` the same as one (5, 3) float32 tensor.
+
+The interactive operations (`Camera.cpp:104-137`: `zoom`, `pan`,
+`orbit`) move the pose as the JAX package's do: `zoom` and `pan` in
+Python floats, `orbit` through `rotate_axis` about up, then about right,
+normalising after each, in float32 (numpy's `cos` / `sin` are an ulp
+from XLA:CPU's, so a pose after any sequence agrees to about 1e-7).
 """
 from __future__ import annotations
 
@@ -32,6 +38,16 @@ def _dot(a, b):
 def _normalized(a):
     inv = _F(1.0) / np.sqrt(np.maximum(_dot(a, a), _F(1e-24)))
     return tuple(c * inv for c in a)
+
+
+def _rotate_axis(u, t: float, p):
+    """`core.vecmath.rotate_axis` on float32 host triples: p ct - (u x p)
+    st + u (u.p)(1 - ct), the reference's handedness."""
+    ct = np.cos(_F(t))
+    st = np.sin(_F(t))
+    k = _dot(u, p) * (_F(1.0) - ct)
+    return tuple(pc * ct - xc * st + uc * k
+                 for pc, xc, uc in zip(p, _cross(u, p), u))
 
 
 @dataclasses.dataclass
@@ -61,24 +77,49 @@ class Camera:
         u = _normalized(_cross(d, r))
         return r, u, d
 
+    def zoom(self, amount: float) -> None:
+        """Move the eye along the view direction."""
+        self.eye = tuple(e + d * amount
+                         for e, d in zip(self.eye, self.direction))
+
+    def pan(self, dx: float, dy: float) -> None:
+        """Move the eye along the screen's right and up axes."""
+        r, u, _ = self._frame()
+        self.eye = tuple(e + float(ax) * dx + float(ay) * dy
+                         for e, ax, ay in zip(self.eye, r, u))
+
+    def orbit(self, ax: float, ay: float) -> None:
+        """Turn the view direction by `ax` about up, then `ay` about
+        right."""
+        r, u, _ = self._frame()
+        d = tuple(_F(c) for c in self.direction)
+        d = _normalized(_rotate_axis(u, ax, d))
+        d = _normalized(_rotate_axis(r, ay, d))
+        self.direction = tuple(float(c) for c in d)
+
     def look_at(self, target: tuple) -> None:
         d = tuple(t - e for t, e in zip(target, self.eye))
         n = math.sqrt(sum(c * c for c in d))
         self.direction = tuple(c / n for c in d)
 
-    def corner_rays_flat(self, device="cuda") -> torch.Tensor:
-        """(5, 3) float32 tensor on `device` (the card by default): eye,
-        ray00 (top-left), ray10 (top-right), ray01 (bottom-left), ray11
-        (bottom-right); the renders route by this tensor's device.
-        Corners stay unnormalized: bilinear interpolation then per-pixel
-        normalization is the exact pinhole projection."""
+    def corner_rays(self) -> tuple:
+        """(eye, ray00 (top-left), ray10 (top-right), ray01 (bottom-left),
+        ray11 (bottom-right)) as (3,) float32 arrays.  Corners stay
+        unnormalized: bilinear interpolation then per-pixel normalization
+        is the exact pinhole projection."""
         r, u, d = self._frame()
         tv = _F(math.tan(self.fov / 2.0))
         th = _F(self.aspect * math.tan(self.fov / 2.0))
-        rows = [tuple(_F(c) for c in self.eye)]
+        rows = [np.asarray(self.eye, np.float32)]
         for sh, sv in ((1, 1), (-1, 1), (1, -1), (-1, -1)):
             # d -/+ r*th +/- u*tv; a sign flip is exact, so this is the
             # JAX package's `d - r * th + u * tv` rounding for rounding
-            rows.append(tuple((dc - _F(sh) * (rc * th)) + _F(sv) * (uc * tv)
-                              for dc, rc, uc in zip(d, r, u)))
-        return torch.tensor(np.asarray(rows, np.float32), device=device)
+            rows.append(np.asarray(
+                [(dc - _F(sh) * (rc * th)) + _F(sv) * (uc * tv)
+                 for dc, rc, uc in zip(d, r, u)], np.float32))
+        return tuple(rows)
+
+    def corner_rays_flat(self, device="cuda") -> torch.Tensor:
+        """`corner_rays` as one (5, 3) float32 tensor on `device` (the
+        card by default); the renders route by this tensor's device."""
+        return torch.tensor(np.stack(self.corner_rays()), device=device)

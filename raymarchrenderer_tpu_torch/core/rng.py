@@ -61,6 +61,36 @@ def bits_to_uniform(bits: torch.Tensor) -> torch.Tensor:
     return (bits >> 8).to(torch.float32) * (1.0 / (1 << 24))
 
 
+class PixelRNG:
+    """A stream handle fixing (seed, px, py, sample): `at(counter)` is the
+    uniform of that use-counter, `bits(counter)` its uint32 (in int64).
+    base = avalanche(seed * W2 + sample * W3), then the four-way hash of
+    (px, py, base, counter), as the JAX package's `PixelRNG`."""
+
+    __slots__ = ("seed", "px", "py", "base")
+
+    def __init__(self, seed, px, py, sample):
+        self.px = _u32(px)
+        dev = self.px.device
+        self.seed = _u32(seed, dev)
+        self.py = _u32(py, dev)
+        self.base = _avalanche((_mul(self.seed, _W2)
+                                + _mul(_u32(sample, dev), _W3)) & _M32)
+
+    def bits(self, counter) -> torch.Tensor:
+        return hash_u32(self.px, self.py, self.base,
+                        _u32(counter, self.px.device))
+
+    def at(self, counter) -> torch.Tensor:
+        """Uniform [0, 1) for an explicit use-counter."""
+        return bits_to_uniform(self.bits(counter))
+
+
+def uniform(seed, px, py, sample, counter) -> torch.Tensor:
+    """One-shot functional form of `PixelRNG.at`."""
+    return PixelRNG(seed, px, py, sample).at(counter)
+
+
 class RNGStream:
     """Counter allocator over the counter-based hash: the k-th `.next()`
     draws slot k of the (px, py, base) stream, `base` folding in the

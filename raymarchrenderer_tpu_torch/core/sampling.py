@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import torch
 
-from .vecmath import Vec3, make_onb, vselect
+from .vecmath import Vec3, make_onb, reflect, vselect
 
 _PI = 3.14159265358979323846
 
@@ -29,6 +29,15 @@ def uniform_sphere(u1, u2) -> Vec3:
     sin_phi = torch.sqrt(torch.clamp(1.0 - cos_phi * cos_phi, min=0.0))
     return Vec3(sin_phi * torch.cos(theta), cos_phi,
                 sin_phi * torch.sin(theta))
+
+
+def uniform_hemisphere(u1, u2, normal: Vec3) -> Vec3:
+    """`randHemisphere`: a uniform sphere point flipped to z >= 0, then
+    rotated into the normal's `make_onb` frame."""
+    b = uniform_sphere(u1, u2)
+    b = vselect(b.z < 0.0, -b, b)
+    x, y, z = make_onb(normal)
+    return x * b.x + y * b.y + z * b.z
 
 
 def uniform_sphere_or_hemisphere(u1, u2, normal: Vec3) -> Vec3:
@@ -84,3 +93,21 @@ def ggx_lobe(u1, u2, roughness) -> Vec3:
         (1.0 - r) / torch.clamp(denom, min=1e-12), 1e-12, 1.0))
     sin_t = torch.sqrt(torch.clamp(1.0 - cos_t * cos_t, min=1e-12))
     return Vec3(sin_t * torch.cos(o), cos_t, sin_t * torch.sin(o)).normalized()
+
+
+def glossy_sample(u1, u2, wo: Vec3, normal: Vec3, roughness) -> Vec3:
+    """A glossy direction in the local y-up frame, with the reference's
+    roughness == 0 mirror case (`RayMarch2.glsl:328-331`): reflect(wo, n)
+    there, the GGX lobe elsewhere."""
+    lobe = ggx_lobe(u1, u2, roughness)
+    mirror = reflect(wo, normal)
+    smooth = torch.as_tensor(roughness, dtype=torch.float32,
+                             device=lobe.x.device) == 0.0
+    return vselect(smooth, mirror, lobe)
+
+
+def fresnel_schlick(cos_theta, f0=0.04, scale=0.96, power=5.0):
+    """`misc_fresnel` (`Graphics.cpp:461`):
+    pow(1 - clamp(cos, 0, 1), 5) * 0.96 + 0.04."""
+    c = torch.clamp(cos_theta, 0.0, 1.0)
+    return torch.pow(1.0 - c, power) * scale + f0

@@ -129,6 +129,32 @@ def sd_capsule(p: Vec3, a: Vec3, b: Vec3, radius):
     return (pa - ba * h).length() - radius
 
 
+def op_round(d, r):
+    return d - r
+
+
+def op_union(a, b):
+    """`op_union`, `RayMarch.glsl:183-186`."""
+    return torch.minimum(a, b)
+
+
+def op_subtract(a, b):
+    """`op_subtract`, `RayMarch.glsl:188-191`: max(a, -b)."""
+    return torch.maximum(a, -b)
+
+
+def op_intersect(a, b):
+    """`op_intersect`, `RayMarch.glsl:193-196`."""
+    return torch.maximum(a, b)
+
+
+def op_union_mat(da, ma, db, mb):
+    """Material-tagged union `opU` (`RayMarch3.glsl:127-130`): the tag of
+    the nearer surface, a tie to b.  Returns (dist, matID)."""
+    take_a = da < db
+    return torch.where(take_a, da, db), torch.where(take_a, ma, mb)
+
+
 def smin(a, b, k):
     """Polynomial smooth min (`RayMarch.glsl:115-119`):
     (b (1 - h) + a h) - (k h) (1 - h), h = clamp(0.5 + 0.5 (b - a) / k).
@@ -158,3 +184,11 @@ def domain_repeat(p: Vec3, m: Vec3) -> Vec3:
         return torch.where(nz, torch.remainder(c, safe) - period * 0.5, c)
 
     return Vec3(rep(p.x, m.x), rep(p.y, m.y), rep(p.z, m.z))
+
+
+def domain_translate(p: Vec3, t: Vec3) -> Vec3:
+    return p - t
+
+
+def domain_scale(p: Vec3, s) -> Vec3:
+    return p / s

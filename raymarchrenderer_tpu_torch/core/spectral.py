@@ -3,7 +3,9 @@
 Per-path state is one wavelength (nm, 5 nm bins; 0 == "unset") and a scalar
 power; the final splat is `wavelengthToColor(lambda) * power`
 (`RayMarch3.glsl:447-522`, piecewise-linear spectrum -> RGB).  Wavelengths
-are float32 holding integral multiples of 5.
+are float32 holding integral multiples of 5.  `sample_band` and
+`band_filter` are the `mat_func_*` emitter draw and the `ColorRange` band
+filter (`RayMarch3.glsl:261-280`) on their own.
 """
 from __future__ import annotations
 
@@ -43,3 +45,20 @@ def wavelength_to_rgb(wl: torch.Tensor) -> Vec3:
                         div(wl - 380.0, 420.0 - 380.0), alpha)
 
     return Vec3(r * alpha, g * alpha, b * alpha)
+
+
+def sample_band(u, min_wave, max_wave):
+    """A wavelength of a band in 5 nm bins (`RayMarch3.glsl:261-266`):
+    r = u * (max - min) / 5; wl = floor(r) * 5 + min."""
+    r = div(u * (max_wave - min_wave), 5.0)
+    return torch.floor(r) * 5.0 + min_wave
+
+
+def band_filter(wl, power, min_wave, max_wave, mat_power):
+    """A `ColorRange` band filter (`RayMarch3.glsl:268-280`): a wavelength
+    outside [min, max] is killed (wl -> 0, the path ends), inside it
+    power *= mat_power.  Returns (wl, power, absorbed)."""
+    inside = (wl >= min_wave) & (wl <= max_wave)
+    new_wl = torch.where(inside, wl, 0.0)
+    new_power = torch.where(inside, power * mat_power, power)
+    return new_wl, new_power, ~inside

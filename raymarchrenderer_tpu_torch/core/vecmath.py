@@ -123,6 +123,20 @@ def refract(d: Vec3, n: Vec3, eta) -> Vec3:
     return vselect(tir, Vec3(zero, zero, zero), out)
 
 
+def rotate_axis(u: Vec3, t, p: Vec3) -> Vec3:
+    """Rotation of p about the unit axis u by the angle t, in the reference
+    camera's handedness (`Camera.cpp:31-52`): glm's column-major mat3
+    applies the transpose of Rodrigues' matrix, so the cross term's sign is
+    flipped, p ct - (u x p) st + u (u.p)(1 - ct), as in the JAX package.
+    This is the observed mapping, not a slip to correct."""
+    if not torch.is_tensor(t):
+        t = torch.tensor(t, dtype=torch.float32,
+                         device=p.x.device if torch.is_tensor(p.x) else None)
+    ct = torch.cos(t)
+    st = torch.sin(t)
+    return p * ct - u.cross(p) * st + u * (u.dot(p) * (1.0 - ct))
+
+
 # constant axes for make_onb: Python floats keep the cross products'
 # arithmetic identical to the JAX package's full-array constants
 _UP = Vec3(0.0, 1.0, 0.0)

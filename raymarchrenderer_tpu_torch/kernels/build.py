@@ -10,6 +10,14 @@ points of one file) share its library, and a lock per library path lets
 one thread compile it while the others wait and load it.  Nothing is
 compiled or imported from CUDA when this module is imported.
 
+The library directory is the port's compilation cache (the counterpart of
+the JAX package's persistent XLA cache): `set_library_dir` moves it (the
+CLI's `--cache-dir`), `fresh_library_dir` points it at a new temporary
+directory, so nvcc runs again (`--no-cache`); no environment variable
+moves it.  `CudaKernel.launch` runs inside a `torch.profiler`
+`record_function` span named after the entry point, so a profiler trace
+names the launches made through ctypes.
+
 Numerics flags: `--fmad=false` keeps every multiply and add separately
 rounded, as in the plain PyTorch versions, and fast math stays off (so
 `sqrtf` and `/` are correctly rounded).  `-Xptxas -v` makes every build
@@ -18,15 +26,19 @@ report each kernel's registers and spills (`CudaKernel.build_log`,
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
 import re
 import shutil
 import subprocess
+import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -35,6 +47,35 @@ BUILD_DIR = _PKG.parent / "build" / _PKG.name
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+
+
+_library_dir = None      # None: BUILD_DIR
+
+
+def library_dir() -> Path:
+    """Where the kernels' libraries are built and loaded from."""
+    return BUILD_DIR if _library_dir is None else _library_dir
+
+
+def set_library_dir(path) -> Path:
+    """Build into and load from `path` (None: the default `BUILD_DIR`);
+    returns the previous setting, for the caller to restore."""
+    global _library_dir
+    previous = _library_dir
+    _library_dir = None if path is None else Path(path)
+    return previous
+
+
+@contextlib.contextmanager
+def fresh_library_dir():
+    """Build into a new temporary directory for the block and remove it
+    at the end (a library already loaded in this process stays loaded)."""
+    with tempfile.TemporaryDirectory(prefix="rmr-kernels-") as tmp:
+        previous = set_library_dir(tmp)
+        try:
+            yield Path(tmp)
+        finally:
+            set_library_dir(previous)
 
 
 _LOCKS_GUARD = threading.Lock()
@@ -125,7 +166,7 @@ class CudaKernel:
         for header in sorted(self.source.parent.glob("*.cuh")):
             h.update(header.name.encode() + header.read_bytes())
         h.update(" ".join(NVCC_FLAGS).encode())
-        return BUILD_DIR / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
+        return library_dir() / f"{self.source.stem}-{h.hexdigest()[:16]}.so"
 
     def build(self):
         """Compile (if needed) and load; returns the ctypes function."""
@@ -147,7 +188,9 @@ class CudaKernel:
         return fn
 
     def launch(self, *args) -> None:
-        err = self.build()(*args)
+        fn = self.build()
+        with torch.profiler.record_function(self.entry):
+            err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: CUDA error {err}")
         self.launches += 1

@@ -298,7 +298,7 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
               px, py, sample, channels: Vec3, direct_light: bool = False,
               differentiable: bool = False, defer_sky: bool = False,
               march_impl: str = "oracle", recorded=None,
-              work: dict = None) -> Vec3:
+              work: dict = None, check=None) -> Vec3:
     """Gen-1 `trace` over planes of rays: the colour of each lane's path
     (throughput times the sky on a miss, plus the NEE radiance).  With
     `defer_sky=True` a miss multiplies by zero instead, and the return is
@@ -317,7 +317,9 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
     the oracle march, gains the map evaluations a one-thread-per-path
     kernel makes: "march" (steps of live lanes, shadow rays included) and
     "shade" (hits shaded: `normal_taps` evaluations each, 2 for the exact
-    gradient; the march returns the material)."""
+    gradient; the march returns the material).  `check(stage, bounce,
+    value)`, when given, sees each bounce's march t ("march t"), normal
+    ("normal") and shaded colour ("shade colour"): `utils.guards`."""
     if march_impl == "recorded" and recorded is None:
         raise ValueError("march_impl='recorded' needs recorded planes")
     march_fn, shadow_march = _march_fns(scene, params, cfg, march_impl,
@@ -348,6 +350,10 @@ def trace_rgb(scene: Scene, params, cfg: RenderConfig, eye: Vec3, d0: Vec3,
         rng = RNGStream(cfg.seed, px, py, sample, b)
         s = scene.shade(params, ShadeCtx(o, d, t, hitp, inside, normal,
                                          channels, rng), mid)
+        if check is not None:
+            check("march t", b, t)
+            check("normal", b, normal)
+            check("shade colour", b, s.color)
         hit_active = active & hitm
         miss_active = active & ~hitm
         if work is not None:
@@ -398,7 +404,8 @@ _CHANNELS = ((1.0, 0.0, 0.0), (0.0, 1.0, 0.0), (0.0, 0.0, 1.0))
 
 
 def _trace_channels(scene, params, cfg, eye, d, px, py, sample,
-                    direct_light, differentiable, march_impl, recorded):
+                    direct_light, differentiable, march_impl, recorded,
+                    check=None):
     """One `trace_rgb` of white paths, or, with `cfg.separate_channels`
     (dispersion, `RayMarch.glsl:580-598`), the sum of three one-channel
     traces drawing the streams sample * 4 + channel + 1, each replaying
@@ -408,7 +415,8 @@ def _trace_channels(scene, params, cfg, eye, d, px, py, sample,
         return trace_rgb(scene, params, cfg, eye, d, px, py, sample,
                          _full3(shape, d.x.device, (1.0, 1.0, 1.0)),
                          direct_light, differentiable,
-                         march_impl=march_impl, recorded=recorded)
+                         march_impl=march_impl, recorded=recorded,
+                         check=check)
     total = _zeros3(shape, d.x.device)
     for ci, mask in enumerate(_CHANNELS):
         rec_ci = (None if recorded is None
@@ -416,7 +424,7 @@ def _trace_channels(scene, params, cfg, eye, d, px, py, sample,
         total = total + trace_rgb(
             scene, params, cfg, eye, d, px, py, sample * 4 + (ci + 1),
             _full3(shape, d.x.device, mask), direct_light, differentiable,
-            march_impl=march_impl, recorded=rec_ci)
+            march_impl=march_impl, recorded=rec_ci, check=check)
     return total
 
 
@@ -448,7 +456,8 @@ def spp_rays(cfg: RenderConfig, corners, origin_xy, patch_shape, sample0,
 def render_patch(scene: Scene, params, cfg: RenderConfig, corners,
                  origin_xy, patch_shape, sample, direct_light: bool = False,
                  differentiable: bool = False,
-                 march_impl: str = "oracle", defer_sky: bool = False):
+                 march_impl: str = "oracle", defer_sky: bool = False,
+                 check=None):
     """One sample of the (ph, pw) patch at `origin_xy` = (x, y) of the
     frame, as a Vec3 of (ph, pw) planes on the corners' device.  The RNG
     is keyed on absolute pixel coordinates, so any patching of the frame
@@ -457,11 +466,12 @@ def render_patch(scene: Scene, params, cfg: RenderConfig, corners,
     `defer_sky=True` returns (colour, miss throughput, miss direction) as
     `trace_rgb(defer_sky=True)` does; with `cfg.separate_channels` the
     colour sums the three channel paths and the miss Vec3s hold each
-    path's event on a leading axis of 3 (channel R, G, B)."""
+    path's event on a leading axis of 3 (channel R, G, B).  `check` is
+    `trace_rgb`'s (colour renders only)."""
     if not defer_sky:
         return render_patch_spp(scene, params, cfg, corners, origin_xy,
                                 patch_shape, sample, 1, direct_light,
-                                differentiable, march_impl)
+                                differentiable, march_impl, check=check)
     if march_impl == "recorded":
         raise ValueError("defer_sky renders; the recorded replay evaluates "
                          "its sky in place")
@@ -491,7 +501,8 @@ def render_patch_spp(scene: Scene, params, cfg: RenderConfig, corners,
                      origin_xy, patch_shape, sample0, n_samples: int,
                      direct_light: bool = False,
                      differentiable: bool = False,
-                     march_impl: str = "oracle", recorded=None) -> Vec3:
+                     march_impl: str = "oracle", recorded=None,
+                     check=None) -> Vec3:
     """The per-pixel SUM of samples `sample0 .. sample0 + n_samples - 1`
     of a (ph, pw) patch, traced at once: the sample axis is folded into
     the rows, so every plane is (n_samples * ph, pw) and every march
@@ -511,20 +522,22 @@ def render_patch_spp(scene: Scene, params, cfg: RenderConfig, corners,
                                       patch_shape, sample0, n_samples=S,
                                       direct_light=direct_light)
     c = _trace_channels(scene, params, cfg, eye, d, px, py, sample,
-                        direct_light, differentiable, march_impl, recorded)
+                        direct_light, differentiable, march_impl, recorded,
+                        check=check)
     return Vec3(*(v.reshape(S, ph, pw).sum(0) for v in c))
 
 
 def render_sample(scene: Scene, params, cfg: RenderConfig, corners, sample,
                   direct_light: bool = False,
-                  differentiable: bool = False) -> Vec3:
+                  differentiable: bool = False, check=None) -> Vec3:
     """One full-frame sample (all pixels, 1 spp), the body of one
     `Graphics::Render` dispatch (`Graphics.cpp:314-354`) without tiling;
     with `cfg.separate_channels` the sum of the three channel paths, which
-    draw the streams sample * 4 + channel + 1."""
+    draw the streams sample * 4 + channel + 1.  `check(stage, bounce,
+    value)` sees every bounce's stages, as in `trace_rgb`."""
     return render_patch(scene, params, cfg, corners, (0, 0),
                         (cfg.height, cfg.width), sample, direct_light,
-                        differentiable)
+                        differentiable, check=check)
 
 
 def accumulate(accum, color: Vec3, n):

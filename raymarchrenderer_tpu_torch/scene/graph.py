@@ -71,6 +71,13 @@ class ObjectDef:
     distance: Any = 0                  # register key of the distance output
 
 
+@dataclasses.dataclass(frozen=True)
+class Light:
+    """A sphere light of NEE / soft shadows (an extension of the
+    reference): its index into the `lights` parameters."""
+    index: int
+
+
 def _as_param(value) -> np.ndarray:
     if isinstance(value, (list, tuple)):
         return np.asarray(value, np.float32)

@@ -137,7 +137,13 @@ def test_port_imports_no_jax():
             "raymarchrenderer_tpu_torch.render.tiles, "
             "raymarchrenderer_tpu_torch.utils, "
             "raymarchrenderer_tpu_torch.utils.metrics, "
-            "raymarchrenderer_tpu_torch.utils.parity; "
+            "raymarchrenderer_tpu_torch.utils.parity, "
+            "raymarchrenderer_tpu_torch.utils.profiling, "
+            "raymarchrenderer_tpu_torch.utils.guards, "
+            "raymarchrenderer_tpu_torch.app.viewer, "
+            "raymarchrenderer_tpu_torch.app.bench, "
+            "raymarchrenderer_tpu_torch.core, "
+            "raymarchrenderer_tpu_torch.core.color; "
             "assert 'jax' not in sys.modules, 'jax imported'; "
             "assert not any(m.startswith('raymarchrenderer_tpu.') "
             "or m == 'raymarchrenderer_tpu' for m in sys.modules)")

@@ -88,7 +88,7 @@ def test_env_map_with_a_builtin_is_dropped(tmp_path):
     sky = _sky(tmp_path / "sky.hdr")
     args = tcli.build_parser().parse_args(
         ["render", "--scene", "sphere_on_floor", "--env-map", sky])
-    assert not tcli._build_scene(args).has_env_map
+    assert not tcli.build_scene(args.scene, args.env_map).has_env_map
     outs = []
     for extra in ([], ["--env-map", sky]):
         out = tmp_path / f"o{len(outs)}.npy"
