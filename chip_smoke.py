@@ -203,6 +203,24 @@ Phases (any failure raises and the script exits non-zero):
      `checked_render_sample` on the card at 64^2 (clean parameters pass,
      NaN parameters raise); the phase's seconds (readings in
      smoke_out/frontends.json);
+  4d. the device layout (`parallel/`) on virtual positions of the one card
+     (a mesh of cuda:0 repeated: its positions run one after the other,
+     so each time is what splitting costs on one card, never a multi-card
+     speed-up), each sharded render beside one launch, the kernel's
+     launch counter zeroed just before: the spectral main path (1024^2,
+     128 spp) on (4, 1), byte-equal, and on (2, 2) within the kernel bar;
+     csg --direct-light 1024^2 at 8 spp and at 5 (the spp remainder) on
+     (2, 2) within the NEE bar; default.scene under the gradient sky on
+     (2, 1), byte-equal (deferred launches only); the merge and the gather
+     timed; the recorded train steps, RGB and spectral, at 256^2 on (2, 2)
+     against (1, 1) (one recorder launch a position; loss to rtol 1e-5,
+     gradients to 1e-3 * max|g|); `render_elastic` over `fused_shard_fn`
+     at 1024^2, 128 spp in 16 shards with a dead shard (120 samples, the
+     exact mean of the other 15) and a transient one (byte-equal); and
+     two child processes (this script, `--gloo-worker`) on gloo sharing
+     cuda:0, each rendering its tile of the spectral main path, rank 0's
+     gathered frame byte-equal to this process's (2, 2) render, each
+     child under a time limit (readings in smoke_out/parallel.json);
   5. perf — each kernel and its plain version at 1024^2 with 8 samples per
      launch (the CLI's default chunk), the RGB kernel at 128, and both
      render kernels at 128 with the exact normal, one
@@ -224,6 +242,8 @@ readings go to smoke_out/.
 
     python3 chip_smoke.py --frontends           # build the render
                                                 # kernels, phase 4c alone
+    python3 chip_smoke.py --parallel            # build the render kernels
+                                                # and recorders, 4d alone
     python3 chip_smoke.py --kernel-times        # build, counts, times,
                                                 # digests; no plain version
     python3 chip_smoke.py --kernel-times --only march_fused,wavefront_paths
@@ -3801,6 +3821,367 @@ def frontends_phase(dev, card, sky_path):
     return readings
 
 
+# ---- 4d. the device layout: sharded renders, train steps, elastic, gloo ----
+
+# Every layout here is virtual positions on the one card: the positions of
+# a mesh run one after the other on cuda:0, so a sharded render's seconds
+# are what splitting costs on one card, never a multi-card speed-up.
+_PAR_SPP = 128                # the renders' samples (the main paths')
+_SHARD_SPP = 8                # render_elastic's samples a shard
+
+def _layout(dev, tile, spp):
+    from raymarchrenderer_tpu_torch.parallel.sharding import (ShardConfig,
+                                                              make_mesh)
+    return make_mesh(ShardConfig(tile, spp), [dev] * (tile * spp))
+
+
+def _split_compare(label, got, want, nee=False):
+    """A sharded image against the one launch: byte-equal, or the kernel
+    bar (with NEE the NEE bar); returns (byte_equal, max abs err, fraction
+    off by more than 1e-5)."""
+    diff = (got - want).abs()
+    frac = float((diff > PIX_TOL).float().mean())
+    frac3 = float((diff > 1e-3).float().mean())
+    equal = bool(torch.equal(got, want))
+    ok = bool(torch.isfinite(got).all()) and (
+        frac3 < MAX_FRAC_OFF and bool(torch.allclose(got, want, rtol=5e-3,
+                                                     atol=1e-3))
+        if nee else frac < MAX_FRAC_OFF)
+    if not ok or tuple(got.shape) != tuple(want.shape):
+        raise AssertionError(f"parallel, {label}: off the one launch "
+                             f"(fraction {frac}, max {float(diff.max())})")
+    return equal, float(diff.max()), frac
+
+
+def _sharded_case(label, card, kernel, one_fn, split_fn, layout, launches,
+                  byte_equal, nee=False):
+    """One sharded render against the one launch: the launches of
+    `kernel` in the sharded call, the bar, both times (host clock,
+    synchronised; each call once before, untimed)."""
+    one_fn()
+    split_fn()
+    one, one_s = _timed(one_fn)
+    kernel.launches = 0
+    got, split_s = _timed(split_fn)
+    n = kernel.launches
+    equal, err, frac = _split_compare(label, got, one, nee)
+    print(f"parallel, {label} on {layout}: {n} launches, {split_s:.3f} s "
+          f"against one launch's {one_s:.3f} s; byte-equal {equal}, max abs "
+          f"err {err:.3e}, fraction off by > {PIX_TOL:g} {frac:.3e} "
+          f"[{card}]", flush=True)
+    if n != launches or (byte_equal and not equal):
+        raise AssertionError(f"parallel, {label}: {n} launches (want "
+                             f"{launches}), byte-equal {equal}")
+    return {"layout": list(layout), "launches": n, "seconds": split_s,
+            "one_launch_seconds": one_s, "byte_equal": equal,
+            "max_abs_err": err, "frac_off": frac}
+
+
+def _merge_gather_ms(dev, card):
+    """The merge of four 512 x 1024 partial sums (a (2, 2) layout of the
+    1024^2 frame) and the gather of the merged frame to the host, by CUDA
+    events (mean of 5)."""
+    from raymarchrenderer_tpu_torch.parallel import sharding
+    cfg = _main_cfg()
+    h, w = cfg.height // 2, cfg.width
+    mesh = _layout(dev, 2, 2)
+    parts = {(ti, si): torch.rand((h, w, 3), device=dev)
+             for ti in range(2) for si in range(2)}
+    merge = _cuda_ms(lambda: sharding._merge(parts, mesh, cfg, h, dev), 5)
+    img = sharding._merge(parts, mesh, cfg, h, dev)
+    gather = _cuda_ms(lambda: sharding.gather_image(img), 5)
+    print(f"parallel, merge of 4 partial sums (2, 2) {w}x{cfg.height}: "
+          f"{merge:.3f} ms; gather to the host {gather:.3f} ms [{card}]",
+          flush=True)
+    return {"merge_ms": merge, "gather_ms": gather}
+
+
+def _parallel_train(dev, card, tmp):
+    """The recorded train steps at 256^2, 4 samples, on (2, 2) against
+    (1, 1): RGB (sphere_on_floor toward its render with the radius x
+    1.05) and spectral (toward the band edge at 620 nm); one recorder
+    launch per position, the loss to rtol 1e-5 and each gradient leaf to
+    1e-3 * max|g| (the card's gradient bar)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.parallel import sharding
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    from raymarchrenderer_tpu_torch.scene import builtin, param_leaves
+
+    cfg = _train_cfg(256)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    rgb_target = os.path.join(tmp, "rgb.npy")
+    _write_target(rgb_target, dev, "sphere_on_floor", 256, False,
+                  lambda t: t["objects"][1][1])
+    spec_target = os.path.join(tmp, "spectral.npy")
+    _write_spectral_target(spec_target, dev, 256)
+    scene = builtin.sphere_on_floor()
+    params = scene.init_params(dev)
+    sscene, sparams, mats = spectral_demo(dev)
+    cases = {
+        "rgb": (march.RECORD_PATHS, lambda mesh: sharding.train_grads_sharded(
+            scene, params, cfg, corners,
+            torch.from_numpy(np.load(rgb_target)).to(dev), TRAIN_SPP,
+            march_impl="recorded", mesh=mesh)),
+        "spectral": (march.RECORD_SPECTRAL,
+                     lambda mesh: sharding.train_grads_spectral_sharded(
+                         sscene, sparams, mats, cfg, corners,
+                         torch.from_numpy(np.load(spec_target)).to(dev),
+                         TRAIN_SPP, march_impl="recorded", mesh=mesh))}
+    readings = {}
+    for name, (kernel, step) in cases.items():
+        step(None)               # untimed: the first step's set-up
+        kernel.launches = 0
+        (loss1, *g1), one_s = _timed(lambda: step(None))
+        one_launches = kernel.launches
+        kernel.launches = 0
+        (loss, *g), split_s = _timed(lambda: step(_layout(dev, 2, 2)))
+        launches = kernel.launches
+        flat1 = [x for tree in g1 for x in param_leaves(tree)]
+        flat = [x for tree in g for x in param_leaves(tree)]
+        rel = max((float((a - b).abs().max()) / max(float(b.abs().max()),
+                                                    1e-30)
+                   for a, b in zip(flat, flat1) if b.numel()), default=0.0)
+        moved = sum(int(float(b.abs().max()) > 0) for b in flat1 if b.numel())
+        loss_rel = abs(float(loss) - float(loss1)) / abs(float(loss1))
+        print(f"parallel, train {name} 256x256 @ {TRAIN_SPP} spp, recorded, "
+              f"(2, 2) against (1, 1): {launches} recorder launches "
+              f"(against {one_launches}), step {split_s:.3f} s against "
+              f"{one_s:.3f} s; loss {float(loss):.9e} against "
+              f"{float(loss1):.9e} (rel {loss_rel:.3e}); gradients within "
+              f"{rel:.3e} of max|g| per leaf, {moved} leaves non-zero "
+              f"[{card}]", flush=True)
+        if (launches != 4 or one_launches != 1 or loss_rel > 1e-5
+                or rel > 1e-3 or moved == 0
+                or not all(bool(torch.isfinite(x).all()) for x in flat)):
+            raise AssertionError(f"parallel, train {name}")
+        readings[f"train_{name}"] = {
+            "launches": launches, "one_position_launches": one_launches,
+            "seconds": split_s, "one_position_seconds": one_s,
+            "loss": float(loss), "one_position_loss": float(loss1),
+            "loss_rel": loss_rel, "grad_rel": rel}
+    return readings
+
+
+def _elastic(dev, card):
+    """`render_elastic` over `fused_shard_fn`: sphere_on_floor 1024^2, 128
+    spp in 16 shards of 8.  A shard that always fails is dropped (120
+    samples arrive, and the image is the exact mean of the 15 other
+    shards' sums, added on the host in order); a shard that fails once is
+    retried and the image is byte-equal to the clean run's."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.parallel.recovery import (
+        fused_shard_fn, render_elastic)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    scene = builtin.sphere_on_floor()
+    cfg, spp, k = _main_cfg(), _PAR_SPP, _SHARD_SPP
+    h, w = cfg.height, cfg.width
+    run = fused_shard_fn(scene, scene.init_params(dev), cfg,
+                         Camera(aspect=1.0).corner_rays_flat(dev))
+    sums = {}
+
+    def kept(s0, n):
+        out = run(s0, n)
+        sums[s0] = out.cpu().numpy()
+        return out
+
+    march.MEGA_PATHS.launches = 0
+    clean, clean_s = _timed(lambda: render_elastic(kept, h, w, spp, k))
+    launches = march.MEGA_PATHS.launches
+    dead = 5 * k
+
+    def always(s0, n):
+        if s0 == dead:
+            raise RuntimeError("injected: the shard's card is gone")
+        return run(s0, n)
+
+    dropped, dropped_s = _timed(lambda: render_elastic(always, h, w, spp,
+                                                       k))
+    manual = np.zeros((h, w, 3), np.float32)
+    for s0 in range(0, spp, k):
+        if s0 != dead:
+            manual += sums[s0]
+    exact_mean = bool(np.array_equal(dropped.image, manual / (spp - k)))
+    calls = {"n": 0}
+
+    def once(s0, n):
+        if s0 == dead and calls["n"] == 0:
+            calls["n"] += 1
+            raise RuntimeError("injected: a transient failure")
+        return run(s0, n)
+
+    retried, retried_s = _timed(lambda: render_elastic(once, h, w, spp, k))
+    equal = bool(np.array_equal(retried.image, clean.image))
+    n = spp // k
+    print(f"parallel, render_elastic over fused_shard_fn {w}x{h} @ {spp} "
+          f"spp in {n} shards: clean {launches} launches, {clean_s:.3f} s; "
+          f"a dead shard dropped: spp_achieved {dropped.spp_achieved}, "
+          f"{len(dropped.failures)} failures, the exact mean of {n - 1} "
+          f"shards: {exact_mean}, {dropped_s:.3f} s; a transient failure "
+          f"retried: byte-equal {equal}, {retried_s:.3f} s [{card}]",
+          flush=True)
+    if (launches != n or dropped.spp_achieved != spp - k or not exact_mean
+            or dropped.dropped_shards != [dead] or not equal
+            or retried.spp_achieved != spp or len(retried.failures) != 1):
+        raise AssertionError("parallel, render_elastic")
+    return {"launches": launches, "clean_s": clean_s,
+            "dropped_spp_achieved": dropped.spp_achieved,
+            "dropped_exact_mean": exact_mean, "retried_byte_equal": equal}
+
+
+GLOO_TIMEOUT_S = 240      # each child's limit; a collective's is 120 s
+
+
+def _gloo_worker(rank: int, port: int, out: str) -> int:
+    """One of the two ranks of `_gloo_children`: gloo over localhost on
+    the shared cuda:0 (each collective staged through host memory), a
+    (2, 2) layout of 2 positions a rank, the spectral main path's render
+    gathered to rank 0 (saved as .npy)."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.parallel import multihost, sharding
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    dev = torch.device("cuda", 0)
+    if not multihost.init(f"127.0.0.1:{port}", 2, rank, backend="gloo",
+                          timeout_s=120):
+        raise AssertionError("gloo worker: one process")
+    mesh = sharding.make_mesh(sharding.ShardConfig(2, 2), [dev, dev])
+    scene, params, mats = spectral_demo(dev)
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    img = sharding.render_sharded_spectral(scene, params, mats, _main_cfg(),
+                                           corners, _PAR_SPP, mesh=mesh)
+    full = multihost.gather_to_host0(img)
+    if rank == 0:
+        np.save(os.path.join(out, "gather.npy"), full)
+    print(f"GLOO_OK rank {rank} launches {march.MEGA_SPECTRAL.launches} "
+          f"ranks {mesh.ranks}", flush=True)
+    multihost.shutdown()
+    return 0
+
+
+def _gloo_children(dev, card, tmp):
+    """Two child processes on gloo sharing cuda:0 (NCCL refuses two ranks
+    on one card), each rendering its tile of the spectral main path
+    (1024^2, 128 spp, (2, 2)); rank 0's gathered frame held to this
+    process's render of the same layout byte for byte.  A child that
+    fails or outlives GLOO_TIMEOUT_S fails the run."""
+    import socket
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.parallel import sharding
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--gloo-worker",
+         str(rank), str(port), tmp], stdout=subprocess.PIPE,
+        stderr=subprocess.STDOUT, text=True, cwd=_ROOT) for rank in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=GLOO_TIMEOUT_S)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    secs = time.perf_counter() - t0
+    rcs = [p.returncode for p in procs]
+    if rcs != [0, 0] or not all("GLOO_OK" in o for o in outs):
+        raise AssertionError(f"parallel, gloo children: exit codes {rcs}:\n"
+                             + "\n---\n".join(outs))
+    scene, params, mats = spectral_demo(dev)
+    want = sharding.render_sharded_spectral(
+        scene, params, mats, _main_cfg(),
+        Camera(aspect=1.0).corner_rays_flat(dev), _PAR_SPP,
+        mesh=_layout(dev, 2, 2))
+    got = np.load(os.path.join(tmp, "gather.npy"))
+    equal = bool(np.array_equal(got, want.cpu().numpy()))
+    lines = [ln for o in outs for ln in o.splitlines()
+             if ln.startswith("GLOO_OK")]
+    print(f"parallel, two gloo processes on cuda:0, spectral 1024x1024 @ "
+          f"128 spp on (2, 2): {'; '.join(lines)}; rank 0's gathered frame "
+          f"byte-equal to one process: {equal}; {secs:.1f} s with the "
+          f"children's start [{card}]", flush=True)
+    if not equal:
+        raise AssertionError("parallel, gloo children: the gathered frame")
+    return {"seconds": secs, "byte_equal": equal, "workers": lines}
+
+
+def parallel_phase(dev, card):
+    """Phase 4d: the device layout on virtual positions of cuda:0, each
+    result on a `parallel, ...` line (readings in smoke_out/parallel.json).
+    The sharded renders against one launch (tile-only layouts byte-equal,
+    an spp axis within the kernel bar, with NEE the NEE bar), the recorded
+    train steps on (2, 2) against (1, 1), `render_elastic` with injected
+    failures, and two gloo processes sharing the card."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.parallel import sharding
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    from raymarchrenderer_tpu_torch.scene import builtin
+
+    t0 = time.perf_counter()
+    cfg = _main_cfg()
+    size = f"{cfg.width}x{cfg.height}"
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    readings = {}
+    scene, params, mats = spectral_demo(dev)
+
+    def spectral(mesh):
+        return lambda: sharding.render_sharded_spectral(
+            scene, params, mats, cfg, corners, _PAR_SPP, mesh=mesh)
+
+    for layout, equal in (((4, 1), True), ((2, 2), False)):
+        readings[f"spectral {layout}"] = _sharded_case(
+            f"spectral {size} @ {_PAR_SPP} spp", card, march.MEGA_SPECTRAL,
+            spectral(None), spectral(_layout(dev, *layout)), layout, 4,
+            equal)
+    csg = builtin.csg_demo()
+    csg_params = csg.init_params(dev)
+    for spp, launches in ((8, 4), (5, 6)):
+        def nee(mesh, spp=spp):
+            return lambda: sharding.render_sharded(
+                csg, csg_params, cfg, corners, spp, direct_light=True,
+                impl="fused", mesh=mesh)
+        readings[f"csg_nee {spp} spp"] = _sharded_case(
+            f"csg --direct-light {size} @ {spp} spp", card,
+            march.MEGA_PATHS, nee(None), nee(_layout(dev, 2, 2)), (2, 2),
+            launches, False, nee=True)
+    env = _env_scene()
+    env_params = env.init_params(dev)
+
+    def sky(mesh):
+        return lambda: sharding.render_sharded(
+            env, env_params, cfg, corners, _PAR_SPP, impl="fused", mesh=mesh)
+    march.MEGA_PATHS.launches = 0
+    readings["env (2, 1)"] = _sharded_case(
+        f"default.scene, gradient sky, {size} @ {_PAR_SPP} spp", card,
+        march.MEGA_PATHS_DEFER, sky(None), sky(_layout(dev, 2, 1)), (2, 1),
+        2 * -(-_PAR_SPP // 32), True)
+    if march.MEGA_PATHS.launches:
+        raise AssertionError("parallel: the env scene launched the "
+                             "constant-sky kernel")
+    readings.update(_merge_gather_ms(dev, card))
+    with tempfile.TemporaryDirectory() as tmp:
+        readings.update(_parallel_train(dev, card, tmp))
+        readings["elastic"] = _elastic(dev, card)
+        readings["gloo"] = _gloo_children(dev, card, tmp)
+    readings["seconds"] = time.perf_counter() - t0
+    print(f"parallel: phase 4d in {readings['seconds']:.1f} s [{card}]",
+          flush=True)
+    _log_json("parallel", readings)
+    return readings
+
+
 def main(argv=None) -> int:
     import argparse
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
@@ -3814,6 +4195,11 @@ def main(argv=None) -> int:
     ap.add_argument("--frontends", action="store_true",
                     help="build the render kernels and run phase 4c (the "
                     "frontends) alone")
+    ap.add_argument("--parallel", action="store_true",
+                    help="build the render kernels and the recorders and "
+                    "run phase 4d (the device layout) alone")
+    ap.add_argument("--gloo-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
+                    help=argparse.SUPPRESS)
     ap.add_argument("--sweep-min-blocks", metavar="N,N,...",
                     help="time the kernels built with each launch bound in "
                     "the list, each source's bound on its own (a "
@@ -3829,6 +4215,9 @@ def main(argv=None) -> int:
         print("chip_smoke: torch.cuda.is_available() is false; this needs a "
               "CUDA card", file=sys.stderr)
         return 2
+    if opts.gloo_worker:
+        rank, port, out = opts.gloo_worker
+        return _gloo_worker(int(rank), int(port), out)
     dev = torch.device("cuda", 0)
     card = _card()
     print(card, flush=True)     # nvidia-smi's name, power.limit
@@ -3857,12 +4246,19 @@ def main(argv=None) -> int:
     only = opts.only.split(",") if opts.only else None
     if opts.frontends:
         only = ["mega_paths", "mega_spectral", "mega_paths_defer"]
+    if opts.parallel:
+        only = ["mega_paths", "mega_spectral", "mega_paths_defer",
+                "record_paths", "record_spectral"]
     with ThreadPoolExecutor(1) as pool:
         built = pool.submit(build_kernels, card, only)
         profile = (None if opts.frontends or opts.kernel_times
-                   else profile_phase(dev, card))
+                   or opts.parallel else profile_phase(dev, card))
         built.result()
     native_s = native_phase(card)
+    if opts.parallel:
+        parallel_phase(dev, card)
+        print(partial("parallel"))
+        return 0
     if opts.frontends:
         with tempfile.TemporaryDirectory() as tmp:
             from raymarchrenderer_tpu_torch.io import save_hdr
@@ -3992,6 +4388,10 @@ def main(argv=None) -> int:
     # render --metrics --profile, the NaN guard
     frontends_phase(dev, card, sky_path)
     tmp_dir.cleanup()
+
+    # 4d. the device layout: sharded renders and train steps on virtual
+    # positions of the card, render_elastic, two gloo processes
+    parallel_phase(dev, card)
 
     # 5. perf
     perf(dev, card)

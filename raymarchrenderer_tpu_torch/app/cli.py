@@ -325,7 +325,8 @@ def load_target(path: str):
 
 def cmd_train(args):
     """Inverse rendering: fit every scene parameter to a target image by
-    SGD through the differentiable render (`parallel.sharding`), write the
+    SGD through the differentiable render (`parallel.sharding`, over the
+    layout of `--device`'s devices, `_train_mesh`), write the
     fitted leaves (npz, `leaf{i}` in the JAX package's leaf order) and a
     PNG of the final render.  `--impl auto` records each step's marches
     with the recording megakernel; `fused` marches every bounce with
@@ -347,6 +348,7 @@ def cmd_train(args):
     if args.steps < 1:
         raise SystemExit("--steps must be >= 1")
     device = _device("cpu" if args.cpu else args.device)
+    mesh = _train_mesh(device)
     scene = build_scene(args.scene, args.env_map)
     params = scene.init_params(device)
     cfg = _config(args)
@@ -360,8 +362,8 @@ def cmd_train(args):
     march_impl = {"auto": "recorded", "fused": "fused",
                   "oracle": "oracle"}[args.impl]
     if args.spectral:
-        return _train_spectral(args, device, scene, params, cfg, corners,
-                               target, march_impl)
+        return _train_spectral(args, device, mesh, scene, params, cfg,
+                               corners, target, march_impl)
     impl = "oracle" if args.impl == "oracle" else "fused"
     render_kernel = MEGA_PATHS_DEFER if scene.has_env_map else MEGA_PATHS
     kernels = {"recorded": (RECORD_PATHS,), "fused": (MARCH_FUSED,),
@@ -376,14 +378,16 @@ def cmd_train(args):
         t0 = time.perf_counter()
         loss, grads = train_grads_sharded(
             scene, params, cfg, corners, target, spp=args.spp,
-            direct_light=args.direct_light, march_impl=march_impl)
+            direct_light=args.direct_light, march_impl=march_impl,
+            mesh=mesh)
         params = sgd(params, grads, args.lr)
         loss_f = float(loss)            # waits for the device
         if k % max(1, args.steps // 10) == 0 or k == args.steps - 1:
             print(f"step {k:4d} loss {loss_f:.6f} "
                   f"({time.perf_counter() - t0:.3f} s)", flush=True)
     img = render_sharded(scene, params, cfg, corners, spp=args.spp,
-                         direct_light=args.direct_light, impl=impl)
+                         direct_light=args.direct_light, impl=impl,
+                         mesh=mesh)
     out = args.out or "output/fitted_params.npz"
     if not out.endswith(".npz"):
         out += ".npz"
@@ -396,7 +400,23 @@ def cmd_train(args):
     return loss, params, grads, img
 
 
-def _train_spectral(args, device, scene, params, cfg, corners, target,
+def _train_mesh(device):
+    """`train`'s layout, `make_mesh(auto_shard(n))` over the devices of
+    `--device`, as the JAX CLI lays it over `jax.devices()`: "cuda" is
+    every visible card, "cuda:K" and "cpu" one device.  On one card, or
+    on the CPU, it is the one-position layout (1, 1)."""
+    import torch
+
+    from raymarchrenderer_tpu_torch.parallel.sharding import (auto_shard,
+                                                              make_mesh)
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+               if device.type == "cuda" and device.index is None
+               else [device])
+    return make_mesh(auto_shard(len(devices)), devices)
+
+
+def _train_spectral(args, device, mesh, scene, params, cfg, corners, target,
                     march_impl):
     """`train --spectral`: fit the scene parameters (SGD) and the band
     table's rows (a sign step, `parallel.sharding.spectral_update`) to the
@@ -431,7 +451,7 @@ def _train_spectral(args, device, scene, params, cfg, corners, target,
         t0 = time.perf_counter()
         loss, grads, band_grads = train_grads_spectral_sharded(
             scene, params, mats, cfg, corners, target, spp=args.spp,
-            march_impl=march_impl, sample0=k * args.spp)
+            march_impl=march_impl, sample0=k * args.spp, mesh=mesh)
         params, mats = spectral_update(params, mats, grads, band_grads,
                                        args.lr)
         loss_f = float(loss)            # waits for the device
@@ -439,7 +459,7 @@ def _train_spectral(args, device, scene, params, cfg, corners, target,
             print(f"step {k:4d} loss {loss_f:.6f} "
                   f"({time.perf_counter() - t0:.3f} s)", flush=True)
     img = render_sharded_spectral(scene, params, mats, cfg, corners,
-                                  spp=args.spp)
+                                  spp=args.spp, mesh=mesh)
     out = args.out or "output/fitted_params.npz"
     if not out.endswith(".npz"):
         out += ".npz"

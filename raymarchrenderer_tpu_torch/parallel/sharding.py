@@ -1,48 +1,81 @@
-"""Render and train over the device layout: the JAX package's
-`parallel/sharding.py` for one device.
+"""Render and train over a (tile, spp) layout of devices: the JAX
+package's `parallel/sharding.py` for the port.
 
-The JAX package lays a frame over a ('tile', 'spp') mesh (pixel rows x
-sample slices, merged by psum).  This slice ports the one-device layout,
-tile = spp = 1, with the same functions minus the mesh; a `ShardConfig`
-of more devices raises (the sharding slice, ROADMAP Queue 1 item 7).
+The frame splits along two axes (SURVEY.md §5): pixel rows (`tile`: each
+position renders a block of rows_per = ceil(H / tile) rows) and samples
+(`spp`: each position renders its slice [si * spp_per, (si + 1) *
+spp_per) of the sample indices).  The RNG is keyed on absolute (pixel,
+sample) coordinates, so every layout renders the same sample set.  A
+`Mesh` (`make_mesh`) names the device of each position: the visible CUDA
+devices, or an explicit list in which one device may repeat, so that
+several positions run one after the other on it (virtual positions, the
+explicit counterpart of XLA's `--xla_force_host_platform_device_count`).
 
-  * `render_sharded` — the mean image of `spp` samples: the RGB
-    megakernel (`impl="fused"`, one launch) or the oracle;
-  * `train_step_sharded` — one inverse-rendering SGD step: the
-    differentiable render (`render_patch_spp(differentiable=True)`), the
-    pixel L2 loss sum((acc / spp - target)^2) / (H * W * 3), gradients to
-    every parameter leaf by autograd (a leaf the loss does not reach gets
-    zeros), and p - lr * g on every leaf;
-  * `train_grads_sharded` — its loss and gradients, without the update;
-  * `train_loss_sharded` — its forward alone (no graph);
-  * `render_sharded_spectral` — the mean spectral image, one launch of the
-    spectral megakernel;
+  * `render_sharded` — the mean image of `spp` samples: per position one
+    launch of the RGB megakernel (`impl="fused"`, `render_fused_patch`;
+    the plain version on the CPU; an env image through its deferred
+    route) or the oracle (`render_patch` sample by sample), each with
+    `normalize=False`.  Renders pad: a height the tile axis does not
+    divide leaves the last tile fewer rows (pixels are independent, so
+    the kept rows are the bytes of the JAX package's pad-and-crop), and
+    the spp remainder is one extra sample n_spp * spp_per + si on the
+    positions si < spp % n_spp;
+  * `render_sharded_spectral` — the same layout over
+    `render_fused_spectral(origin_xy=..., patch_shape=...)`;
+  * `train_step_sharded` — one inverse-rendering SGD step: per position
+    the differentiable sum of its patch and sample slice
+    (`render_patch_spp(differentiable=True)`, under remat), the pixel L2
+    loss sum((acc / spp - target)^2) / (H * W * 3) of the merged frame,
+    gradients to every parameter leaf by autograd (a leaf the loss does
+    not reach gets zeros), and p - lr * g on every leaf;
+    `train_grads_sharded` is its loss and gradients, `train_loss_sharded`
+    its forward alone.  Train steps do not pad: a height or spp the
+    layout does not divide raises, as in the JAX package;
   * `train_step_spectral_sharded` — one spectral inverse-rendering step
     (`train --spectral`): the soft-band differentiable render
-    (`render_patch_spp_spectral(differentiable=True)`), the same loss, SGD
-    on the scene parameters and a sign step on the band rows (min and max
-    wavelength, power), clamped to the visible range by `_clamp_bands`;
-    split, as the RGB step is, into `train_grads_spectral_sharded`,
-    `train_loss_spectral_sharded` and `spectral_update`.
+    (`render_patch_spp_spectral(differentiable=True)`), the same loss,
+    SGD on the scene parameters and a sign step on the band rows (min and
+    max wavelength, power), clamped to the visible range by
+    `_clamp_bands`; split as the RGB step is into
+    `train_grads_spectral_sharded`, `train_loss_spectral_sharded` and
+    `spectral_update`.
 
-`remat=True` (the default, as in the JAX package) runs the trace under
-`torch.utils.checkpoint`: the backward pass recomputes the shading chain
-from its inputs instead of keeping every intermediate plane.  With
-`march_impl="recorded"` (the train CLI's default) the recorder's banks are
-an input of the checkpointed replay, so the backward pass never relaunches
-the recorder; with "fused" or "oracle" the recomputation marches again.
-`sample0` is always 0 on the RGB path, as in the JAX package; the
-spectral step takes it (the CLI passes k * spp, a fresh sample batch per
-step) and, as in the JAX package, has no remat.
+The merge sums the partial sums of one tile in si order, joins the tiles
+in row order and divides once by spp.  With one sample slice per tile it
+is byte-equal to one launch over the frame; with an spp axis the sum is
+re-associated.  A train step's gradient is that of the merged loss: the
+positions' sums meet in one autograd graph (each position's copy of a
+leaf is a differentiable `.to(device)`), so the gradient is the same for
+every layout.  (The JAX package's sharded step psums gradients that are
+already global, so its update is tile * spp times this one; ROADMAP
+Queue 3.)  With `march_impl="recorded"` (the train CLI's default) each
+position's recorder launch covers only its own patch and slice.
+
+Across processes (`multihost.init`) each rank runs the positions it
+owns; the merge is one all-reduce of the ranks' partial frames, so every
+rank returns the merged frame, and a train step backpropagates the merged
+loss's cotangent through its own sums, then all-reduces the gradients
+once.
+
+`remat=True` (the default, as in the JAX package) runs each position's
+trace under `torch.utils.checkpoint`: the backward pass recomputes the
+shading chain from its inputs instead of keeping every intermediate plane.
+With "recorded" the recorder's banks are an input of the checkpointed
+replay, so the backward pass never relaunches the recorder; with "fused"
+or "oracle" the recomputation marches again.  `sample0` is always 0 on
+the RGB path, as in the JAX package; the spectral step takes it (the CLI
+passes k * spp, a fresh sample batch per step) and has no remat.
 """
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import numpy as np
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from raymarchrenderer_tpu_torch.parallel import multihost
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (render_patch,
                                                           render_patch_spp)
@@ -54,7 +87,7 @@ from raymarchrenderer_tpu_torch.scene.graph import (Scene, param_leaves,
 
 @dataclasses.dataclass(frozen=True)
 class ShardConfig:
-    """How to lay the render over devices: chips along the pixel rows
+    """How to lay the render over devices: positions along the pixel rows
     (`tile`) and along the samples (`spp`)."""
     tile: int = 1
     spp: int = 1
@@ -63,58 +96,296 @@ class ShardConfig:
         return self.tile * self.spp
 
 
-def _one_device(shard: ShardConfig) -> None:
-    if shard.total() != 1:
-        raise NotImplementedError(
-            f"{shard}: only the one-device layout (tile = spp = 1) is ported;"
-            " sharding over devices is a later slice (ROADMAP Queue 1 "
-            "item 7)")
+@dataclasses.dataclass(frozen=True)
+class Mesh:
+    """A (tile, spp) grid of positions: `devices[ti][si]` renders position
+    (ti, si), and `ranks[ti][si]` is the process that owns it (0 in one
+    process); `rank` is this process's."""
+    devices: tuple
+    ranks: tuple
+    rank: int = 0
+
+    @property
+    def shape(self) -> dict:
+        return {"tile": len(self.devices), "spp": len(self.devices[0])}
+
+    def size(self) -> int:
+        return len(self.devices) * len(self.devices[0])
+
+    def local_positions(self) -> list:
+        """[(ti, si, device)] of the positions this process owns, in
+        position order."""
+        return [(ti, si, dev) for ti, row in enumerate(self.devices)
+                for si, dev in enumerate(row)
+                if self.ranks[ti][si] == self.rank]
+
+
+def _visible_devices() -> list:
+    if not torch.cuda.is_available():
+        return []
+    return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
+
+
+def make_mesh(shard: ShardConfig, devices=None) -> Mesh:
+    """The (shard.tile, shard.spp) layout over the first shard.total()
+    devices, rank-major across processes (each rank contributes its
+    `devices`, default the visible CUDA devices).  A device may repeat:
+    its positions run one after the other.  Raises ValueError("need N
+    devices, have M") when there are too few."""
+    if shard.tile < 1 or shard.spp < 1:
+        raise ValueError(f"{shard}: tile and spp must be >= 1")
+    local = (_visible_devices() if devices is None
+             else [torch.device(d) for d in devices])
+    names = multihost.all_gather_object([str(d) for d in local])
+    flat = [(torch.device(d), r) for r, ds in enumerate(names) for d in ds]
+    n = shard.total()
+    if len(flat) < n:
+        raise ValueError(f"need {n} devices, have {len(flat)}")
+    rows = [flat[t * shard.spp:(t + 1) * shard.spp]
+            for t in range(shard.tile)]
+    return Mesh(devices=tuple(tuple(d for d, _ in row) for row in rows),
+                ranks=tuple(tuple(r for _, r in row) for row in rows),
+                rank=multihost.process_index())
+
+
+def auto_shard(n_devices: Optional[int] = None) -> ShardConfig:
+    """Tiles first, a power of two up to 8, and the rest on the spp axis
+    (the JAX package's rule); `n_devices` defaults to the visible CUDA
+    devices of every process."""
+    n = (sum(multihost.all_gather_object(len(_visible_devices())))
+         if n_devices is None else int(n_devices))
+    if n < 1:
+        raise ValueError(f"need 1 device, have {n}")
+    tile = 1
+    while tile * 2 <= n and tile < 8:
+        tile *= 2
+    return ShardConfig(tile=tile, spp=n // tile)
+
+
+def _one_position(mesh: Optional[Mesh], corners) -> Mesh:
+    """`mesh`, or the one-position layout on the corners' device."""
+    if mesh is not None:
+        return mesh
+    return Mesh(devices=((corners.device,),), ranks=((0,),))
+
+
+def _tree_to(tree, device):
+    """`tree` with every leaf on `device` (differentiable copies; the tree
+    itself where every leaf is there already)."""
+    leaves = param_leaves(tree)
+    if all(leaf.device == device for leaf in leaves):
+        return tree
+    return params_replace(tree, [leaf.to(device) for leaf in leaves])
+
+
+def render_replicated_params(scene: Scene, params, mesh: Mesh) -> dict:
+    """{device: params on it} for the devices of this process's positions
+    (the uniform upload, `Graphics.cpp:316-348`): each leaf copied once to
+    each device, and `params` itself where a device holds it already."""
+    out = {}
+    for _, _, dev in mesh.local_positions():
+        if dev not in out:
+            out[dev] = _tree_to(params, dev)
+    return out
+
+
+def _tile_rows(cfg: RenderConfig, rows_per: int, ti: int) -> int:
+    """The rows of tile ti inside the frame (0 past its bottom)."""
+    return max(0, min(rows_per, cfg.height - ti * rows_per))
+
+
+def _merge(parts: dict, mesh: Mesh, cfg: RenderConfig, rows_per: int,
+           device):
+    """This process's (H, W, 3) partial frame: each tile's parts summed
+    in si order, the tiles joined in row order; a tile with no part here
+    is zeros (another rank renders it)."""
+    tiles = []
+    for ti in range(mesh.shape["tile"]):
+        ph = _tile_rows(cfg, rows_per, ti)
+        if ph == 0:
+            break
+        tile = None
+        for si in range(mesh.shape["spp"]):
+            part = parts.get((ti, si))
+            if part is not None:
+                tile = part if tile is None else tile + part
+        if tile is None:
+            tile = torch.zeros((ph, cfg.width, 3), dtype=torch.float32,
+                               device=device)
+        tiles.append(tile)
+    return tiles[0] if len(tiles) == 1 else torch.cat(tiles, 0)
+
+
+def _render_merged(mesh: Mesh, cfg: RenderConfig, corners, spp: int,
+                   launch):
+    """The (H, W, 3) mean over samples 0 .. spp - 1 on the corners'
+    device, merged across processes; `launch(device, corners, origin_xy,
+    patch_shape, sample0, n)` renders one position's raw sum on its
+    device."""
+    if spp < 1:
+        raise ValueError("spp must be >= 1")
+    rows_per = -(-cfg.height // mesh.shape["tile"])
+    n_spp = mesh.shape["spp"]
+    spp_per, spp_rem = divmod(int(spp), n_spp)
+    parts = {}
+    with torch.no_grad():
+        for ti, si, dev in mesh.local_positions():
+            ph = _tile_rows(cfg, rows_per, ti)
+            if ph == 0:
+                continue
+            c = corners.to(dev)
+            origin, patch = (0, ti * rows_per), (ph, cfg.width)
+            acc = None
+            if spp_per:
+                acc = launch(dev, c, origin, patch, si * spp_per, spp_per)
+            if si < spp_rem:
+                extra = launch(dev, c, origin, patch, n_spp * spp_per + si,
+                               1)
+                acc = extra if acc is None else acc + extra
+            if acc is not None:
+                parts[(ti, si)] = acc.to(corners.device)
+        total = _merge(parts, mesh, cfg, rows_per, corners.device)
+        if multihost.process_count() > 1:
+            total = multihost.all_reduce(total)
+    return total / float(spp)
 
 
 def render_sharded(scene: Scene, params, cfg: RenderConfig, corners,
                    spp: int, direct_light: bool = False,
-                   impl: str = "oracle", shard: ShardConfig = ShardConfig()):
+                   impl: str = "oracle", mesh: Optional[Mesh] = None):
     """The (H, W, 3) mean image of samples 0 .. spp - 1 on the corners'
-    device: the sum over samples divided once by spp.  `impl="fused"` is
-    one launch of the RGB megakernel (`render_fused_patch`, the plain
-    version on the CPU); "oracle" sums `render_patch` sample by sample."""
-    _one_device(shard)
-    shape = (cfg.height, cfg.width)
-    with torch.no_grad():
+    device, over `mesh` (default: one position on the corners' device).
+    `impl="fused"` is one `render_fused_patch` launch per position (the
+    RGB megakernel on the card, its plain version on the CPU); "oracle"
+    sums `render_patch` sample by sample."""
+    from raymarchrenderer_tpu_torch.kernels.march import render_fused_patch
+    if impl not in ("fused", "oracle"):
+        raise ValueError(f"impl must be 'fused' or 'oracle', not {impl!r}")
+    mesh = _one_position(mesh, corners)
+    replicas = render_replicated_params(scene, params, mesh)
+
+    def launch(dev, c, origin, patch, s0, n):
+        p = replicas[dev]
         if impl == "fused":
-            from raymarchrenderer_tpu_torch.kernels.march import (
-                render_fused_patch)
-            acc = render_fused_patch(scene, params, cfg, corners, (0, 0),
-                                     shape, 0, n_samples=spp,
-                                     direct_light=direct_light,
-                                     normalize=False)
-        elif impl == "oracle":
-            acc = torch.zeros((*shape, 3), dtype=torch.float32,
-                              device=corners.device)
-            for s in range(spp):
-                acc = acc + render_patch(scene, params, cfg, corners, (0, 0),
-                                         shape, s, direct_light).stack(-1)
-        else:
-            raise ValueError(f"impl must be 'fused' or 'oracle', not {impl!r}")
-    return acc / float(spp)
+            return render_fused_patch(scene, p, cfg, c, origin, patch, s0,
+                                      n_samples=n, direct_light=direct_light,
+                                      normalize=False)
+        acc = torch.zeros((*patch, 3), dtype=torch.float32, device=dev)
+        for s in range(s0, s0 + n):
+            acc = acc + render_patch(scene, p, cfg, c, origin, patch, s,
+                                     direct_light).stack(-1)
+        return acc
+
+    return _render_merged(mesh, cfg, corners, spp, launch)
 
 
-def _render_sum(scene, params, cfg, corners, spp, direct_light, march_impl,
-                remat, recorded=None):
-    """The differentiable (H, W, 3) sum over samples 0 .. spp - 1."""
-    shape = (cfg.height, cfg.width)
+def render_sharded_spectral(scene: Scene, params, mats, cfg: RenderConfig,
+                            corners, spp: int, mesh: Optional[Mesh] = None):
+    """The (H, W, 3) mean spectral image of samples 0 .. spp - 1 over
+    `mesh`: one `render_fused_spectral` launch per position (the spectral
+    megakernel on the card, its plain version on the CPU)."""
+    from raymarchrenderer_tpu_torch.kernels.march import (
+        render_fused_spectral)
+    mesh = _one_position(mesh, corners)
+    replicas = render_replicated_params(scene, params, mesh)
+    tables = {dev: _mats_to(mats, dev) for dev in replicas}
+
+    def launch(dev, c, origin, patch, s0, n):
+        return render_fused_spectral(scene, replicas[dev], tables[dev], cfg,
+                                     c, s0, n_samples=n, origin_xy=origin,
+                                     patch_shape=patch, normalize=False)
+
+    return _render_merged(mesh, cfg, corners, spp, launch)
+
+
+def _mats_to(mats, device) -> SpectralMaterials:
+    return SpectralMaterials(*(_tree_to(list(mats[:3]), device)),
+                             mats.kind.to(device))
+
+
+def gather_image(img) -> np.ndarray:
+    """The image on the host (the `glReadPixels` analogue,
+    `Graphics.cpp:759`); across processes use
+    `multihost.gather_to_host0`."""
+    return np.asarray(img.detach().cpu() if torch.is_tensor(img) else img)
+
+
+# ---- train steps -----------------------------------------------------------
+
+def _train_layout(mesh: Mesh, cfg: RenderConfig, spp: int):
+    """(rows_per, spp_per) of a train step; raises where the layout does
+    not divide the frame and the samples (the JAX package's limit)."""
+    n_tile, n_spp = mesh.shape["tile"], mesh.shape["spp"]
+    if cfg.height % n_tile or spp % n_spp:
+        raise ValueError("height/spp must divide the mesh axes")
+    return cfg.height // n_tile, spp // n_spp
+
+
+def _train_partial(mesh: Mesh, cfg: RenderConfig, corners, spp: int,
+                   trees, recorded, local_sum):
+    """This process's (H, W, 3) partial frame of a train step:
+    `local_sum(*trees on the position's device, corners there, origin_xy,
+    patch_shape, sample offset, n, recorded)` per position, merged."""
+    rows_per, spp_per = _train_layout(mesh, cfg, spp)
+    if recorded is not None and mesh.size() != 1:
+        raise ValueError("recorded banks replay the one-position layout; "
+                         "each position of a larger one records its own")
+    parts = {}
+    for ti, si, dev in mesh.local_positions():
+        local = local_sum(*(_tree_to(t, dev) for t in trees),
+                          corners.to(dev), (0, ti * rows_per),
+                          (rows_per, cfg.width), si * spp_per, spp_per,
+                          recorded)
+        parts[(ti, si)] = local.to(corners.device)
+    return _merge(parts, mesh, cfg, rows_per, corners.device)
+
+
+def _merged_loss(partial, target, spp: int, cfg: RenderConfig):
+    """The loss of the merged frame, without a graph."""
+    if multihost.process_count() > 1:
+        partial = multihost.all_reduce(partial)
+    return _loss(partial, target, spp, cfg)
+
+
+def _loss_and_grads(partial, target, spp: int, cfg: RenderConfig, xs):
+    """(loss, gradients to `xs`, zeros where the loss does not reach one)
+    of the merged frame.  Across processes: the merged frame's cotangent
+    backpropagated through this rank's sums, then one all-reduce of the
+    gradients."""
+    if multihost.process_count() == 1:
+        loss = _loss(partial, target, spp, cfg)
+        grads = torch.autograd.grad(loss, xs, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(x) if g is None else g
+                               for g, x in zip(grads, xs)]
+    total = multihost.all_reduce(partial).requires_grad_(True)
+    loss = _loss(total, target, spp, cfg)
+    (cot,) = torch.autograd.grad(loss, total)
+    grads = (torch.autograd.grad(partial, xs, cot, allow_unused=True)
+             if partial.requires_grad else [None] * len(xs))
+    grads = [torch.zeros_like(x) if g is None else g
+             for g, x in zip(grads, xs)]
+    flat = multihost.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
+    sizes = [g.numel() for g in grads]
+    return loss.detach(), [f.reshape(g.shape).to(g.dtype) for f, g in
+                           zip(torch.split(flat, sizes), grads)]
+
+
+def _render_sum(scene, params, cfg, corners, origin_xy, patch_shape,
+                sample0, n, direct_light, march_impl, remat, recorded=None):
+    """The differentiable (ph, pw, 3) sum over samples sample0 .. sample0
+    + n - 1 of one position's patch."""
     if march_impl == "recorded" and recorded is None:
         # the recorder runs once, outside the checkpointed replay
         from raymarchrenderer_tpu_torch.kernels.record import (
             trace_record_fused)
-        recorded = trace_record_fused(scene, params, cfg, corners, (0, 0),
-                                      shape, 0, n_samples=spp,
+        recorded = trace_record_fused(scene, params, cfg, corners, origin_xy,
+                                      patch_shape, sample0, n_samples=n,
                                       direct_light=direct_light)
 
     def trace(params, recorded):
-        return render_patch_spp(scene, params, cfg, corners, (0, 0), shape,
-                                0, spp, direct_light, differentiable=True,
-                                march_impl=march_impl,
+        return render_patch_spp(scene, params, cfg, corners, origin_xy,
+                                patch_shape, sample0, n, direct_light,
+                                differentiable=True, march_impl=march_impl,
                                 recorded=recorded).stack(-1)
 
     if remat and torch.is_grad_enabled():
@@ -137,43 +408,50 @@ def _check_target(target, cfg: RenderConfig, corners):
                          f"{corners.device}")
 
 
+def _rgb_local_sum(scene, cfg, direct_light, march_impl, remat):
+    def local_sum(params, corners, origin, patch, s0, n, recorded):
+        return _render_sum(scene, params, cfg, corners, origin, patch, s0, n,
+                           direct_light, march_impl, remat, recorded)
+    return local_sum
+
+
 def train_loss_sharded(scene: Scene, params, cfg: RenderConfig, corners,
                        target, spp: int, direct_light: bool = False,
                        march_impl: str = "oracle",
-                       shard: ShardConfig = ShardConfig(), recorded=None):
+                       mesh: Optional[Mesh] = None, recorded=None):
     """The forward half of `train_step_sharded` alone: the same
     differentiable-mode render and loss, with no graph kept (`recorded`
     as for `train_grads_sharded`)."""
-    _one_device(shard)
     _check_target(target, cfg, corners)
+    mesh = _one_position(mesh, corners)
     with torch.no_grad():
-        acc = _render_sum(scene, params, cfg, corners, spp, direct_light,
-                          march_impl, False, recorded)
-        return _loss(acc, target, spp, cfg)
+        partial = _train_partial(
+            mesh, cfg, corners, spp, (params,), recorded,
+            _rgb_local_sum(scene, cfg, direct_light, march_impl, False))
+        return _merged_loss(partial, target, spp, cfg)
 
 
 def train_grads_sharded(scene: Scene, params, cfg: RenderConfig, corners,
                         target, spp: int, direct_light: bool = False,
                         march_impl: str = "oracle", remat: bool = True,
-                        shard: ShardConfig = ShardConfig(), recorded=None):
+                        mesh: Optional[Mesh] = None, recorded=None):
     """(loss, grads): the loss of `train_step_sharded` and its gradient
     with respect to every leaf of `params`, as a tree of the same
-    structure (zeros where the loss does not reach a leaf).  With
-    `march_impl="recorded"`, `recorded` replays banks recorded already
-    (`kernels.record`) instead of recording them."""
-    _one_device(shard)
+    structure (zeros where the loss does not reach a leaf), on the
+    corners' device.  With `march_impl="recorded"` on the one-position
+    layout, `recorded` replays banks recorded already (`kernels.record`)
+    instead of recording them."""
     _check_target(target, cfg, corners)
+    mesh = _one_position(mesh, corners)
     leaves = [leaf.detach().requires_grad_(True)
               for leaf in param_leaves(params)]
     fit = params_replace(params, leaves)
     with torch.enable_grad():
-        acc = _render_sum(scene, fit, cfg, corners, spp, direct_light,
-                          march_impl, remat, recorded)
-        loss = _loss(acc, target, spp, cfg)
-        grads = torch.autograd.grad(loss, leaves, allow_unused=True)
-    grads = [torch.zeros_like(leaf) if g is None else g
-             for g, leaf in zip(grads, leaves)]
-    return loss.detach(), params_replace(params, grads)
+        partial = _train_partial(
+            mesh, cfg, corners, spp, (fit,), recorded,
+            _rgb_local_sum(scene, cfg, direct_light, march_impl, remat))
+        loss, grads = _loss_and_grads(partial, target, spp, cfg, leaves)
+    return loss, params_replace(params, grads)
 
 
 def sgd(params, grads, lr: float):
@@ -187,34 +465,18 @@ def train_step_sharded(scene: Scene, params, cfg: RenderConfig, corners,
                        target, spp: int, lr: float = 1e-2,
                        direct_light: bool = False,
                        march_impl: str = "oracle", remat: bool = True,
-                       shard: ShardConfig = ShardConfig()):
+                       mesh: Optional[Mesh] = None):
     """One inverse-rendering SGD step: returns (loss, updated params).
 
-    The render is all `spp` samples of the frame in one sample-folded
-    trace (`render_patch_spp`), each march by `march_impl`: "recorded"
-    (one launch of the recording megakernel, then the replay), "fused"
-    (one `march_fused` launch per bounce and per shadow ray) or "oracle"
-    (the plain march)."""
+    Each position renders its rows and samples in one sample-folded trace
+    (`render_patch_spp`), each march by `march_impl`: "recorded" (one
+    launch of the recording megakernel per position, then the replay),
+    "fused" (one `march_fused` launch per bounce and per shadow ray) or
+    "oracle" (the plain march)."""
     loss, grads = train_grads_sharded(scene, params, cfg, corners, target,
                                       spp, direct_light, march_impl, remat,
-                                      shard)
+                                      mesh)
     return loss, sgd(params, grads, lr)
-
-
-def render_sharded_spectral(scene: Scene, params, mats, cfg: RenderConfig,
-                            corners, spp: int,
-                            shard: ShardConfig = ShardConfig()):
-    """The (H, W, 3) mean spectral image of samples 0 .. spp - 1: one
-    `render_fused_spectral` launch of all `spp` samples (the spectral
-    megakernel on the card, its plain version on the CPU), the sum divided
-    once by spp."""
-    from raymarchrenderer_tpu_torch.kernels.march import (
-        render_fused_spectral)
-    _one_device(shard)
-    with torch.no_grad():
-        acc = render_fused_spectral(scene, params, mats, cfg, corners, 0,
-                                    n_samples=spp, normalize=False)
-    return acc / float(spp)
 
 
 def _clamp_bands(minw, maxw, power):
@@ -235,62 +497,65 @@ def _clamp_bands(minw, maxw, power):
     return minw, maxw, lo_hi(power, 1e-4, None)
 
 
-def _spectral_render_sum(scene, params, bands, kind, cfg, corners, spp,
-                         march_impl, soft_edge, sample0, recorded):
-    """The differentiable (H, W, 3) sum over samples sample0 .. sample0 +
-    spp - 1 with the band rows `bands` clamped."""
-    mats = SpectralMaterials(*_clamp_bands(*bands), kind)
-    return render_patch_spp_spectral(
-        scene, params, mats, cfg, corners, (0, 0), (cfg.height, cfg.width),
-        sample0, spp, differentiable=True, march_impl=march_impl,
-        soft_edge=soft_edge, recorded=recorded).stack(-1)
+def _spectral_local_sum(scene, kind, cfg, march_impl, soft_edge, sample0):
+    """A position's differentiable sum over samples sample0 + s0 ..
+    sample0 + s0 + n - 1, with the band rows clamped."""
+    def local_sum(params, bands, corners, origin, patch, s0, n, recorded):
+        mats = SpectralMaterials(*_clamp_bands(*bands),
+                                 kind.to(corners.device))
+        return render_patch_spp_spectral(
+            scene, params, mats, cfg, corners, origin, patch,
+            int(sample0) + s0, n, differentiable=True,
+            march_impl=march_impl, soft_edge=soft_edge,
+            recorded=recorded).stack(-1)
+    return local_sum
 
 
 def train_loss_spectral_sharded(scene: Scene, params, mats, cfg, corners,
                                 target, spp: int,
                                 march_impl: str = "oracle",
                                 soft_edge: float = 8.0, sample0=0,
-                                shard: ShardConfig = ShardConfig(),
-                                recorded=None):
+                                mesh: Optional[Mesh] = None, recorded=None):
     """The forward half of `train_step_spectral_sharded` alone: the same
     render and loss, with no graph kept (`recorded` as for
     `train_grads_spectral_sharded`)."""
-    _one_device(shard)
     _check_target(target, cfg, corners)
+    mesh = _one_position(mesh, corners)
     with torch.no_grad():
-        acc = _spectral_render_sum(scene, params, tuple(mats[:3]), mats.kind,
-                                   cfg, corners, spp, march_impl, soft_edge,
-                                   sample0, recorded)
-        return _loss(acc, target, spp, cfg)
+        partial = _train_partial(
+            mesh, cfg, corners, spp, (params, list(mats[:3])), recorded,
+            _spectral_local_sum(scene, mats.kind, cfg, march_impl, soft_edge,
+                                sample0))
+        return _merged_loss(partial, target, spp, cfg)
 
 
 def train_grads_spectral_sharded(scene: Scene, params, mats, cfg, corners,
                                  target, spp: int,
                                  march_impl: str = "oracle",
                                  soft_edge: float = 8.0, sample0=0,
-                                 shard: ShardConfig = ShardConfig(),
+                                 mesh: Optional[Mesh] = None,
                                  recorded=None):
     """(loss, param grads, band grads): the loss of
     `train_step_spectral_sharded` and its gradient with respect to every
     leaf of `params` (a tree of the same structure, zeros where the loss
     does not reach a leaf) and to the band rows (min_wave, max_wave,
-    power).  With `march_impl="recorded"`, `recorded` replays banks of
-    `kernels.record.trace_record_fused_spectral` recorded already."""
-    _one_device(shard)
+    power).  With `march_impl="recorded"` on the one-position layout,
+    `recorded` replays banks of `kernels.record.trace_record_fused_spectral`
+    recorded already."""
     _check_target(target, cfg, corners)
+    mesh = _one_position(mesh, corners)
     leaves = [leaf.detach().requires_grad_(True)
               for leaf in param_leaves(params)]
     bands = [b.detach().requires_grad_(True) for b in mats[:3]]
     fit = params_replace(params, leaves)
     with torch.enable_grad():
-        acc = _spectral_render_sum(scene, fit, bands, mats.kind, cfg, corners,
-                                   spp, march_impl, soft_edge, sample0,
-                                   recorded)
-        loss = _loss(acc, target, spp, cfg)
-        grads = torch.autograd.grad(loss, leaves + bands, allow_unused=True)
-    grads = [torch.zeros_like(x) if g is None else g
-             for g, x in zip(grads, leaves + bands)]
-    return (loss.detach(), params_replace(params, grads[:len(leaves)]),
+        partial = _train_partial(
+            mesh, cfg, corners, spp, (fit, bands), recorded,
+            _spectral_local_sum(scene, mats.kind, cfg, march_impl, soft_edge,
+                                sample0))
+        loss, grads = _loss_and_grads(partial, target, spp, cfg,
+                                      leaves + bands)
+    return (loss, params_replace(params, grads[:len(leaves)]),
             tuple(grads[len(leaves):]))
 
 
@@ -313,20 +578,20 @@ def train_step_spectral_sharded(scene: Scene, params, mats, cfg, corners,
                                 lr_bands_nm: float = 3.0,
                                 march_impl: str = "oracle",
                                 soft_edge: float = 8.0, sample0=0,
-                                shard: ShardConfig = ShardConfig()):
+                                mesh: Optional[Mesh] = None):
     """One spectral inverse-rendering step: returns (loss, updated params,
     updated `SpectralMaterials`).
 
-    The render is all `spp` samples from `sample0` in one sample-folded
-    trace (`render_patch_spp_spectral(differentiable=True)`: the marches
-    carry the implicit-function adjoint, the band filters are soft with
-    edge `soft_edge` nm), each march by `march_impl`: "recorded" (one
-    launch of the spectral recorder, then the replay), "fused" (one
-    `march_fused` launch per bounce) or "oracle".  The fit variables are
-    the scene parameters (SGD) and the band rows (a sign step,
-    `spectral_update`); `kind` stays."""
+    Each position renders its rows and samples (from `sample0`) in one
+    sample-folded trace (`render_patch_spp_spectral(differentiable=True)`:
+    the marches carry the implicit-function adjoint, the band filters are
+    soft with edge `soft_edge` nm), each march by `march_impl`:
+    "recorded" (one launch of the spectral recorder per position, then the
+    replay), "fused" (one `march_fused` launch per bounce) or "oracle".
+    The fit variables are the scene parameters (SGD) and the band rows (a
+    sign step, `spectral_update`); `kind` stays."""
     loss, grads, band_grads = train_grads_spectral_sharded(
         scene, params, mats, cfg, corners, target, spp, march_impl,
-        soft_edge, sample0, shard)
+        soft_edge, sample0, mesh)
     return (loss, *spectral_update(params, mats, grads, band_grads, lr,
                                    lr_bands_nm))

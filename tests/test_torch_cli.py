@@ -122,7 +122,10 @@ def test_port_imports_no_jax():
             "raymarchrenderer_tpu_torch.kernels.record, "
             "raymarchrenderer_tpu_torch.kernels.scene_program, "
             "raymarchrenderer_tpu_torch.diff.march, "
+            "raymarchrenderer_tpu_torch.parallel, "
             "raymarchrenderer_tpu_torch.parallel.sharding, "
+            "raymarchrenderer_tpu_torch.parallel.multihost, "
+            "raymarchrenderer_tpu_torch.parallel.recovery, "
             "raymarchrenderer_tpu_torch.render.integrator, "
             "raymarchrenderer_tpu_torch.io.image, "
             "raymarchrenderer_tpu_torch.render.mega, "

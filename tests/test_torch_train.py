@@ -113,15 +113,6 @@ def test_train_spectral_refused(tmp_path, capsys):
         tcli.main(flags + ["--normal-taps", "5"])
 
 
-def test_other_layouts_refused():
-    ts = tbuiltin.sphere_on_floor()
-    cfg = TCfg(width=8, height=8, max_bounces=2)
-    corners = TCamera().corner_rays_flat("cpu")
-    with pytest.raises(NotImplementedError, match="Queue 1 item 7"):
-        tsharding.render_sharded(ts, ts.init_params("cpu"), cfg, corners, 1,
-                                 shard=tsharding.ShardConfig(tile=2))
-
-
 def test_library_defaults_to_the_card(tmp_path):
     """Without a card the library's defaults raise instead of handing back
     CPU tensors, and `train` without --device fails."""
