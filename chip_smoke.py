@@ -106,7 +106,16 @@ Phases (any failure raises and the script exits non-zero):
          3 beside the times recorded before the redesign, `BEFORE_MS`;
          csg NEE, the SH sky and the exact normal's launches with bounds
          scaled from an 8-sample run of their plain versions, the
-         wavefront recorder's two launches with the parity phase's).
+         wavefront recorder's two launches with the parity phase's);
+       * the shade gate (`gate_phase`, `shade_gate > 0`, which gives
+         gate 0's bytes, so the wrappers launch the one render kernel at
+         any gate): on 128^2 patches at a non-zero origin, 4 samples,
+         sphere_on_floor, csg with NEE, dispersion and roulette, the SH
+         sky, the deferred gradient sky and spectral, each wrapper at
+         gates 0.25, 1, 32 and 1e9 launches its kernel and gives the
+         gate-0 launch's bytes, and at gate 1 meets the kernel's bar
+         against its plain version at gate 1 (readings in
+         smoke_out/gates.json).
      Bars: without NEE the JAX package's kernel bar, fewer than 1e-3 of the
      values off by more than 1e-5; with NEE its NEE bar, fewer than 1e-3
      off by more than 1e-3 and rtol 5e-3 / atol 1e-3.  Banks and march
@@ -244,6 +253,8 @@ readings go to smoke_out/.
                                                 # kernels, phase 4c alone
     python3 chip_smoke.py --parallel            # build the render kernels
                                                 # and recorders, 4d alone
+    python3 chip_smoke.py --gates               # build the render kernels,
+                                                # the gate phase alone
     python3 chip_smoke.py --kernel-times        # build, counts, times,
                                                 # digests; no plain version
     python3 chip_smoke.py --kernel-times --only march_fused,wavefront_paths
@@ -260,7 +271,10 @@ paths (each shading kernel's with a `normal_taps_0` note: its
 exact-normal patch's max error, times and bound, and its launches on the
 exact-normal main path where one runs it; march_fused's with a
 `train_step` note: the 8 launches of one `train --impl fused` step, their
-ms, bound and max abs error against the plain march); the last line is
+ms, bound and max abs error against the plain march; the three render
+entries with a `shade_gate` note: the gate phase's wrapper ms on its
+patch at each gate, and at gate 1 the plain version's ms and the max abs
+error against it); the last line is
 {"ok": true, "device": {...}}.  A run with a mode flag checks only that
 mode and ends in {"ok": true, "partial": "<mode>", "device": {...}}.
 Imports nothing of JAX.
@@ -361,11 +375,19 @@ def _main_cfg(**kw):
                         **kw)
 
 
-def _knobs():
+def _launch_knobs():
+    """The production schedule knobs of a kernel launch."""
     from raymarchrenderer_tpu_torch.kernels import march
     return dict(march_unroll=march.DEFAULT_MARCH_UNROLL,
                 lazy_miss=march.DEFAULT_LAZY_MISS,
                 regen_cadence=march.DEFAULT_REGEN_CADENCE)
+
+
+def _knobs(shade_gate=0.0):
+    """The production schedule knobs of a wrapper or a plain version, at
+    gate `shade_gate` (0 unless the gate phase asks: every plain version
+    states its gate, because its work counters move with it)."""
+    return dict(_launch_knobs(), shade_gate=shade_gate)
 
 
 def _mean(c, n):
@@ -374,12 +396,12 @@ def _mean(c, n):
 
 
 def _paths_fns(dev, scene_name, n, origin_xy=(0, 0), patch_shape=None,
-               direct_light=False, **cfg_kw):
+               direct_light=False, shade_gate=0.0, **cfg_kw):
     """(kernel, plain, scene, cfg, params) for the RGB path on a builtin
     scene or a `.scene` file: the wrapper
     on CUDA tensors and the plain version on the same tensors, each
-    returning the (ph, pw, 3) mean over `n` samples from sample 0; `plain`
-    takes an optional work-count dict."""
+    returning the (ph, pw, 3) mean over `n` samples from sample 0, at
+    `shade_gate`; `plain` takes an optional work-count dict."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.render.mega import trace_mega_paths
@@ -396,19 +418,20 @@ def _paths_fns(dev, scene_name, n, origin_xy=(0, 0), patch_shape=None,
     def kernel():
         return march.render_fused_patch(
             scene, params, cfg, corners, origin_xy, (ph, pw), 0,
-            n_samples=n, direct_light=direct_light, **_knobs())
+            n_samples=n, direct_light=direct_light, **_knobs(shade_gate))
 
     def plain(work=None):
         px, py = pixel_grid(pw, ph, dev, origin_xy)
         return _mean(trace_mega_paths(
             scene, params, cfg, corners, px, py, 0, n_samples=n,
             dispersion=cfg.separate_channels, direct_light=direct_light,
-            work=work, **_knobs()), n)
+            work=work, **_knobs(shade_gate)), n)
 
     return kernel, plain, scene, cfg, params
 
 
-def _spectral_fns(dev, n, origin_xy=(0, 0), patch_shape=None, **cfg_kw):
+def _spectral_fns(dev, n, origin_xy=(0, 0), patch_shape=None, shade_gate=0.0,
+                  **cfg_kw):
     """As `_paths_fns`, for the spectral path on spectral_demo()."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
@@ -425,13 +448,14 @@ def _spectral_fns(dev, n, origin_xy=(0, 0), patch_shape=None, **cfg_kw):
     def kernel():
         return march.render_fused_spectral(
             scene, params, mats, cfg, corners, 0, n_samples=n,
-            origin_xy=origin_xy, patch_shape=patch_shape, **_knobs())
+            origin_xy=origin_xy, patch_shape=patch_shape,
+            **_knobs(shade_gate))
 
     def plain(work=None):
         px, py = pixel_grid(pw, ph, dev, origin_xy)
         return _mean(trace_mega_spectral(
             scene, params, mats, cfg, corners, px, py, 0, n_samples=n,
-            work=work, **_knobs()), n)
+            work=work, **_knobs(shade_gate)), n)
 
     return kernel, plain, scene, cfg, (params, mats)
 
@@ -1823,7 +1847,7 @@ def _defer_fns(dev, n, **cfg_kw):
     args = (scene, params, cfg, corners, (0, 0), 1024, 1024, 0, n, False)
 
     def kernel():
-        return march._launch_mega_defer(*args, **_knobs())
+        return march._launch_mega_defer(*args, **_launch_knobs())
 
     def plain(work=None):
         if work is None:
@@ -1887,7 +1911,7 @@ def parity_defer(dev, card):
         ncfg = _main_cfg()
         nargs = (nscene, nparams, ncfg, corners, _ENV_PATCH, 256, 256, 0, 8,
                  True)
-        got = march._launch_mega_defer(*nargs, **_knobs())
+        got = march._launch_mega_defer(*nargs, **_launch_knobs())
         want = march._mega_defer_plain(*nargs, **_knobs())
         label = (f"RGB deferred sky + NEE, two-sphere scene 256x256 patch at "
                  f"{_ENV_PATCH}, 8 spp, {gather} composite")
@@ -2420,7 +2444,7 @@ def parity_exact(dev, card, sh_scene_path):
     notes["mega_paths_defer"] = _exact_case(
         f"exact normal, RGB deferred sky, default.scene + gradient env "
         f"{n}x{n} patch at {_WAVE_PATCH}, 8 paths",
-        lambda: march._launch_mega_defer(*eargs, **_knobs()), defer_plain,
+        lambda: march._launch_mega_defer(*eargs, **_launch_knobs()), defer_plain,
         defer_compare, escene, ecfg, in_bytes(escene, eparams),
         n * n * (12 + 16 * 8), card)
     # the RGB wavefront entry: csg with NEE and roulette (its plain
@@ -2552,6 +2576,110 @@ def parity_sized_tables(dev, card):
             got, want))
     print(f"sized tables: every kernel met its bar [{card}]", flush=True)
     return max_err
+
+
+# ---- the shade gate (shade_gate > 0) ---------------------------------------
+
+_GATE_PATCH = (448, 384)      # (x, y) of the gate's 128^2 parity patches
+_GATE_SPP = 4                 # samples of the gate's parity patches
+_GATE_SIZE = 128              # their side
+PATCH_GATES = (0.25, 1.0, 32.0, 1e9)
+PLAIN_GATE = 1.0              # the gate of the plain version's run
+# the renders that take a gate, by the name of their main launch
+_GATED = ("mega_paths", "mega_paths_csg_nee", "mega_paths_sh",
+          "mega_paths_defer", "mega_spectral")
+
+
+def _gate_fns(dev, name, sh_scene_path):
+    """(kernel(g), plain(g), compare, entry) of one render on the gate's
+    patch (`_GATE_SIZE`^2 at `_GATE_PATCH`, `_GATE_SPP` samples; `name`
+    one of `_GATED`): the wrapper and its plain version at gate g, the
+    bar that holds the one against the other, and the kernel entry the
+    wrapper launches."""
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    n, size = _GATE_SPP, _GATE_SIZE
+    patch = (size, size)
+    if name == "mega_spectral":
+        return (lambda g: _spectral_fns(dev, n, _GATE_PATCH, patch,
+                                        shade_gate=g)[0](),
+                lambda g: _spectral_fns(dev, n, _GATE_PATCH, patch,
+                                        shade_gate=g)[1](),
+                _compare, march.MEGA_SPECTRAL)
+    if name == "mega_paths_defer":
+        scene = _env_scene()
+        params = scene.init_params(dev)
+        cfg = _main_cfg()
+        corners = Camera(aspect=1.0).corner_rays_flat(dev)
+
+        def kernel(g):
+            return march.render_fused_patch(
+                scene, params, cfg, corners, _GATE_PATCH, patch, 0,
+                n_samples=n, shade_gate=g, **_launch_knobs())
+
+        def plain(g):
+            raw, banks = march._mega_defer_plain(
+                scene, params, cfg, corners, _GATE_PATCH, size, size, 0, n,
+                False, shade_gate=g, **_launch_knobs())
+            return march.composite_uv(scene, params, raw, banks) / float(n)
+        return kernel, plain, _env_compare, march.MEGA_PATHS_DEFER
+    scene_name, kw, nee = {
+        "mega_paths": ("sphere_on_floor", {}, False),
+        "mega_paths_csg_nee": ("csg_demo", dict(
+            direct_light=True, separate_channels=True, rr_start_bounce=1),
+            True),
+        "mega_paths_sh": (sh_scene_path, {}, False)}[name]
+    return (lambda g: _paths_fns(dev, scene_name, n, _GATE_PATCH, patch,
+                                 shade_gate=g, **kw)[0](),
+            lambda g: _paths_fns(dev, scene_name, n, _GATE_PATCH, patch,
+                                 shade_gate=g, **kw)[1](),
+            lambda label, got, want: _compare(label, got, want, nee=nee),
+            march.MEGA_PATHS)
+
+
+def gate_phase(dev, card, sh_scene_path):
+    """The shade gate of the render megakernels.  Every gate gives gate
+    0's bytes, so the wrappers launch the one render kernel at any gate;
+    on a 128^2 patch at a non-zero origin, 4 samples (sphere_on_floor,
+    csg with NEE, dispersion and roulette, the SH sky, the deferred
+    gradient sky and spectral), each launch at the gates of PATCH_GATES
+    must run the kernel (its entry's count rises by one) and give the
+    gate-0 launch's bytes, and the launch at PLAIN_GATE must meet the
+    kernel's bar against its plain version at that gate.  Each wrapper
+    call after the first (gate 0, a warm-up) and the plain version's are
+    timed once by CUDA events.  Returns {name: note} for the kernels
+    line."""
+    t0 = time.perf_counter()
+    notes = {}
+    for name in _GATED:
+        kernel, plain, compare, entry = _gate_fns(dev, name, sh_scene_path)
+        ref = kernel(0.0)
+        note = notes[name] = {"plain_gate": PLAIN_GATE, "patch_ms": {}}
+        for g in PATCH_GATES:
+            before = entry.launches
+            out = []
+            ms = _cuda_ms_each(lambda: out.append(kernel(g)), 1)[0]
+            same = (entry.launches == before + 1
+                    and torch.equal(out[0], ref))
+            print(f"gate, {name} patch, gate {g:g}: "
+                  f"{'the kernel, byte-equal' if same else 'DIFFERS'} to "
+                  f"gate 0, {ms:.3f} ms [{card}]", flush=True)
+            if not same:
+                raise AssertionError(f"{name} at gate {g:g} is not the "
+                                     "gate-0 launch")
+            note["patch_ms"][f"{g:g}"] = ms
+            if g == PLAIN_GATE:
+                want = []
+                note["patch_plain_ms"] = _cuda_ms_each(
+                    lambda: want.append(plain(g)), 1)[0]
+                note["patch_max_abs_err"] = compare(
+                    f"{name} {_GATE_SIZE}x{_GATE_SIZE} patch at "
+                    f"{_GATE_PATCH}, {_GATE_SPP} spp, gate {g:g}", out[0],
+                    want[0])
+    readings = {"card": card, "s": time.perf_counter() - t0, **notes}
+    print("gates: " + json.dumps(readings), flush=True)
+    _log_json("gates", readings)
+    return notes
 
 
 # ---- each kernel at its main launch, alone ---------------------------------
@@ -4198,6 +4326,9 @@ def main(argv=None) -> int:
     ap.add_argument("--parallel", action="store_true",
                     help="build the render kernels and the recorders and "
                     "run phase 4d (the device layout) alone")
+    ap.add_argument("--gates", action="store_true",
+                    help="build the render kernels and run the shade gate's "
+                    "phase alone")
     ap.add_argument("--gloo-worker", nargs=3, metavar=("RANK", "PORT", "DIR"),
                     help=argparse.SUPPRESS)
     ap.add_argument("--sweep-min-blocks", metavar="N,N,...",
@@ -4246,13 +4377,16 @@ def main(argv=None) -> int:
     only = opts.only.split(",") if opts.only else None
     if opts.frontends:
         only = ["mega_paths", "mega_spectral", "mega_paths_defer"]
+    if opts.gates:
+        only = ["mega_paths", "mega_spectral", "mega_paths_defer"]
     if opts.parallel:
         only = ["mega_paths", "mega_spectral", "mega_paths_defer",
                 "record_paths", "record_spectral"]
     with ThreadPoolExecutor(1) as pool:
         built = pool.submit(build_kernels, card, only)
         profile = (None if opts.frontends or opts.kernel_times
-                   or opts.parallel else profile_phase(dev, card))
+                   or opts.parallel or opts.gates
+                   else profile_phase(dev, card))
         built.result()
     native_s = native_phase(card)
     if opts.parallel:
@@ -4266,6 +4400,14 @@ def main(argv=None) -> int:
             save_hdr(sky_path, gradient_env())
             frontends_phase(dev, card, sky_path)
         print(partial("frontends"))
+        return 0
+    if opts.gates:
+        with tempfile.TemporaryDirectory() as tmp:
+            sh_scene = os.path.join(tmp, "sh.scene")
+            write_sh_scene(sh_scene)
+            gate_phase(dev, card, sh_scene)
+        check_digests(nvcc)
+        print(partial("gates"))
         return 0
     if opts.kernel_times:
         with tempfile.TemporaryDirectory() as tmp:
@@ -4303,6 +4445,7 @@ def main(argv=None) -> int:
     p_err = max(p_err, parity_sized_tables(dev, card))
     times = kernel_times(dev, card, sh_scene, bounds=True)
     _log_json("kernel_times", times)
+    gates = gate_phase(dev, card, sh_scene)
 
     # 4. main paths
     before_main = native_calls()
@@ -4406,11 +4549,14 @@ def main(argv=None) -> int:
         _entry("mega_paths", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395", p_launches,
                p_err, p_ms, p_plain, p_bound,
-               exact_notes["mega_paths"]),
+               exact_notes["mega_paths"], shade_gate={
+                   k: gates[k] for k in ("mega_paths", "mega_paths_csg_nee",
+                                         "mega_paths_sh")}),
         _entry("mega_spectral", "mega_spectral.cu",
                "raymarchrenderer_tpu/kernels/march.py:782", s_launches,
                s_err, s_ms, s_plain, s_bound,
-               exact_notes["mega_spectral"]),
+               exact_notes["mega_spectral"],
+               shade_gate=gates["mega_spectral"]),
         _entry("record_paths", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/record.py:395", r_launches,
                r_err, r_ms, r_plain, r_bound,
@@ -4432,7 +4578,8 @@ def main(argv=None) -> int:
         _entry("mega_paths_defer", "mega_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395 mega+defer_sky",
                d_launches, d_err, d_ms, d_plain, d_bound,
-               exact_notes["mega_paths_defer"]),
+               exact_notes["mega_paths_defer"],
+               shade_gate=gates["mega_paths_defer"]),
         _entry("wavefront_paths", "wavefront_paths.cu",
                "raymarchrenderer_tpu/kernels/march.py:395 wavefront",
                wp_launches, wp_err, wp_ms, wp_plain, wp_bound,

@@ -43,10 +43,18 @@ runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`,
 route and no fallback between the two.  `normal_taps=0` (the exact
 normal) takes each source's exact-normal instantiation, which the entry
 point picks on the host (`grad_map` in csrc/scene_map.cuh).
+
+`shade_gate` (mega mode) is the JAX package's knob that batches the
+shade pass.  Every gate gives gate 0's bytes (`render.mega`), so a CUDA
+tensor launches the one render megakernel, which runs a pass every body,
+at any gate, and the gate moves only the plain version's schedule and
+work counters.  The wavefront modes ignore the gate and the recorders
+run at gate 0, as in the JAX package.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 import time
 
 import numpy as np
@@ -61,7 +69,8 @@ from raymarchrenderer_tpu_torch.kernels.scene_program import (
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import (march, spp_rays,
                                                           trace_rgb)
-from raymarchrenderer_tpu_torch.render.mega import (check_knobs,
+from raymarchrenderer_tpu_torch.render.mega import (check_gate,
+                                                    check_knobs,
                                                     trace_mega_paths,
                                                     trace_mega_spectral)
 from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
@@ -72,6 +81,8 @@ from raymarchrenderer_tpu_torch.scene.graph import Scene
 DEFAULT_MARCH_UNROLL = 32
 DEFAULT_LAZY_MISS = True
 DEFAULT_REGEN_CADENCE = 16
+# the JAX package's default shade gate: one pass every body
+DEFAULT_SHADE_GATE = 0.0
 
 
 class SpecArgs(ctypes.Structure):
@@ -321,7 +332,8 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
                           normalize: bool = True,
                           lazy_miss: bool = DEFAULT_LAZY_MISS,
                           regen_cadence: int = DEFAULT_REGEN_CADENCE,
-                          mode: str = "mega"):
+                          mode: str = "mega",
+                          shade_gate: float = DEFAULT_SHADE_GATE):
     """Gen-3 spectral render of a patch: (ph, pw, 3) float32, the mean over
     `n_samples` samples starting at `sample0` (or the sum with
     `normalize=False`).  `origin_xy` = (x, y) of the patch's top-left pixel
@@ -329,8 +341,11 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     default the whole frame.  `mode="mega"` runs the spectral megakernel
     (per-lane bounces with in-loop sample regeneration);
     `mode="wavefront"` loops `trace_spectral` over the samples (the
-    schedule knobs do not apply)."""
+    schedule knobs do not apply).  `shade_gate` > 0 batches the plain mega
+    schedule's shade pass (`render.mega`; gate 0's bytes, which the
+    kernel renders at any gate)."""
     check_knobs(march_unroll, regen_cadence)
+    check_gate(shade_gate)
     if n_samples < 1:
         raise ValueError("n_samples must be >= 1")
     if mode not in ("mega", "wavefront"):
@@ -355,6 +370,7 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c = trace_mega_spectral(scene, params, mats, cfg, corners, px, py,
                             sample0, n_samples=n_samples,
+                            shade_gate=shade_gate,
                             march_unroll=march_unroll, lazy_miss=lazy_miss,
                             regen_cadence=regen_cadence)
     inv = _inv(n_samples, normalize)
@@ -429,11 +445,13 @@ def _launch_mega_defer(scene, params, cfg, corners, origin_xy, ph, pw,
 
 def _mega_defer_plain(scene, params, cfg, corners, origin_xy, ph, pw,
                       sample0, n_samples, direct_light, march_unroll,
-                      lazy_miss, regen_cadence):
+                      lazy_miss, regen_cadence,
+                      shade_gate=DEFAULT_SHADE_GATE):
     """The plain version of `_launch_mega_defer` (the same returns)."""
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c, banks = trace_mega_paths(
         scene, params, cfg, corners, px, py, sample0, n_samples=n_samples,
+        shade_gate=shade_gate,
         march_unroll=march_unroll, dispersion=cfg.separate_channels,
         direct_light=direct_light, defer_sky=True, lazy_miss=lazy_miss,
         regen_cadence=regen_cadence)
@@ -543,14 +561,15 @@ def wavefront_paths_plain(scene: Scene, params, cfg: RenderConfig, corners,
 
 def _render_deferred(scene, params, cfg, corners, origin_xy, ph, pw,
                      sample0, n_samples, direct_light, mode, march_unroll,
-                     normalize, lazy_miss, regen_cadence):
+                     normalize, lazy_miss, regen_cadence,
+                     shade_gate=DEFAULT_SHADE_GATE):
     """An env-image render: bank-depth chunks of launches, each followed by
     its composite, summed, then divided once by `n_samples` (unless
     `normalize=False`).  The chunk counter runs over paths, 3 per sample
     with dispersion.  Mega mode: K = min(32 // unit, n) * unit paths (whole
     samples), with one tail launch at its own depth for the remainder;
     wavefront mode: K = min(8, n_paths) slots, the last chunk's trailing
-    slots masked by n_valid."""
+    slots masked by n_valid (the wavefront launches take no gate)."""
     unit = 3 if cfg.separate_channels else 1
     n_paths = n_samples * unit
     s0 = int(sample0) * unit
@@ -561,7 +580,8 @@ def _render_deferred(scene, params, cfg, corners, origin_xy, ph, pw,
         chunks = [(s0 + c * k_bank, k_bank) for c in range(n_full)]
         if rem:
             chunks.append((s0 + n_full * k_bank, rem))
-        launch = _launch_mega_defer if cuda else _mega_defer_plain
+        launch = _launch_mega_defer if cuda else functools.partial(
+            _mega_defer_plain, shade_gate=shade_gate)
         total = None
         for start, k in chunks:
             color, banks = launch(scene, params, cfg, corners, origin_xy,
@@ -590,7 +610,8 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
                        march_unroll: int = DEFAULT_MARCH_UNROLL,
                        normalize: bool = True,
                        lazy_miss: bool = DEFAULT_LAZY_MISS,
-                       regen_cadence: int = DEFAULT_REGEN_CADENCE):
+                       regen_cadence: int = DEFAULT_REGEN_CADENCE,
+                       shade_gate: float = DEFAULT_SHADE_GATE):
     """RGB render of a (ph, pw) patch at `origin_xy` = (x, y) of the
     `cfg.width` x `cfg.height` frame: (ph, pw, 3) float32, the mean over
     `n_samples` samples starting at `sample0` (the sum with
@@ -603,8 +624,11 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
 
     `mode`: "mega" (and "auto", as in the JAX package) is the megakernel
     schedule; "wavefront" traces each sample's path to its end, sample
-    after sample (the schedule knobs do not apply)."""
+    after sample (the schedule knobs do not apply).  `shade_gate` > 0
+    batches the plain mega schedule's shade pass (`render.mega`; gate 0's
+    bytes, which the kernel renders at any gate)."""
     check_knobs(march_unroll, regen_cadence)
+    check_gate(shade_gate)
     if n_samples < 1:
         raise ValueError("n_samples must be >= 1")
     if mode == "auto":
@@ -620,7 +644,7 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
         return _render_deferred(scene, params, cfg, corners, origin_xy, ph,
                                 pw, sample0, n_samples, direct_light, mode,
                                 march_unroll, normalize, lazy_miss,
-                                regen_cadence)
+                                regen_cadence, shade_gate)
     if mode == "wavefront":
         fn = _launch_wavefront_paths if cuda else wavefront_paths_plain
         return fn(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
@@ -632,7 +656,8 @@ def render_fused_patch(scene: Scene, params, cfg: RenderConfig, corners,
             regen_cadence)
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c = trace_mega_paths(scene, params, cfg, corners, px, py, sample0,
-                         n_samples=n_samples, march_unroll=march_unroll,
+                         n_samples=n_samples, shade_gate=shade_gate,
+                         march_unroll=march_unroll,
                          dispersion=cfg.separate_channels,
                          direct_light=direct_light, lazy_miss=lazy_miss,
                          regen_cadence=regen_cadence)
@@ -645,13 +670,14 @@ def render_fused(scene: Scene, params, cfg: RenderConfig, corners, sample0,
                  mode: str = "auto",
                  march_unroll: int = DEFAULT_MARCH_UNROLL,
                  lazy_miss: bool = DEFAULT_LAZY_MISS,
-                 regen_cadence: int = DEFAULT_REGEN_CADENCE):
+                 regen_cadence: int = DEFAULT_REGEN_CADENCE,
+                 shade_gate: float = DEFAULT_SHADE_GATE):
     """Full-frame RGB render (the patch at origin (0, 0))."""
     return render_fused_patch(
         scene, params, cfg, corners, (0, 0), (cfg.height, cfg.width),
         sample0, n_samples=n_samples, direct_light=direct_light, mode=mode,
         march_unroll=march_unroll, lazy_miss=lazy_miss,
-        regen_cadence=regen_cadence)
+        regen_cadence=regen_cadence, shade_gate=shade_gate)
 
 
 def render_sample_fused(scene: Scene, params, cfg: RenderConfig, corners,

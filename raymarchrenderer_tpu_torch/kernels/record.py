@@ -148,9 +148,9 @@ def record_plain(scene: Scene, params, cfg: RenderConfig, corners,
     with torch.no_grad():
         _, banks = trace_mega_paths(
             scene, params, cfg, corners, px, py, sample0, n_samples=S,
-            march_unroll=unroll, regen_cadence=cadence, lazy_miss=lazy,
-            dispersion=cfg.separate_channels, direct_light=direct_light,
-            record_banks=True, work=work)
+            shade_gate=0.0, march_unroll=unroll, regen_cadence=cadence,
+            lazy_miss=lazy, dispersion=cfg.separate_channels,
+            direct_light=direct_light, record_banks=True, work=work)
     return fold_banks(banks, cfg.max_bounces, S, ph, pw,
                       bool(cfg.separate_channels))
 
@@ -244,9 +244,9 @@ def record_spectral_plain(scene: Scene, params, mats, cfg: RenderConfig,
     with torch.no_grad():
         _, banks = trace_mega_spectral(
             scene, params, type(mats)(*(m.detach() for m in mats)), cfg,
-            corners, px, py, sample0, n_samples=S, march_unroll=unroll,
-            lazy_miss=lazy, regen_cadence=cadence, record_banks=True,
-            work=work)
+            corners, px, py, sample0, n_samples=S, shade_gate=0.0,
+            march_unroll=unroll, lazy_miss=lazy, regen_cadence=cadence,
+            record_banks=True, work=work)
     return fold_banks(banks, cfg.max_bounces, S, ph, pw, False)
 
 

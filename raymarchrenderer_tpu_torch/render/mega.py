@@ -22,9 +22,16 @@ The first march step is peeled off before the loop, as in the JAX package:
 with `lazy_miss` the positions of the pass boundaries decide which rare
 lanes overshoot `max_dist`, so the peel is part of the semantics.  Every
 random draw is keyed on (seed, px, py, sample, bounce, slot), so a lane's
-paths do not depend on the batch it runs in.  Forward only;
-`shade_gate` is fixed at 0 (an unconditional pass per body; the gate is
-bitwise-invariant in the JAX package).  `with_occupancy` counts, per lane,
+paths do not depend on the batch it runs in.  Forward only.
+`shade_gate` batches the shade pass as the JAX package does: at a gate
+g > 0 a body runs its pass (shade, regen) only when the batch holds
+parked lanes and n_park * g >= n_march in float32, else the parked lanes
+wait for a later body; at g <= 0 every body runs it.  A skipped pass
+delays only the parked lanes' own transitions, each segment starts at a
+pass boundary on the lane's own step count and every draw is keyed on
+(pixel, sample, bounce), so the sums are the same bytes at every gate;
+the work counters (`lane_bodies`, occupancy) are not, so every caller
+states its gate.  `with_occupancy` counts, per lane,
 the march steps it marched and the steps it ran
 (`utils.metrics.mega_occupancy_profile`).
 
@@ -41,7 +48,8 @@ version in the same way.  The RGB schedule's sky is the scene's
 (`Scene.sky`: constant or SH) at each miss, or, with `defer_sky` (env-map
 scenes), a miss parks as `_WAIT_MISS` and the regeneration banks its
 throughput and packed equirect (u, v) at the path's slot for the
-composite outside (`kernels/march.py`).
+composite outside (`kernels/march.py`).  `trace_mega` is its
+single-sample form (gate 1 by default, as in the JAX package).
 """
 from __future__ import annotations
 
@@ -108,6 +116,26 @@ def check_knobs(march_unroll: int, regen_cadence: int) -> None:
         raise ValueError("regen_cadence must divide march_unroll")
 
 
+def check_gate(shade_gate: float) -> None:
+    """A NaN gate never lets a pass run (every comparison is false), so
+    the schedule would not end: refused."""
+    if shade_gate != shade_gate:
+        raise ValueError("shade_gate must not be NaN")
+
+
+def _gate_pass(state, shade_gate: float, marching, parked) -> bool:
+    """Whether a body runs its shade pass: always at a gate <= 0, else
+    when the batch holds parked lanes and n_park * gate >= n_march, the
+    JAX package's float32 test (states in `marching` and `parked`)."""
+    if shade_gate <= 0:
+        return True
+    n_march, n_park = (int(c) for c in torch.stack([
+        sum((state == s).sum() for s in group)
+        for group in (marching, parked)]).tolist())
+    return n_park > 0 and bool(
+        np.float32(n_park) * np.float32(shade_gate) >= np.float32(n_march))
+
+
 class _Lanes:
     """The per-lane carries of the schedule (mutable; each pass rebinds
     fields to new tensors)."""
@@ -119,8 +147,8 @@ class _Lanes:
 
 def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
                         cfg: RenderConfig, corners, px, py, sample0,
-                        n_samples: int = 1, march_unroll: int = 1,
-                        lazy_miss: bool = False,
+                        n_samples: int = 1, shade_gate: float = 0.0,
+                        march_unroll: int = 1, lazy_miss: bool = False,
                         regen_cadence: int = 0, record_banks: bool = False,
                         with_occupancy: bool = False,
                         work: dict = None) -> Vec3:
@@ -150,6 +178,7 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
     render-only counter, as in the JAX package: it refuses
     `record_banks`."""
     check_knobs(march_unroll, regen_cadence)
+    check_gate(shade_gate)
     if record_banks and with_occupancy:
         raise ValueError("record_banks keeps the strict miss schedule "
                          "(occupancy is a render-only knob)")
@@ -314,8 +343,10 @@ def trace_mega_spectral(scene: Scene, params, mats: SpectralMaterials,
                 march_step(st)
         if lazy_miss:
             mark_misses(st)
-        shade(st)
-        regen(st)
+        if _gate_pass(st.state, shade_gate, (_MARCH,),
+                      (_WAIT, _REGEN, _WAIT_MISS)):
+            shade(st)
+            regen(st)
 
     zero = torch.zeros(shape, dtype=torch.float32, device=device)
     izero = torch.zeros(shape, dtype=torch.int32, device=device)
@@ -365,7 +396,8 @@ def pack_uv(d: Vec3) -> torch.Tensor:
 
 def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
                      px, py, sample0, channels: Vec3 = None,
-                     n_samples: int = 1, march_unroll: int = 1,
+                     n_samples: int = 1, shade_gate: float = 32.0,
+                     march_unroll: int = 1,
                      dispersion: bool = False, direct_light: bool = False,
                      record_banks: bool = False, defer_sky: bool = False,
                      lazy_miss: bool = False,
@@ -403,6 +435,7 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     if record_banks and defer_sky:
         raise ValueError("record_banks and defer_sky are exclusive modes")
     check_knobs(march_unroll, regen_cadence)
+    check_gate(shade_gate)
     shape = px.shape
     device = px.device
     zero = torch.zeros(shape, dtype=torch.float32, device=device)
@@ -735,7 +768,9 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
                 march_step(st)
         if lazy_miss:
             mark_misses(st)
-        parked_pass(st)
+        if _gate_pass(st.state, shade_gate, (_MARCH, _SHADOW),
+                      (_WAIT, _REGEN, _WAIT_MISS, _SH_LIT, _SH_OCC)):
+            parked_pass(st)
 
     st = _PathLanes()
     st.o, st.d, st.t = eye, primary(izero), zero
@@ -754,3 +789,15 @@ def trace_mega_paths(scene: Scene, params, cfg: RenderConfig, corners,
     while bool((st.state < _EXH).any()):
         body(st)
     return (st.acc, banks) if record_banks or defer_sky else st.acc
+
+
+def trace_mega(scene: Scene, params, cfg: RenderConfig, corners, px, py,
+               sample, channels: Vec3 = None, shade_gate: float = 1.0,
+               march_unroll: int = 1, direct_light: bool = False) -> Vec3:
+    """One sample per pixel through the RGB schedule: the same bytes as
+    `trace_rgb` on the sample's primary rays (regenerated from the same
+    stream inside)."""
+    return trace_mega_paths(scene, params, cfg, corners, px, py, sample,
+                            channels, n_samples=1, shade_gate=shade_gate,
+                            march_unroll=march_unroll,
+                            direct_light=direct_light)

@@ -225,9 +225,9 @@ def mega_occupancy_profile(scene, params, mats, cfg, corners, sample,
             px, py = pixel_grid(bw, bh, corners.device, (j * bw, i * bh))
             _, m, t = trace_mega_spectral(
                 scene, params, mats, cfg, corners, px, py, sample,
-                n_samples=n_samples, march_unroll=march_unroll,
-                lazy_miss=lazy_miss, regen_cadence=regen_cadence,
-                with_occupancy=True)
+                n_samples=n_samples, shade_gate=0.0,
+                march_unroll=march_unroll, lazy_miss=lazy_miss,
+                regen_cadence=regen_cadence, with_occupancy=True)
             m_tot += float(int(m.sum()))
             t_tot += float(int(t.sum()))
     return {

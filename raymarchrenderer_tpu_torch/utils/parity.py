@@ -7,11 +7,15 @@ and the JAX package's, line for line; `tools/reference_parity.py`
 documents the method (camera recovery, detectors, each era's content
 deltas).  The five gated goldens ship as x4-downscaled (320 x 180) arrays
 with the re-authored `default_parity.scene`, byte-identical copies of the
-JAX package's, under `raymarchrenderer_tpu_torch/data/parity/`, and the
-gates here read those (the JAX package also reads the reference's
-full-resolution BMPs from a source checkout's mount; the port does not,
-so its report's `reference_mount` is always false and its scale at
-least x4).  `run_parity` renders with the port: the RGB kernel
+JAX package's, under `raymarchrenderer_tpu_torch/data/parity/`.  When the
+reference mount is present (`have_reference_mount`: a checkout of the
+reference, "RayMarch Renderer", named by the RAYMARCH_REFERENCE
+environment variable, with the JAX package's layout below it: its 2015
+renders under `output/`, its scene at `data/scenes/default.scene`), the
+full-resolution BMPs and the reference's own scene file are used
+instead, and `run_parity` compares at full resolution by default, as the
+JAX package does from a source checkout.  `run_parity` renders with the
+port: the RGB kernel
 (`kernels.march.render_fused`) in launches of 64 samples on a CUDA card,
 the oracle `render` on the CPU.
 
@@ -41,6 +45,13 @@ import os
 
 import numpy as np
 
+# the reference mount: the JAX package's REF_DIR and REF_SCENE below the
+# reference checkout that RAYMARCH_REFERENCE names (None when it is unset:
+# the port reads nothing outside its package unless told where)
+_REF_ROOT = os.environ.get("RAYMARCH_REFERENCE") or None
+REF_DIR = None if _REF_ROOT is None else os.path.join(_REF_ROOT, "output")
+REF_SCENE = None if _REF_ROOT is None else os.path.join(
+    _REF_ROOT, "data", "scenes", "default.scene")
 _PKG_DATA = os.path.join(os.path.dirname(os.path.dirname(
     os.path.abspath(__file__))), "data")
 _PKG_SCALE = 4  # the packaged goldens are x4-downscaled
@@ -170,18 +181,31 @@ def dist(a, b):
     return float(np.hypot(a[0] - b[0], a[1] - b[1]))
 
 
+def have_reference_mount() -> bool:
+    return (REF_DIR is not None and REF_SCENE is not None
+            and os.path.isdir(REF_DIR) and os.path.exists(REF_SCENE))
+
+
 def load_golden(ref_name: str, f: int):
-    """Golden pixels at downscale f from the packaged x4 array (f below 4
-    is taken as 4; f must be a multiple of 4)."""
-    npz = os.path.join(_PKG_DATA, "parity", ref_name + ".npz")
-    with np.load(npz) as z:
-        ref = z["image"]
-    base = _PKG_SCALE
-    if f < base:
-        f = base
-    if f % base:
-        raise ValueError(f"packaged goldens are x{base}; PARITY_SCALE "
-                         f"must be a multiple of {base}")
+    """Golden pixels at downscale f: the full-resolution BMP when the
+    reference mount holds it, else the packaged x4 array (f below 4 is
+    taken as 4; f must be a multiple of 4)."""
+    bmp = None if REF_DIR is None else os.path.join(REF_DIR,
+                                                     ref_name + ".bmp")
+    if bmp is not None and os.path.exists(bmp):
+        from raymarchrenderer_tpu_torch.io.image import load_bmp
+        ref = load_bmp(bmp)
+        base = 1
+    else:
+        npz = os.path.join(_PKG_DATA, "parity", ref_name + ".npz")
+        with np.load(npz) as z:
+            ref = z["image"]
+        base = _PKG_SCALE
+        if f < base:
+            f = base
+        if f % base:
+            raise ValueError(f"packaged goldens are x{base}; PARITY_SCALE "
+                             f"must be a multiple of {base}")
     k = f // base
     if k > 1:
         H, W = ref.shape[:2]
@@ -192,7 +216,9 @@ def load_golden(ref_name: str, f: int):
 
 
 def scene_path() -> str:
-    # the packaged geometric parity TWIN of the
+    if REF_SCENE is not None and os.path.exists(REF_SCENE):
+        return REF_SCENE
+    # without the mount: the packaged geometric parity TWIN of the
     # reference's default.scene (object layout cited from its map nodes:
     # floor box (0,-1.025,0)x(32,0.05,32), red sphere (-1,0,0) r1,
     # volumeScatter sphere (1,0.1,0) r1, green glass panel box (-4,1,0)
@@ -258,14 +284,26 @@ def gate_one(ref_name: str, ref, ours, spec: dict, f: int = 1) -> dict:
     }
 
 
+def parity_scale() -> int:
+    """The downscale of a parity run: PARITY_SCALE, by default 1 with the
+    reference mount and x4 without it."""
+    mount = have_reference_mount()
+    f = int(os.environ.get("PARITY_SCALE", "1" if mount else str(_PKG_SCALE)))
+    if not mount and f < _PKG_SCALE:
+        # the packaged goldens exist at x4 only: load_golden would clamp
+        # the PIXELS to x4 while gate_one(f=1) kept the full-res budgets,
+        # 4x weaker gates.  Clamp both.
+        f = _PKG_SCALE
+    return f
+
+
 def run_parity(camera=None, out_dir: str = "output",
                device="cuda") -> int:
     """Render the default scene once at the 2015 golden pose and gate
     every entry of GATED_GOLDENS (or the single PARITY_REF), on `device`
     (the card by default).  PARITY_SPP sets the samples (2048 on a card,
-    64 on the CPU), PARITY_SCALE the downscale (x4 by default, a smaller
-    one clamped to x4 for both the pixels and the budgets).  Prints one
-    JSON report line; returns a process exit code (0: every gate
+    64 on the CPU), PARITY_SCALE the downscale (`parity_scale`).  Prints
+    one JSON report line; returns a process exit code (0: every gate
     passes)."""
     import torch
 
@@ -278,12 +316,7 @@ def run_parity(camera=None, out_dir: str = "output",
     device = torch.device(device)
     cuda = device.type == "cuda"
     spp = int(os.environ.get("PARITY_SPP", "2048" if cuda else "64"))
-    f = int(os.environ.get("PARITY_SCALE", str(_PKG_SCALE)))
-    if f < _PKG_SCALE:
-        # the packaged goldens exist at x4 only: load_golden would clamp
-        # the PIXELS to x4 while gate_one(f=1) kept the full-res budgets,
-        # 4x weaker gates.  Clamp both.
-        f = _PKG_SCALE
+    f = parity_scale()
     env_ref = os.environ.get("PARITY_REF")
     if env_ref:
         names = [env_ref]
@@ -329,7 +362,7 @@ def run_parity(camera=None, out_dir: str = "output",
     ok = all(rep["pass"] for rep in reports)
     print(json.dumps({
         "size": [w, h], "spp": int(n), "platform": device.type,
-        "reference_mount": False,
+        "reference_mount": have_reference_mount(),
         "goldens": reports,
         "pass": ok,
     }))

@@ -1139,3 +1139,92 @@ def test_profile_counters_on_the_card_equal_the_cpu(cuda_device):
     for k in prof:
         assert abs(prof[k] - prof_cpu[k]) <= 5e-3 * abs(prof_cpu[k]), k
     assert abs(occ["march_occupancy"] - occ_cpu["march_occupancy"]) <= 2e-3
+
+
+# (scene, direct_light, config extras) of the shade gate's card test
+_GATE_CASES = {
+    "sphere_on_floor": (builtin.sphere_on_floor, False, {}),
+    "csg_dispersion_nee_rr": (builtin.csg_demo, True, dict(
+        separate_channels=True, rr_start_bounce=1)),
+    "env_nee": (lambda: _env_scene("nee"), True, {}),
+    "spectral": (builtin.sphere_on_floor, False, {}),
+}
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("case", list(_GATE_CASES))
+def test_gate_on_the_card_gives_gate_0(cuda_device, case):
+    """`shade_gate` 1 and 32 on the card: the wrapper launches the render
+    megakernel (its launch count rises by one), the same bytes as the
+    gate-0 launch, and the kernel bar (NEE bar with NEE) against the
+    plain version at the same gate, on a patch at a non-zero origin, 3
+    samples, production knobs."""
+    make, nee, extra = _GATE_CASES[case]
+    scene = make()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
+                       max_dist=100.0, relax_omega=2.0,
+                       **{"normal_taps": 4, **extra})
+    corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
+        cuda_device)
+    sched = {k: _PRODUCTION[k] for k in ("lazy_miss", "march_unroll",
+                                         "regen_cadence")}
+    if case == "spectral":
+        mats = band_table(scene, cuda_device)
+        counter = march.MEGA_SPECTRAL
+
+        def kernel(g):
+            return march.render_fused_spectral(
+                scene, params, mats, cfg, corners, 2, n_samples=3,
+                origin_xy=(8, 4), patch_shape=(48, 80), shade_gate=g,
+                **sched)
+
+        def plain(g):
+            px, py = pixel_grid(80, 48, cuda_device, (8, 4))
+            c = trace_mega_spectral(scene, params, mats, cfg, corners, px,
+                                    py, 2, n_samples=3, shade_gate=g,
+                                    **sched).stack(-1)
+            return c * float(np.float32(1.0 / 3.0))
+    elif scene.has_env_map:
+        counter = march.MEGA_PATHS_DEFER
+
+        def kernel(g):
+            return march.render_fused_patch(
+                scene, params, cfg, corners, (8, 4), (48, 80), 2,
+                n_samples=3, direct_light=nee, shade_gate=g, **sched)
+
+        def plain(g):
+            px, py = pixel_grid(80, 48, cuda_device, (8, 4))
+            c, banks = trace_mega_paths(
+                scene, params, cfg, corners, px, py, 2, n_samples=3,
+                shade_gate=g, direct_light=nee, defer_sky=True, **sched)
+            img = march.composite_uv(scene, params, c.stack(-1), list(banks))
+            return img * float(np.float32(1.0 / 3.0))
+    else:
+        counter = march.MEGA_PATHS
+
+        def kernel(g):
+            return march.render_fused_patch(
+                scene, params, cfg, corners, (8, 4), (48, 80), 2,
+                n_samples=3, direct_light=nee, shade_gate=g, **sched)
+
+        def plain(g):
+            px, py = pixel_grid(80, 48, cuda_device, (8, 4))
+            c = trace_mega_paths(scene, params, cfg, corners, px, py, 2,
+                                 n_samples=3, shade_gate=g,
+                                 dispersion=cfg.separate_channels,
+                                 direct_light=nee, **sched).stack(-1)
+            return c * float(np.float32(1.0 / 3.0))
+
+    ref = kernel(0.0)
+    for g in (1.0, 32.0):
+        launches = counter.launches
+        got = kernel(g)
+        torch.cuda.synchronize()
+        assert counter.launches == launches + 1
+        assert torch.equal(got, ref), g
+        want = plain(g).cpu().numpy()
+        if nee:
+            assert_nee_close(want, got.cpu().numpy())
+        else:
+            assert frac_off(want, got.cpu().numpy()) < MAX_FRAC_OFF

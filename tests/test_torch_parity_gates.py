@@ -88,3 +88,82 @@ def test_run_parity_on_the_cpu(tmp_path, monkeypatch, capsys):
         "red_centroid_lt_20px", "green_centroid_in_ref_panel_bbox",
         "green_centroid_lt_150px", "luma_pearson_r_floor"}
     assert (tmp_path / "reference_parity.png").exists()
+
+
+def _mount(tmp_path, monkeypatch, names, shape=(720, 1280)):
+    """A reference mount in `tmp_path` for both packages: the goldens
+    `names` as full-resolution BMPs of seeded pixels under output/, and the
+    packaged parity scene as data/scenes/default.scene; returns the
+    scene's path."""
+    import shutil
+
+    from raymarchrenderer_tpu_torch.io.image import save_bmp
+    out = tmp_path / "output"
+    scenes = tmp_path / "data" / "scenes"
+    out.mkdir()
+    scenes.mkdir(parents=True)
+    rng = np.random.RandomState(3)
+    for n in names:
+        save_bmp(str(out / (n + ".bmp")),
+                 rng.uniform(0.0, 1.0, shape + (3,)).astype(np.float32))
+    scene = scenes / "default.scene"
+    shutil.copy(tpar.scene_path(), scene)
+    for mod in (tpar, jpar):
+        monkeypatch.setattr(mod, "REF_DIR", str(out))
+        monkeypatch.setattr(mod, "REF_SCENE", str(scene))
+    return str(scene)
+
+
+def test_full_resolution_goldens_match_jax(tmp_path, monkeypatch):
+    """With the reference mount, `load_golden` reads the full-resolution
+    BMP (the port's own `io.image.load_bmp`) and downscales it at any
+    factor, as the JAX package's does on the same files; the mount's
+    scene is `scene_path`."""
+    scene = _mount(tmp_path, monkeypatch, _NAMES[:1])
+    assert tpar.have_reference_mount() and jpar.have_reference_mount()
+    assert tpar.scene_path() == jpar.scene_path() == scene
+    for f in (1, 2, 3, 4):
+        got = tpar.load_golden(_NAMES[0], f)
+        assert got.dtype == np.uint8 and got.shape == (720 // f, 1280 // f,
+                                                       3)
+        np.testing.assert_array_equal(got, jpar.load_golden(_NAMES[0], f))
+    # a golden the mount lacks: the packaged x4 array, as in JAX
+    np.testing.assert_array_equal(tpar.load_golden(_NAMES[1], 4),
+                                  jpar.load_golden(_NAMES[1], 4))
+
+
+def test_reference_mount_needs_both_paths(tmp_path, monkeypatch):
+    """`have_reference_mount` is the JAX package's test: the renders'
+    directory and the reference's scene file both present; the parity
+    scale is 1 with the mount by default and at least x4 without it."""
+    import os
+    scene = _mount(tmp_path, monkeypatch, [])
+    monkeypatch.delenv("PARITY_SCALE", raising=False)
+    assert tpar.have_reference_mount() and tpar.parity_scale() == 1
+    monkeypatch.setenv("PARITY_SCALE", "2")
+    assert tpar.parity_scale() == 2
+    os.remove(scene)
+    assert not tpar.have_reference_mount()
+    assert not jpar.have_reference_mount()
+    assert tpar.parity_scale() == 4
+    assert tpar.scene_path().endswith("default_parity.scene")
+    for path in (None, str(tmp_path / "missing")):
+        monkeypatch.setattr(tpar, "REF_DIR", path)
+        assert not tpar.have_reference_mount()
+
+
+def test_run_parity_with_the_mount(tmp_path, monkeypatch, capsys):
+    """`run_parity` with the mount: the full-resolution golden (a small
+    seeded BMP here) at scale 1 by default, the mount's scene, and the
+    report's `reference_mount` true (the report's shape, not its
+    verdict)."""
+    import json
+    _mount(tmp_path, monkeypatch, _NAMES[:1], shape=(36, 64))
+    monkeypatch.setenv("PARITY_SPP", "1")
+    monkeypatch.delenv("PARITY_SCALE", raising=False)
+    monkeypatch.setenv("PARITY_REF", _NAMES[0])
+    rc = tpar.run_parity(out_dir=str(tmp_path), device="cpu")
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert rc == (0 if report["pass"] else 1)
+    assert report["reference_mount"] is True
+    assert report["size"] == [64, 36] and report["goldens"][0]["scale"] == 1
