@@ -38,7 +38,9 @@ them (so the image is byte-equal to that run's), and a checkpoint of
 another scene is refused (`io.checkpoint.SceneMismatchError`).
 `render --metrics PATH` appends the JAX CLI's `render_start` /
 `render_done` JSONL events, `render --profile DIR` writes a
-`torch.profiler` Chrome trace of the render (`utils.profiling.trace_to`).
+`torch.profiler` Chrome trace of the render (`utils.profiling.trace_to`)
+that carries the port's `rmr.*` layer spans (`rmr.scene_buffers`,
+`rmr.pass` of a tiled render) and an `rmr_<entry>` span per kernel launch.
 
 The other verbs of the JAX CLI:
 
@@ -169,8 +171,9 @@ def _add_render_flags(p):
                    help="render: append structured JSONL metrics to this "
                         "file")
     p.add_argument("--profile", default=None,
-                   help="render: write a torch.profiler trace into this "
-                        "directory")
+                   help="render: write a torch.profiler trace, with the "
+                        "rmr.* layer spans and a span per kernel launch, "
+                        "into this directory")
 
 
 def _add_device_flag(p):

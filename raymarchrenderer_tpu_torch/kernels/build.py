@@ -14,9 +14,11 @@ The library directory is the port's compilation cache (the counterpart of
 the JAX package's persistent XLA cache): `set_library_dir` moves it (the
 CLI's `--cache-dir`), `fresh_library_dir` points it at a new temporary
 directory, so nvcc runs again (`--no-cache`); no environment variable
-moves it.  `CudaKernel.launch` runs inside a `torch.profiler`
-`record_function` span named after the entry point, so a profiler trace
-names the launches made through ctypes.
+moves it.  `CudaKernel.launch` runs inside the span
+`utils.profiling.span(entry)`, a `torch.profiler` `record_function` named
+after the entry point while a profiler records (beside the port's `rmr.*`
+layer spans), and a flag check otherwise, so a profiler trace names the
+launches made through ctypes.
 
 Numerics flags: `--fmad=false` keeps every multiply and add separately
 rounded, as in the plain PyTorch versions, and fast math stays off (so
@@ -38,7 +40,7 @@ import threading
 import time
 from pathlib import Path
 
-import torch
+from raymarchrenderer_tpu_torch.utils.profiling import span
 
 _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
@@ -189,7 +191,7 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         fn = self.build()
-        with torch.profiler.record_function(self.entry):
+        with span(self.entry):
             err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: CUDA error {err}")

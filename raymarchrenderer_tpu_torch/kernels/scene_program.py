@@ -49,7 +49,10 @@ every material graph with one stream, so material i draws after the draws
 of materials 0..i-1.
 
 The layout is static per `Scene`; the parameter values are gathered from
-the tensors on the device, so nothing leaves the card.
+the tensors on the device, so nothing leaves the card.  Each of
+`object_buffers`, `spectral_buffers` and `paths_buffers` runs in the
+profiler span `rmr.scene_buffers` (the build and the upload of a launch's
+buffers), its compile of the programs in `rmr.scene_compile` inside it.
 """
 from __future__ import annotations
 
@@ -57,6 +60,7 @@ import torch
 
 from raymarchrenderer_tpu_torch.scene.graph import (_NODE, _PARAM, _POINT,
                                                     _VAR, Scene)
+from raymarchrenderer_tpu_torch.utils.profiling import span
 
 # opcode and arity of each object node, in the kernels' `Op` order
 OPCODES = {
@@ -259,7 +263,10 @@ def _assemble(program, params, device, tail_ints, tail_floats):
 def object_buffers(scene: Scene, params, device):
     """(int32 program, float32 data, dims) of `csrc/march_fused.cu`: the
     object program and the object parameters, no tail."""
-    return _assemble(compile_program(scene), params, device, [], [])
+    with span("rmr.scene_buffers"):
+        with span("rmr.scene_compile"):
+            program = compile_program(scene)
+        return _assemble(program, params, device, [], [])
 
 
 def spectral_buffers(scene: Scene, params, mats, device):
@@ -268,12 +275,15 @@ def spectral_buffers(scene: Scene, params, mats, device):
     n_mats = int(mats.min_wave.shape[0])
     if scene.objects and n_mats == 0:
         raise ValueError("the band table has no rows")
-    kinds = torch.cat([torch.tensor([n_mats], dtype=torch.int32,
-                                    device=device),
-                       mats.kind.to(device=device, dtype=torch.int32)])
-    band = [b.to(device=device, dtype=torch.float32)
-            for b in (mats.min_wave, mats.max_wave, mats.power)]
-    return _assemble(compile_program(scene), params, device, kinds, band)
+    with span("rmr.scene_buffers"):
+        kinds = torch.cat([torch.tensor([n_mats], dtype=torch.int32,
+                                        device=device),
+                           mats.kind.to(device=device, dtype=torch.int32)])
+        band = [b.to(device=device, dtype=torch.float32)
+                for b in (mats.min_wave, mats.max_wave, mats.power)]
+        with span("rmr.scene_compile"):
+            program = compile_program(scene)
+        return _assemble(program, params, device, kinds, band)
 
 
 def _material_code(mat, base_float: int, n_floats: int):
@@ -410,30 +420,34 @@ def paths_buffers(scene: Scene, params, device):
     `csrc/wavefront_paths.cu`: the material program, the light table, the
     sky power and, for an SH sky, its coefficients as the tail (the
     kernels read the lights only with NEE)."""
-    program = compile_program(scene)
-    n_lights = scene.n_lights
-    lights = params["lights"]
-    head = [params["env"]["power"].to(device=device,
-                                      dtype=torch.float32).reshape(1)]
-    if n_lights:
-        pos = lights["pos"].to(device=device, dtype=torch.float32)
-        if tuple(pos.shape) != (n_lights, 3):
-            raise ValueError(f"light positions have shape {tuple(pos.shape)}")
-        head += [pos.reshape(-1)] + [
-            lights[k].to(device=device, dtype=torch.float32).reshape(-1)
-            for k in ("power", "radius")]
-    if sky_kind(scene) == SKY_SH:
-        sh = params["env"]["sh"].to(device=device, dtype=torch.float32)
-        if tuple(sh.shape) != (16, 3):
-            raise ValueError(f"SH coefficients have shape {tuple(sh.shape)}")
-        head.append(sh.reshape(-1))
-    base = 3 * len(program[1]) + sum(int(h.numel()) for h in head)
-    table, instrs, slots, _ = material_program(scene, base)
-    n_mats = len(scene.materials)
-    instr0 = len(program[0]) + 2 + len(table)     # absolute first word
-    for m in range(n_mats):
-        table[_MAT_WORDS * m] += instr0
-    mparams = [_vec3(params["materials"][mi][pi], device,
-                     f"material {mi} parameter {pi}") for mi, pi in slots]
-    return _assemble(program, params, device,
-                     [n_mats, n_lights] + table + instrs, head + mparams)
+    with span("rmr.scene_buffers"):
+        n_lights = scene.n_lights
+        lights = params["lights"]
+        head = [params["env"]["power"].to(device=device,
+                                          dtype=torch.float32).reshape(1)]
+        if n_lights:
+            pos = lights["pos"].to(device=device, dtype=torch.float32)
+            if tuple(pos.shape) != (n_lights, 3):
+                raise ValueError(
+                    f"light positions have shape {tuple(pos.shape)}")
+            head += [pos.reshape(-1)] + [
+                lights[k].to(device=device, dtype=torch.float32).reshape(-1)
+                for k in ("power", "radius")]
+        if sky_kind(scene) == SKY_SH:
+            sh = params["env"]["sh"].to(device=device, dtype=torch.float32)
+            if tuple(sh.shape) != (16, 3):
+                raise ValueError(
+                    f"SH coefficients have shape {tuple(sh.shape)}")
+            head.append(sh.reshape(-1))
+        with span("rmr.scene_compile"):
+            program = compile_program(scene)
+            base = 3 * len(program[1]) + sum(int(h.numel()) for h in head)
+            table, instrs, slots, _ = material_program(scene, base)
+        n_mats = len(scene.materials)
+        instr0 = len(program[0]) + 2 + len(table)     # absolute first word
+        for m in range(n_mats):
+            table[_MAT_WORDS * m] += instr0
+        mparams = [_vec3(params["materials"][mi][pi], device,
+                         f"material {mi} parameter {pi}") for mi, pi in slots]
+        return _assemble(program, params, device,
+                         [n_mats, n_lights] + table + instrs, head + mparams)

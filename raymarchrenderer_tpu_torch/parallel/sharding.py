@@ -65,6 +65,11 @@ replay, so the backward pass never relaunches the recorder; with "fused"
 or "oracle" the recomputation marches again.  `sample0` is always 0 on
 the RGB path, as in the JAX package; the spectral step takes it (the CLI
 passes k * spp, a fresh sample batch per step) and has no remat.
+
+A train step's phases run in profiler spans (`utils.profiling.span`):
+`rmr.forward` (the positions' sums and the loss, the recorder inside it
+in `rmr.record`), `rmr.backward` (the gradients and their all-reduce) and
+`rmr.update` (`sgd`, `spectral_update`).
 """
 from __future__ import annotations
 
@@ -83,6 +88,7 @@ from raymarchrenderer_tpu_torch.render.spectral_integrator import (
     SpectralMaterials, render_patch_spp_spectral)
 from raymarchrenderer_tpu_torch.scene.graph import (Scene, param_leaves,
                                                     params_replace)
+from raymarchrenderer_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,27 +353,36 @@ def _merged_loss(partial, target, spp: int, cfg: RenderConfig):
     return _loss(partial, target, spp, cfg)
 
 
-def _loss_and_grads(partial, target, spp: int, cfg: RenderConfig, xs):
+def _loss_and_grads(mesh: Mesh, cfg: RenderConfig, corners, spp: int,
+                    trees, recorded, local_sum, target, xs):
     """(loss, gradients to `xs`, zeros where the loss does not reach one)
-    of the merged frame.  Across processes: the merged frame's cotangent
-    backpropagated through this rank's sums, then one all-reduce of the
-    gradients."""
-    if multihost.process_count() == 1:
-        loss = _loss(partial, target, spp, cfg)
-        grads = torch.autograd.grad(loss, xs, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(x) if g is None else g
-                               for g, x in zip(grads, xs)]
-    total = multihost.all_reduce(partial).requires_grad_(True)
-    loss = _loss(total, target, spp, cfg)
-    (cot,) = torch.autograd.grad(loss, total)
-    grads = (torch.autograd.grad(partial, xs, cot, allow_unused=True)
-             if partial.requires_grad else [None] * len(xs))
-    grads = [torch.zeros_like(x) if g is None else g
-             for g, x in zip(grads, xs)]
-    flat = multihost.all_reduce(torch.cat([g.reshape(-1) for g in grads]))
-    sizes = [g.numel() for g in grads]
-    return loss.detach(), [f.reshape(g.shape).to(g.dtype) for f, g in
-                           zip(torch.split(flat, sizes), grads)]
+    of the merged frame of `_train_partial(mesh, cfg, corners, spp, trees,
+    recorded, local_sum)`: the forward and the loss in the profiler span
+    `rmr.forward`, the gradients in `rmr.backward`.  Across processes:
+    the merged frame's cotangent backpropagated through this rank's sums,
+    then one all-reduce of the gradients."""
+    with span("rmr.forward"):
+        partial = _train_partial(mesh, cfg, corners, spp, trees, recorded,
+                                 local_sum)
+        total = partial
+        if multihost.process_count() > 1:
+            total = multihost.all_reduce(partial).requires_grad_(True)
+        loss = _loss(total, target, spp, cfg)
+    with span("rmr.backward"):
+        if multihost.process_count() == 1:
+            grads = torch.autograd.grad(loss, xs, allow_unused=True)
+            return loss.detach(), [torch.zeros_like(x) if g is None else g
+                                   for g, x in zip(grads, xs)]
+        (cot,) = torch.autograd.grad(loss, total)
+        grads = (torch.autograd.grad(partial, xs, cot, allow_unused=True)
+                 if partial.requires_grad else [None] * len(xs))
+        grads = [torch.zeros_like(x) if g is None else g
+                 for g, x in zip(grads, xs)]
+        flat = multihost.all_reduce(
+            torch.cat([g.reshape(-1) for g in grads]))
+        sizes = [g.numel() for g in grads]
+        return loss.detach(), [f.reshape(g.shape).to(g.dtype) for f, g in
+                               zip(torch.split(flat, sizes), grads)]
 
 
 def _render_sum(scene, params, cfg, corners, origin_xy, patch_shape,
@@ -378,9 +393,10 @@ def _render_sum(scene, params, cfg, corners, origin_xy, patch_shape,
         # the recorder runs once, outside the checkpointed replay
         from raymarchrenderer_tpu_torch.kernels.record import (
             trace_record_fused)
-        recorded = trace_record_fused(scene, params, cfg, corners, origin_xy,
-                                      patch_shape, sample0, n_samples=n,
-                                      direct_light=direct_light)
+        with span("rmr.record"):
+            recorded = trace_record_fused(
+                scene, params, cfg, corners, origin_xy, patch_shape, sample0,
+                n_samples=n, direct_light=direct_light)
 
     def trace(params, recorded):
         return render_patch_spp(scene, params, cfg, corners, origin_xy,
@@ -447,18 +463,23 @@ def train_grads_sharded(scene: Scene, params, cfg: RenderConfig, corners,
               for leaf in param_leaves(params)]
     fit = params_replace(params, leaves)
     with torch.enable_grad():
-        partial = _train_partial(
+        loss, grads = _loss_and_grads(
             mesh, cfg, corners, spp, (fit,), recorded,
-            _rgb_local_sum(scene, cfg, direct_light, march_impl, remat))
-        loss, grads = _loss_and_grads(partial, target, spp, cfg, leaves)
+            _rgb_local_sum(scene, cfg, direct_light, march_impl, remat),
+            target, leaves)
     return loss, params_replace(params, grads)
 
 
-def sgd(params, grads, lr: float):
-    """p - lr * g on every leaf."""
+def _sgd(params, grads, lr: float):
     return params_replace(params, [
         p.detach() - lr * g for p, g in zip(param_leaves(params),
                                             param_leaves(grads))])
+
+
+def sgd(params, grads, lr: float):
+    """p - lr * g on every leaf (in the profiler span `rmr.update`)."""
+    with span("rmr.update"):
+        return _sgd(params, grads, lr)
 
 
 def train_step_sharded(scene: Scene, params, cfg: RenderConfig, corners,
@@ -549,12 +570,10 @@ def train_grads_spectral_sharded(scene: Scene, params, mats, cfg, corners,
     bands = [b.detach().requires_grad_(True) for b in mats[:3]]
     fit = params_replace(params, leaves)
     with torch.enable_grad():
-        partial = _train_partial(
+        loss, grads = _loss_and_grads(
             mesh, cfg, corners, spp, (fit, bands), recorded,
             _spectral_local_sum(scene, mats.kind, cfg, march_impl, soft_edge,
-                                sample0))
-        loss, grads = _loss_and_grads(partial, target, spp, cfg,
-                                      leaves + bands)
+                                sample0), target, leaves + bands)
     return (loss, params_replace(params, grads[:len(leaves)]),
             tuple(grads[len(leaves):]))
 
@@ -563,14 +582,17 @@ def spectral_update(params, mats, grads, band_grads, lr: float,
                     lr_bands_nm: float = 3.0):
     """(p - lr * g on every scene leaf, the band rows stepped by sign:
     lr_bands_nm nm for min and max, 0.01 * lr_bands_nm for power, then
-    clamped).  A zero gradient moves nothing."""
+    clamped; in the profiler span `rmr.update`).  A zero gradient moves
+    nothing."""
     step = float(np.float32(lr_bands_nm))
     step_p = float(np.float32(0.01) * np.float32(lr_bands_nm))
     g_min, g_max, g_pow = band_grads
-    bands = _clamp_bands(mats.min_wave.detach() - step * torch.sign(g_min),
-                         mats.max_wave.detach() - step * torch.sign(g_max),
-                         mats.power.detach() - step_p * torch.sign(g_pow))
-    return sgd(params, grads, lr), SpectralMaterials(*bands, mats.kind)
+    with span("rmr.update"):
+        bands = _clamp_bands(
+            mats.min_wave.detach() - step * torch.sign(g_min),
+            mats.max_wave.detach() - step * torch.sign(g_max),
+            mats.power.detach() - step_p * torch.sign(g_pow))
+        return _sgd(params, grads, lr), SpectralMaterials(*bands, mats.kind)
 
 
 def train_step_spectral_sharded(scene: Scene, params, mats, cfg, corners,

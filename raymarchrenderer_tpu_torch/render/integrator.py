@@ -508,9 +508,9 @@ def render_patch_spp(scene: Scene, params, cfg: RenderConfig, corners,
     the rows, so every plane is (n_samples * ph, pw) and every march
     covers every sample.  The same sample set as `n_samples` calls of
     `render_patch`.  With `march_impl="recorded"` one launch of the
-    recording megakernel marches every (sample, bounce) first, and
-    `trace_rgb` replays the shading over its banks (`recorded`, when the
-    caller has recorded them already)."""
+    recording megakernel marches every (sample, bounce) first (in the
+    profiler span `rmr.record`), and `trace_rgb` replays the shading over
+    its banks (`recorded`, when the caller has recorded them already)."""
     ph, pw = patch_shape
     S = int(n_samples)
     px, py, sample, eye, d = spp_rays(cfg, corners, origin_xy, patch_shape,
@@ -518,9 +518,11 @@ def render_patch_spp(scene: Scene, params, cfg: RenderConfig, corners,
     if march_impl == "recorded" and recorded is None:
         from raymarchrenderer_tpu_torch.kernels.record import (
             trace_record_fused)
-        recorded = trace_record_fused(scene, params, cfg, corners, origin_xy,
-                                      patch_shape, sample0, n_samples=S,
-                                      direct_light=direct_light)
+        from raymarchrenderer_tpu_torch.utils.profiling import span
+        with span("rmr.record"):
+            recorded = trace_record_fused(
+                scene, params, cfg, corners, origin_xy, patch_shape, sample0,
+                n_samples=S, direct_light=direct_light)
     c = _trace_channels(scene, params, cfg, eye, d, px, py, sample,
                         direct_light, differentiable, march_impl, recorded,
                         check=check)

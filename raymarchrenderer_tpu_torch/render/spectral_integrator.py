@@ -34,6 +34,7 @@ from raymarchrenderer_tpu_torch.render.integrator import (_march_fns,
                                                           get_normal, march,
                                                           spp_rays)
 from raymarchrenderer_tpu_torch.scene.graph import Scene
+from raymarchrenderer_tpu_torch.utils.profiling import span
 
 
 class SpectralMaterials(NamedTuple):
@@ -218,7 +219,8 @@ def render_patch_spp_spectral(scene: Scene, params, mats: SpectralMaterials,
     (`kernels.record.trace_record_fused_spectral`) marches every
     (sample, bounce) first, unless the caller passes its banks as
     `recorded`; `trace_spectral` then replays the band filters and splat
-    over them.  `differentiable=True` is the `train --spectral` forward."""
+    over them (the recorder in the profiler span `rmr.record`).
+    `differentiable=True` is the `train --spectral` forward."""
     ph, pw = patch_shape
     S = int(n_samples)
     px, py, sample, eye, d = spp_rays(cfg, corners, origin_xy, patch_shape,
@@ -226,9 +228,10 @@ def render_patch_spp_spectral(scene: Scene, params, mats: SpectralMaterials,
     if march_impl == "recorded" and recorded is None:
         from raymarchrenderer_tpu_torch.kernels.record import (
             trace_record_fused_spectral)
-        recorded = trace_record_fused_spectral(
-            scene, params, mats, cfg, corners, origin_xy, patch_shape,
-            sample0, n_samples=S)
+        with span("rmr.record"):
+            recorded = trace_record_fused_spectral(
+                scene, params, mats, cfg, corners, origin_xy, patch_shape,
+                sample0, n_samples=S)
     wl, power = trace_spectral(scene, params, mats, cfg, eye, d, px, py,
                                sample, differentiable=differentiable,
                                march_impl=march_impl, soft_edge=soft_edge,

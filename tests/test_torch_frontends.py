@@ -2,7 +2,8 @@
 the camera's interactive operations, the library helpers of the core
 modules (`PixelRNG`, `uniform`, `uniform_hemisphere`, `glossy_sample`,
 `fresnel_schlick`, the CSG and domain operators, `sample_band`,
-`band_filter`, `Light`), `utils/guards` and `utils/profiling`.
+`band_filter`, `Light`) and `utils/guards` (`utils/profiling`'s spans:
+`test_torch_spans.py`).
 
 Bars: integers, bins, selections and decisions bit for bit; `color`
 within 1 ulp of the JAX package where its pow is the last op, 2 where a
@@ -303,7 +304,7 @@ def test_light():
         Light(3).index = 4              # frozen, as the JAX dataclass
 
 
-# -- utils/guards and utils/profiling -----------------------------------------
+# -- utils/guards -------------------------------------------------------------
 
 def _setup():
     from raymarchrenderer_tpu_torch.render.config import RenderConfig
@@ -343,21 +344,3 @@ def test_checked_render_sample_nan_params_raise():
     err, img = checked_render_sample(scene, bad, cfg, corners, 0,
                                      throw=False)
     assert err.startswith("NaN in") and bool(torch.isnan(img).any())
-
-
-def test_timed_block_and_compile_and_steady():
-    from raymarchrenderer_tpu_torch.render.integrator import render_sample
-    from raymarchrenderer_tpu_torch.utils import timed_block
-    from raymarchrenderer_tpu_torch.utils.profiling import compile_and_steady
-    scene, params, cfg, corners = _setup()
-    out = {}
-    with timed_block("render", out):
-        render_sample(scene, params, cfg, corners, 0)
-    with timed_block(result=out):
-        pass
-    assert out["render"] > 0 and out["block"] >= 0
-
-    def fn(p):
-        return render_sample(scene, p, cfg, corners, 0).stack(-1)
-    first_s, steady_s, img = compile_and_steady(fn, params, reps=2)
-    assert img.shape == (32, 32, 3) and first_s > 0 and steady_s > 0
