@@ -183,8 +183,8 @@ Phases (any failure raises and the script exits non-zero):
   4b. the drivers — `ProgressiveRenderer(impl="fused")` through the
      reference's spiral of 16 tiles of 256^2, byte-equal to one full-frame
      launch (sphere_on_floor at 128 spp, csg with NEE at 8) and its
-     `endless_passes(2)` to the running mean of full-frame launches, 16
-     launches a pass; `render --checkpoint` at 64 spp and `--resume --spp
+     `endless_passes(2)` to the running mean of full-frame launches, one
+     launch a pass; `render --checkpoint` at 64 spp and `--resume --spp
      128` through the CLI at 1024^2, --chunk 64, spectral and RGB,
      byte-equal to the uninterrupted run, another scene's checkpoint
      refused; bench.py's work counters (`utils.metrics`
@@ -3400,9 +3400,10 @@ def tiles_phase(dev, card):
     of 16 tiles of 256^2 (a 4 x 4 grid of the 1024^2 frame), each tile's
     samples one launch of the RGB kernel: byte-equal to one full-frame
     `render_fused` launch (sphere_on_floor at 128 spp, csg with NEE at 8),
-    and two endless passes byte-equal to the running mean of two
-    full-frame one-sample launches; 16 launches a pass, the spiral from
-    the native scheduler.  Returns the readings."""
+    16 launches a finite pass, the spiral from the native scheduler; and
+    two endless passes, one full-frame launch each, byte-equal to the
+    running mean of two full-frame one-sample launches.  Returns the
+    readings."""
     from raymarchrenderer_tpu_torch.core.camera import Camera
     from raymarchrenderer_tpu_torch.kernels import march
     from raymarchrenderer_tpu_torch.render.tiles import ProgressiveRenderer
@@ -3455,7 +3456,7 @@ def tiles_phase(dev, card):
     print(f"tiles, endless_passes(2), sphere_on_floor: {launches} launches, "
           f"byte-equal to the running mean of 2 full-frame launches: "
           f"{equal} [{card}]", flush=True)
-    if launches != 32 or not equal:
+    if launches != 2 or not equal:
         raise AssertionError("tiles: endless passes")
     check_native_used("spiral_tiles", before, card, "rmr_spiral_order")
     return readings

@@ -1051,7 +1051,8 @@ def test_render_impl_oracle_on_the_card(cuda_device, tmp_path, spectral):
 def test_tiles_byte_equal_full_frame(cuda_device, nee):
     """`ProgressiveRenderer` ("auto" is the kernel on the card) through a
     4 x 4 spiral of 64^2 tiles, byte-equal to one full-frame launch, and
-    two endless passes to the running mean of two full-frame launches."""
+    two endless passes, one full-frame launch each, to the running mean
+    of two full-frame launches."""
     from raymarchrenderer_tpu_torch.render.tiles import ProgressiveRenderer
     scene = builtin.csg_demo() if nee else builtin.sphere_on_floor()
     params = scene.init_params(cuda_device)
@@ -1067,7 +1068,9 @@ def test_tiles_byte_equal_full_frame(cuda_device, nee):
                               direct_light=nee)
     assert full.mean() > 0.0 and torch.equal(tiled, full)
     pr = ProgressiveRenderer(scene, params, cfg, corners, direct_light=nee)
+    before = march.MEGA_PATHS.launches
     got = pr.endless_passes(2)
+    assert march.MEGA_PATHS.launches == before + 2
     want = torch.zeros_like(got)
     for p in range(2):
         frame = march.render_fused(scene, params, cfg, corners, p,

@@ -9,7 +9,7 @@ train step `rmr.forward` (with `rmr.record` inside it), then
 after its entry point.  With no profiler, `span` hands back one shared
 no-op context manager.
 
-The eight per-layer readers of these spans (`rmbench/metrics/`, loaded
+The nine per-layer readers of these spans (`rmbench/metrics/`, loaded
 by path as the harness loads them) are held to values worked out by hand
 on a small synthetic Chrome trace, with a backward launch on a second
 thread and a recorder span nested in a forward span, and read None on a
@@ -268,6 +268,7 @@ PROGRAM_SPANS = [
 #   3120-3140, 3150-3250) 350 + 120: (1600 - 470) / 2 passes;
 #   scene buffers 300 + 200 us, waits inside 150 + 120;
 #   copies started inside the scene buffers 1 + 2, over 2 launches;
+#   launches 1 + 1 inside the 2 passes;
 #   forward (outside the recorder) 40 + 5 + 60 + 50 us, backward
 #   80 + 3 + 70 + 90 us, over 2 steps; kernels 102, 104, 202 and 105,
 #   107, 203.
@@ -276,6 +277,7 @@ EXPECTED = {
     "scene_buffers_host_ms.preview": (500 - 270) / 2 * 1e-3,
     "scene_upload_wait_ms.preview": 270 / 2 * 1e-3,
     "h2d_copies_per_launch.preview": 3 / 2,
+    "launches_per_pass.preview": 2 / 2,
     "forward_device_ms.train": 155 / 2 * 1e-3,
     "backward_device_ms.train": 243 / 2 * 1e-3,
     "forward_launches_per_step.train": 3 / 2,

@@ -115,6 +115,56 @@ def test_fused_endless_passes_are_the_running_mean_of_launches():
     assert pr.pass_n == 2.0 and torch.equal(got, want)
 
 
+def _count_calls(monkeypatch, module, name):
+    """Replace `module.name` by a wrapper that logs the (origin, shape,
+    first sample, samples) of each call and then makes it."""
+    real, calls = getattr(module, name), []
+
+    def counted(scene, params, cfg, corners, origin, shape, sample0, *a,
+                **k):
+        calls.append((tuple(origin), tuple(shape), int(sample0),
+                      k.get("n_samples", 1)))
+        return real(scene, params, cfg, corners, origin, shape, sample0,
+                    *a, **k)
+    monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+_SMALL = dict(_CFG, width=64, height=32, max_steps=32, max_bounces=2)
+
+
+def _renderer(impl):
+    scene = tbuiltin.sphere_on_floor()
+    return ttiles.ProgressiveRenderer(scene, scene.init_params("cpu"),
+                                      TCfg(**_SMALL), _corners(), impl=impl)
+
+
+def test_fused_endless_pass_is_one_launch_of_the_frame(monkeypatch):
+    from raymarchrenderer_tpu_torch.kernels import march
+    calls = _count_calls(monkeypatch, march, "render_fused_patch")
+    pr = _renderer("fused")
+    seen = []
+    pr.endless_passes(2, callback=lambda p, a: seen.append(p))
+    assert calls == [((0, 0), (32, 64), 0, 1), ((0, 0), (32, 64), 1, 1)]
+    assert seen == [0, 1] and pr.pass_n == 2.0
+
+
+def test_fused_finite_pass_is_one_launch_a_tile(monkeypatch):
+    from raymarchrenderer_tpu_torch.kernels import march
+    calls = _count_calls(monkeypatch, march, "render_fused_patch")
+    _renderer("fused").render_pass(spp=2)
+    assert calls == [((x * 32, y * 16), (16, 32), 0, 2)
+                     for x, y in ttiles.spiral_tiles_py(2, 2)]
+
+
+def test_oracle_endless_pass_walks_the_spiral(monkeypatch):
+    calls = _count_calls(monkeypatch, ttiles, "render_patch")
+    _renderer("oracle").endless_passes(2)
+    order = list(ttiles.spiral_tiles_py(2, 2))
+    assert calls == [((x * 32, y * 16), (16, 32), p, 1)
+                     for p in range(2) for x, y in order]
+
+
 def test_oracle_driver_matches_jax():
     """A finite pass of 2 samples and two endless passes, 64 x 32 on a
     2 x 2 grid, against the JAX package's oracle driver."""
