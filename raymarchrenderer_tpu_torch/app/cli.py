@@ -36,6 +36,12 @@ and seed come from the checkpoint, the spp target from `--spp` (so
 boundaries stay where an uninterrupted run with the same `--chunk` puts
 them (so the image is byte-equal to that run's), and a checkpoint of
 another scene is refused (`io.checkpoint.SceneMismatchError`).
+`render --layout TILExSPP` splits every launch of the fused path over a
+(tile, spp) layout (`parallel.sharding`, each launch of `--chunk` samples
+one sharded frame at its `sample0`): every visible card for `--device
+cuda`, virtual positions of the one device for `cuda:K` and `cpu`;
+without it, `--device cuda` with several visible cards takes `train`'s
+layout, and `cuda:K` and `cpu` one device.
 `render --metrics PATH` appends the JAX CLI's `render_start` /
 `render_done` JSONL events, `render --profile DIR` writes a
 `torch.profiler` Chrome trace of the render (`utils.profiling.trace_to`)
@@ -207,7 +213,10 @@ def cmd_render(args):
     from raymarchrenderer_tpu_torch.io.image import save_image, timestamp_name
     from raymarchrenderer_tpu_torch.kernels.march import (
         MEGA_PATHS, MEGA_PATHS_DEFER, MEGA_SPECTRAL, prepare,
-        render_progressive_fused, render_progressive_fused_spectral)
+        render_progressive, render_progressive_fused,
+        render_progressive_fused_spectral)
+    from raymarchrenderer_tpu_torch.parallel.sharding import (
+        render_sharded, render_sharded_spectral)
     from raymarchrenderer_tpu_torch.render.integrator import render
     from raymarchrenderer_tpu_torch.render.spectral_integrator import (
         band_table, render_spectral)
@@ -236,6 +245,7 @@ def cmd_render(args):
                             scene_digest=digest)
 
     impl = pick_impl(args.impl, device)
+    mesh = _render_mesh(args.layout, device, impl)
     if impl == "fused":
         # nvcc stays out of the render time
         build_s = prepare(device, MEGA_SPECTRAL if args.spectral else (
@@ -244,8 +254,10 @@ def cmd_render(args):
             print(f"kernel built and loaded in {build_s:.3f}s")
     kind = "spectral" if args.spectral else (
         "rgb, env map" if scene.has_env_map else "rgb")
+    where = device if mesh is None else (
+        f"{device}, layout {mesh.shape['tile']}x{mesh.shape['spp']}")
     print(f"rendering {cfg.width}x{cfg.height} @ {cfg.spp} spp "
-          f"({kind}, {device}) with the {impl} path")
+          f"({kind}, {where}) with the {impl} path")
 
     def progress(s, state):
         # after each launch of --chunk samples: checkpoint, then report
@@ -270,7 +282,21 @@ def cmd_render(args):
             from raymarchrenderer_tpu_torch.utils.profiling import trace_to
             stack.enter_context(trace_to(args.profile))
         t0 = time.perf_counter()
-        if args.spectral and impl == "fused":
+        if mesh is not None:
+            mats = band_table(scene, device) if args.spectral else None
+
+            def frame(s, k):
+                if args.spectral:
+                    return render_sharded_spectral(
+                        scene, params, mats, cfg, corners, k, mesh=mesh,
+                        sample0=s)
+                return render_sharded(scene, params, cfg, corners, k,
+                                      direct_light=args.direct_light,
+                                      impl="fused", mesh=mesh, sample0=s)
+            img, n = render_progressive(
+                frame, cfg, corners, spp=spp_left,
+                samples_per_launch=args.chunk, callback=progress, **resume)
+        elif args.spectral and impl == "fused":
             img, n = render_progressive_fused_spectral(
                 scene, params, band_table(scene, device), cfg, corners,
                 spp=spp_left, samples_per_launch=args.chunk,
@@ -401,6 +427,38 @@ def cmd_train(args):
     save_image(png, img.cpu().numpy())
     print(f"saved {out} and {png} (final loss {loss_f:.6f})")
     return loss, params, grads, img
+
+
+def _render_mesh(layout, device, impl):
+    """`render`'s layout, None for the one-device path: `--layout TxS`
+    over `--device`'s devices (every visible card for "cuda", else the one
+    device repeated: virtual positions, run one after the other), or
+    `train`'s rule (`_train_mesh`) for "cuda" with more than one visible
+    card.  A layout takes the fused path."""
+    import torch
+
+    from raymarchrenderer_tpu_torch.parallel.sharding import (ShardConfig,
+                                                              make_mesh)
+    cards = device.type == "cuda" and device.index is None
+    if layout is None:
+        if not cards or torch.cuda.device_count() < 2 or impl != "fused":
+            return None
+        return _train_mesh(device)
+    try:
+        tile, spp = (int(v) for v in layout.lower().split("x"))
+    except ValueError:
+        raise SystemExit(f"--layout {layout}: expected TILExSPP, such as "
+                         "2x2") from None
+    if impl != "fused":
+        raise SystemExit("--layout renders through the fused path: use "
+                         "--impl fused (or auto on a card)")
+    devices = ([torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())] if cards
+               else [device] * (tile * spp))
+    try:
+        return make_mesh(ShardConfig(tile, spp), devices)
+    except ValueError as e:
+        raise SystemExit(f"--layout {layout}: {e}") from None
 
 
 def _train_mesh(device):
@@ -612,6 +670,13 @@ def build_parser() -> argparse.ArgumentParser:
                          "on the CPU); oracle: the plain wavefront "
                          "integrators; auto: fused on a card, oracle on "
                          "the CPU")
+    pr.add_argument("--layout", default=None, metavar="TILExSPP",
+                    help="split each launch over a (tile, spp) layout of "
+                         "--device's devices (every visible card for "
+                         "cuda, virtual positions of one device "
+                         "otherwise); default: the layout of train over "
+                         "every visible card for --device cuda with more "
+                         "than one, else one device")
     pr.set_defaults(fn=cmd_render)
     pb = sub.add_parser("bench", help="run the headline benchmark")
     pb.add_argument("--size", type=int, default=1024)

@@ -18,7 +18,9 @@ moves it.  `CudaKernel.launch` runs inside the span
 `utils.profiling.span(entry)`, a `torch.profiler` `record_function` named
 after the entry point while a profiler records (beside the port's `rmr.*`
 layer spans), and a flag check otherwise, so a profiler trace names the
-launches made through ctypes.
+launches made through ctypes.  The entry points select their card with
+`cudaSetDevice`; `launch` sets the process's current device back to the
+one it found, so launches on several cards leave it where it was.
 
 Numerics flags: `--fmad=false` keeps every multiply and add separately
 rounded, as in the plain PyTorch versions, and fast math stays off (so
@@ -39,6 +41,8 @@ import tempfile
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 from raymarchrenderer_tpu_torch.utils.profiling import span
 
@@ -145,6 +149,22 @@ def ptxas_usage(log: str) -> dict:
     return {k: v for k, v in usage.items() if "registers" in v}
 
 
+@contextlib.contextmanager
+def _same_device():
+    """Keep the process's current CUDA device across the block: an entry
+    point selects its launch's card with `cudaSetDevice` and leaves it
+    selected, so without this a launch on cuda:3 would send every later
+    tensor made on "cuda" to card 3."""
+    if not torch.cuda.is_initialized():
+        yield
+        return
+    before = torch.cuda.current_device()
+    try:
+        yield
+    finally:
+        torch.cuda.set_device(before)
+
+
 class CudaKernel:
     """One `csrc/*.cu` file and its C entry point.
 
@@ -191,7 +211,7 @@ class CudaKernel:
 
     def launch(self, *args) -> None:
         fn = self.build()
-        with span(self.entry):
+        with span(self.entry), _same_device():
             err = fn(*args)
         if err != 0:
             raise RuntimeError(f"{self.entry} launch failed: CUDA error {err}")

@@ -280,9 +280,11 @@ def _launch(kernel, args, dims, corners, prog, data, ph, pw, *queue):
 
 def _launch_mega_spectral(scene, params, mats, cfg, corners, sample0,
                           n_samples, origin_xy, ph, pw, normalize,
-                          lazy_miss, regen_cadence, march_unroll):
+                          lazy_miss, regen_cadence, march_unroll,
+                          buffers=None):
     _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
+    prog, data, dims = buffers or spectral_buffers(scene, params, mats,
+                                                   corners.device)
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, march_unroll,
         regen_cadence, lazy_miss))
@@ -333,7 +335,8 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
                           lazy_miss: bool = DEFAULT_LAZY_MISS,
                           regen_cadence: int = DEFAULT_REGEN_CADENCE,
                           mode: str = "mega",
-                          shade_gate: float = DEFAULT_SHADE_GATE):
+                          shade_gate: float = DEFAULT_SHADE_GATE,
+                          buffers=None):
     """Gen-3 spectral render of a patch: (ph, pw, 3) float32, the mean over
     `n_samples` samples starting at `sample0` (or the sum with
     `normalize=False`).  `origin_xy` = (x, y) of the patch's top-left pixel
@@ -343,7 +346,9 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     `mode="wavefront"` loops `trace_spectral` over the samples (the
     schedule knobs do not apply).  `shade_gate` > 0 batches the plain mega
     schedule's shade pass (`render.mega`; gate 0's bytes, which the
-    kernel renders at any gate)."""
+    kernel renders at any gate).  `buffers`: a mega launch's (program,
+    data, dims) of `scene_program.spectral_buffers` on the card, built
+    ahead (default: built here, before the launch)."""
     check_knobs(march_unroll, regen_cadence)
     check_gate(shade_gate)
     if n_samples < 1:
@@ -366,7 +371,8 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     if cuda:
         return _launch_mega_spectral(
             scene, params, mats, cfg, corners, sample0, n_samples, origin_xy,
-            ph, pw, normalize, lazy_miss, regen_cadence, march_unroll)
+            ph, pw, normalize, lazy_miss, regen_cadence, march_unroll,
+            buffers)
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c = trace_mega_spectral(scene, params, mats, cfg, corners, px, py,
                             sample0, n_samples=n_samples,
@@ -700,13 +706,12 @@ def _resume_state(cfg: RenderConfig, corners, accum, n0: float):
     return accum, float(n0)
 
 
-def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,
-                             corners, spp: int = None,
-                             samples_per_launch: int = 8,
-                             direct_light: bool = False, accum=None,
-                             n0: float = 0.0, callback=None):
-    """Progressive RGB render of `spp` samples from sample `int(n0)`, in
-    launches of `samples_per_launch` samples, each folded into the running
+def render_progressive(frame, cfg: RenderConfig, corners, spp: int = None,
+                       samples_per_launch: int = 8, accum=None,
+                       n0: float = 0.0, callback=None):
+    """Progressive render of `spp` samples from sample `int(n0)`, in
+    launches of `samples_per_launch` samples: `frame(s, k)` renders the
+    (H, W, 3) mean of the k samples from sample s, folded into the running
     mean (accum*n + chunk*k)/(n+k); resumable from a checkpoint's
     (`accum`, `n0`).  `callback(s, (accum, n))` runs after each launch, `s`
     the next sample index.  Returns (image (H, W, 3), n)."""
@@ -715,14 +720,26 @@ def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,
     s = int(n0)
     while s < int(n0) + spp:
         k = min(samples_per_launch, int(n0) + spp - s)
-        chunk = render_fused(scene, params, cfg, corners, s, n_samples=k,
-                             direct_light=direct_light)
+        chunk = frame(s, k)
         accum = (accum * n + chunk * k) / (n + k)
         n += k
         s += k
         if callback is not None:
             callback(s, (accum, n))
     return accum, n
+
+
+def render_progressive_fused(scene: Scene, params, cfg: RenderConfig,
+                             corners, spp: int = None,
+                             samples_per_launch: int = 8,
+                             direct_light: bool = False, accum=None,
+                             n0: float = 0.0, callback=None):
+    """Progressive RGB render (`render_progressive`), each launch one
+    `render_fused` call.  Returns (image (H, W, 3), n)."""
+    return render_progressive(
+        lambda s, k: render_fused(scene, params, cfg, corners, s,
+                                  n_samples=k, direct_light=direct_light),
+        cfg, corners, spp, samples_per_launch, accum, n0, callback)
 
 
 def render_progressive_fused_spectral(scene: Scene, params, mats,
@@ -731,21 +748,12 @@ def render_progressive_fused_spectral(scene: Scene, params, mats,
                                       samples_per_launch: int = 8,
                                       accum=None, n0: float = 0.0,
                                       callback=None):
-    """Progressive spectral render, resumable, as
-    `render_progressive_fused`.  Returns (image (H, W, 3), n)."""
-    spp = cfg.spp if spp is None else spp
-    accum, n = _resume_state(cfg, corners, accum, n0)
-    s = int(n0)
-    while s < int(n0) + spp:
-        k = min(samples_per_launch, int(n0) + spp - s)
-        chunk = render_fused_spectral(scene, params, mats, cfg, corners, s,
-                                      n_samples=k)
-        accum = (accum * n + chunk * k) / (n + k)
-        n += k
-        s += k
-        if callback is not None:
-            callback(s, (accum, n))
-    return accum, n
+    """Progressive spectral render (`render_progressive`), each launch one
+    `render_fused_spectral` call.  Returns (image (H, W, 3), n)."""
+    return render_progressive(
+        lambda s, k: render_fused_spectral(scene, params, mats, cfg,
+                                           corners, s, n_samples=k),
+        cfg, corners, spp, samples_per_launch, accum, n0, callback)
 
 
 def prepare(device, *kernels: CudaKernel):

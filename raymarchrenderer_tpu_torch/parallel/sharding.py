@@ -40,6 +40,13 @@ explicit counterpart of XLA's `--xla_force_host_platform_device_count`).
     `train_grads_spectral_sharded`, `train_loss_spectral_sharded` and
     `spectral_update`.
 
+A render takes `sample0` (default 0): position (ti, si) renders samples
+sample0 + si * spp_per .., and the remainder's extra sample is shifted by
+sample0 too, so frame k of a progressive render at `sample0 = k * spp`
+continues the sequence.  It runs in three phases (`_render_merged`):
+every card's inputs placed, then every position launched on its card's
+stream with no host wait between launches, so the cards render at once,
+then the merge, in the profiler spans `rmr.position` and `rmr.merge`.
 The merge sums the partial sums of one tile in si order, joins the tiles
 in row order and divides once by spp.  With one sample slice per tile it
 is byte-equal to one launch over the frame; with an spp axis the sum is
@@ -223,85 +230,119 @@ def _merge(parts: dict, mesh: Mesh, cfg: RenderConfig, rows_per: int,
 
 
 def _render_merged(mesh: Mesh, cfg: RenderConfig, corners, spp: int,
-                   launch):
-    """The (H, W, 3) mean over samples 0 .. spp - 1 on the corners'
-    device, merged across processes; `launch(device, corners, origin_xy,
-    patch_shape, sample0, n)` renders one position's raw sum on its
-    device."""
+                   sample0: int, place, launch):
+    """The (H, W, 3) mean over samples sample0 .. sample0 + spp - 1 on the
+    corners' device, merged across processes, in three phases:
+
+      (a) `place(device, corners there)` puts each device's inputs there
+          (once a device), before any launch, so that no position's
+          inputs queue behind a launch on another card;
+      (b) `launch(inputs, origin_xy, patch_shape, sample0, n)` renders
+          each position's raw sum on its card's current stream: no host
+          wait and no copy between cards until every position is
+          launched;
+      (c) the merge on the corners' device: the parts summed in si order,
+          the tiles joined in row order, one divide by spp.
+
+    Each position's placement and, again, its launch run in the profiler
+    span `rmr.position`; the merge, from its first copy between devices
+    to the divide, in `rmr.merge`."""
     if spp < 1:
         raise ValueError("spp must be >= 1")
     rows_per = -(-cfg.height // mesh.shape["tile"])
     n_spp = mesh.shape["spp"]
     spp_per, spp_rem = divmod(int(spp), n_spp)
-    parts = {}
+    s0 = int(sample0)
+    positions = [(ti, si, dev) for ti, si, dev in mesh.local_positions()
+                 if _tile_rows(cfg, rows_per, ti)]
+    inputs, parts = {}, {}
     with torch.no_grad():
-        for ti, si, dev in mesh.local_positions():
-            ph = _tile_rows(cfg, rows_per, ti)
-            if ph == 0:
-                continue
-            c = corners.to(dev)
-            origin, patch = (0, ti * rows_per), (ph, cfg.width)
-            acc = None
-            if spp_per:
-                acc = launch(dev, c, origin, patch, si * spp_per, spp_per)
-            if si < spp_rem:
-                extra = launch(dev, c, origin, patch, n_spp * spp_per + si,
-                               1)
-                acc = extra if acc is None else acc + extra
-            if acc is not None:
-                parts[(ti, si)] = acc.to(corners.device)
-        total = _merge(parts, mesh, cfg, rows_per, corners.device)
-        if multihost.process_count() > 1:
-            total = multihost.all_reduce(total)
-    return total / float(spp)
+        for _, _, dev in positions:
+            with span("rmr.position"):
+                if dev not in inputs:
+                    inputs[dev] = place(dev, corners.to(dev))
+        for ti, si, dev in positions:
+            with span("rmr.position"):
+                origin = (0, ti * rows_per)
+                patch = (_tile_rows(cfg, rows_per, ti), cfg.width)
+                acc = None
+                if spp_per:
+                    acc = launch(inputs[dev], origin, patch,
+                                 s0 + si * spp_per, spp_per)
+                if si < spp_rem:
+                    extra = launch(inputs[dev], origin, patch,
+                                   s0 + n_spp * spp_per + si, 1)
+                    acc = extra if acc is None else acc + extra
+                if acc is not None:
+                    parts[(ti, si)] = acc
+        with span("rmr.merge"):
+            parts = {k: v.to(corners.device) for k, v in parts.items()}
+            total = _merge(parts, mesh, cfg, rows_per, corners.device)
+            if multihost.process_count() > 1:
+                total = multihost.all_reduce(total)
+            return total / float(spp)
 
 
 def render_sharded(scene: Scene, params, cfg: RenderConfig, corners,
                    spp: int, direct_light: bool = False,
-                   impl: str = "oracle", mesh: Optional[Mesh] = None):
-    """The (H, W, 3) mean image of samples 0 .. spp - 1 on the corners'
-    device, over `mesh` (default: one position on the corners' device).
-    `impl="fused"` is one `render_fused_patch` launch per position (the
-    RGB megakernel on the card, its plain version on the CPU); "oracle"
-    sums `render_patch` sample by sample."""
+                   impl: str = "oracle", mesh: Optional[Mesh] = None,
+                   sample0: int = 0):
+    """The (H, W, 3) mean image of samples sample0 .. sample0 + spp - 1 on
+    the corners' device, over `mesh` (default: one position on the
+    corners' device).  `impl="fused"` is one `render_fused_patch` launch
+    per position (the RGB megakernel on the card, its plain version on the
+    CPU); "oracle" sums `render_patch` sample by sample."""
     from raymarchrenderer_tpu_torch.kernels.march import render_fused_patch
     if impl not in ("fused", "oracle"):
         raise ValueError(f"impl must be 'fused' or 'oracle', not {impl!r}")
     mesh = _one_position(mesh, corners)
-    replicas = render_replicated_params(scene, params, mesh)
 
-    def launch(dev, c, origin, patch, s0, n):
-        p = replicas[dev]
+    def place(dev, c):
+        return _tree_to(params, dev), c
+
+    def launch(inputs, origin, patch, s0, n):
+        p, c = inputs
         if impl == "fused":
             return render_fused_patch(scene, p, cfg, c, origin, patch, s0,
                                       n_samples=n, direct_light=direct_light,
                                       normalize=False)
-        acc = torch.zeros((*patch, 3), dtype=torch.float32, device=dev)
+        acc = torch.zeros((*patch, 3), dtype=torch.float32, device=c.device)
         for s in range(s0, s0 + n):
             acc = acc + render_patch(scene, p, cfg, c, origin, patch, s,
                                      direct_light).stack(-1)
         return acc
 
-    return _render_merged(mesh, cfg, corners, spp, launch)
+    return _render_merged(mesh, cfg, corners, spp, sample0, place, launch)
 
 
 def render_sharded_spectral(scene: Scene, params, mats, cfg: RenderConfig,
-                            corners, spp: int, mesh: Optional[Mesh] = None):
-    """The (H, W, 3) mean spectral image of samples 0 .. spp - 1 over
-    `mesh`: one `render_fused_spectral` launch per position (the spectral
-    megakernel on the card, its plain version on the CPU)."""
+                            corners, spp: int, mesh: Optional[Mesh] = None,
+                            sample0: int = 0):
+    """The (H, W, 3) mean spectral image of samples sample0 .. sample0 +
+    spp - 1 over `mesh`: one `render_fused_spectral` launch per position
+    (the spectral megakernel on the card, its plain version on the CPU).
+    A card's scene buffers are built with its other inputs, before the
+    first launch, so a position never uploads behind a launch of its
+    card."""
     from raymarchrenderer_tpu_torch.kernels.march import (
         render_fused_spectral)
+    from raymarchrenderer_tpu_torch.kernels.scene_program import (
+        spectral_buffers)
     mesh = _one_position(mesh, corners)
-    replicas = render_replicated_params(scene, params, mesh)
-    tables = {dev: _mats_to(mats, dev) for dev in replicas}
 
-    def launch(dev, c, origin, patch, s0, n):
-        return render_fused_spectral(scene, replicas[dev], tables[dev], cfg,
-                                     c, s0, n_samples=n, origin_xy=origin,
-                                     patch_shape=patch, normalize=False)
+    def place(dev, c):
+        p, m = _tree_to(params, dev), _mats_to(mats, dev)
+        buffers = (spectral_buffers(scene, p, m, dev) if dev.type == "cuda"
+                   else None)
+        return p, m, c, buffers
 
-    return _render_merged(mesh, cfg, corners, spp, launch)
+    def launch(inputs, origin, patch, s0, n):
+        p, m, c, buffers = inputs
+        return render_fused_spectral(scene, p, m, cfg, c, s0, n_samples=n,
+                                     origin_xy=origin, patch_shape=patch,
+                                     normalize=False, buffers=buffers)
+
+    return _render_merged(mesh, cfg, corners, spp, sample0, place, launch)
 
 
 def _mats_to(mats, device) -> SpectralMaterials:

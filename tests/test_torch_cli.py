@@ -57,6 +57,39 @@ def test_cmd_render_returns_the_image(tmp_path):
     assert (tmp_path / "o.npy").exists()
 
 
+@pytest.mark.parametrize("path", [["--spectral"], []],
+                         ids=["spectral", "rgb"])
+def test_render_layout_splits_the_frames(tmp_path, capsys, path):
+    """`--layout 1x2` on the CPU (two virtual positions, each launch of
+    `--chunk` samples one sharded frame at its sample0) against the
+    one-device path, within the spp split's drift
+    (tests/test_torch_parallel.py: fewer than 1% of the values off by
+    more than 1e-5, none by 1e-2; measured: equal)."""
+    from raymarchrenderer_tpu_torch.app import cli as tcli
+    flags = ["render", *path, "--device", "cpu", "--impl", "fused",
+             "--width", "16", "--height", "16", "--spp", "4", "--chunk", "2",
+             "--max-steps", "128", "--max-bounces", "2"]
+    one, split = tmp_path / "one.npy", tmp_path / "split.npy"
+    assert tcli.main([*flags, "--out", str(one)]) == 0
+    assert tcli.main([*flags, "--layout", "1x2", "--out", str(split)]) == 0
+    assert "layout 1x2" in capsys.readouterr().out
+    d = np.abs(np.load(one) - np.load(split))
+    assert float((d > 1e-5).mean()) < 1e-2 and float(d.max()) < 1e-2
+    assert np.load(split).max() > 0.0
+
+
+@pytest.mark.parametrize("layout,impl,message", [
+    ("2by2", "fused", "expected TILExSPP"),
+    ("0x2", "fused", "tile and spp must be >= 1"),
+    ("1x2", "oracle", "use --impl fused")])
+def test_render_layout_refuses(tmp_path, layout, impl, message):
+    from raymarchrenderer_tpu_torch.app import cli as tcli
+    with pytest.raises(SystemExit, match=message):
+        tcli.main(["render", "--spectral", "--device", "cpu", "--impl",
+                   impl, "--width", "8", "--height", "8", "--layout", layout,
+                   "--out", str(tmp_path / "x.npy")])
+
+
 @pytest.mark.parametrize("nee", [False, True], ids=["plain", "nee"])
 def test_render_rgb_matches_jax_cli(tmp_path, capsys, nee):
     """`render` without --spectral: sphere_on_floor, and csg with

@@ -1231,3 +1231,33 @@ def test_gate_on_the_card_gives_gate_0(cuda_device, case):
             assert_nee_close(want, got.cpu().numpy())
         else:
             assert frac_off(want, got.cpu().numpy()) < MAX_FRAC_OFF
+
+
+@pytest.mark.requires_cuda
+def test_sharded_render_keeps_the_current_device(cuda_device):
+    """A spectral render over (1, 2) on cuda:0 and cuda:1 (an entry point
+    selects its card with cudaSetDevice): the current device afterwards is
+    the one before it, so a tensor made on "cuda" stays on cuda:0, and
+    the frame is the positions' slices merged (cuda:1's part against the
+    same slice launched on cuda:0, byte for byte)."""
+    from raymarchrenderer_tpu_torch.parallel import sharding
+    from raymarchrenderer_tpu_torch.render.spectral_integrator import (
+        spectral_demo)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    torch.cuda.set_device(0)
+    scene, params, mats = spectral_demo(cuda_device)
+    cfg = RenderConfig(width=64, height=48, max_steps=512, max_bounces=16,
+                       relax_omega=2.0, normal_taps=4)
+    corners = Camera(aspect=64 / 48).corner_rays_flat(cuda_device)
+    mesh = sharding.make_mesh(sharding.ShardConfig(1, 2),
+                              [torch.device("cuda", 0),
+                               torch.device("cuda", 1)])
+    got = sharding.render_sharded_spectral(scene, params, mats, cfg, corners,
+                                           8, mesh=mesh, sample0=8)
+    assert torch.cuda.current_device() == 0
+    assert torch.empty(1, device="cuda").device == torch.device("cuda", 0)
+    parts = [march.render_fused_spectral(scene, params, mats, cfg, corners,
+                                         s0, n_samples=4, normalize=False)
+             for s0 in (8, 12)]
+    assert torch.equal(got, (parts[0] + parts[1]) / 8.0)

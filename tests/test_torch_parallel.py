@@ -190,28 +190,147 @@ def test_render_sharded(setup, renders, impl, layout, height, spp):
         _assert_schedule_close(want, got)
 
 
-def test_render_sharded_spectral():
-    """(4, 1) byte-equal to the one launch; (2, 2) within the fused bar of
-    it and of the JAX package's `render_sharded_spectral` (interpret
-    mode).  Measured: 0 values off by more than 1e-5 in both."""
+def _slices(launch, cfg, layout, spp, sample0):
+    """The merge written out by hand: each position's raw sum at its
+    shifted start (`launch(origin, patch, s0, n)`), the tile's parts in si
+    order, the tiles in row order, one divide by spp."""
+    n_tile, n_spp = layout
+    rows = -(-cfg.height // n_tile)
+    per, rem = divmod(spp, n_spp)
+    tiles = []
+    for ti in range(n_tile):
+        patch = (min(rows, cfg.height - ti * rows), cfg.width)
+        if patch[0] <= 0:
+            break
+        tile = None
+        for si in range(n_spp):
+            acc = None
+            if per:
+                acc = launch((0, ti * rows), patch, sample0 + si * per, per)
+            if si < rem:
+                extra = launch((0, ti * rows), patch,
+                               sample0 + n_spp * per + si, 1)
+                acc = extra if acc is None else acc + extra
+            if acc is not None:
+                tile = acc if tile is None else tile + acc
+        tiles.append(tile)
+    return torch.cat(tiles, 0) / float(spp)
+
+
+@pytest.mark.parametrize("frame", [0, 1])
+def test_render_sharded_spectral(frame):
+    """Frame `frame` of a progressive render at sample0 = frame * spp:
+    (4, 1) byte-equal to the one launch at that start; (2, 2) byte-equal
+    to its positions' slices at the shifted starts, and within the fused
+    bar of the one launch and (frame 0) of the JAX package's
+    `render_sharded_spectral` (interpret mode; it has no sample0).
+    Measured: 0 values off by more than 1e-5 in both."""
+    from raymarchrenderer_tpu_torch.kernels.march import (
+        render_fused_spectral)
     js, jp, jm = jspec.spectral_demo()
     jc = JCamera(aspect=1.0).corner_rays_flat()
     ts = tspec.spectral_demo("cpu")[0]
     tp, tm, tc = (params_from_numpy(np_tree(jp), "cpu"), mats_to_torch(jm),
                   corners_to_torch(jc))
     cfg = TCfg(**_RENDER)
-    one = tsharding.render_sharded_spectral(ts, tp, tm, cfg, tc, 4)
+    s0 = 4 * frame
+    one = tsharding.render_sharded_spectral(ts, tp, tm, cfg, tc, 4,
+                                            sample0=s0)
     tiles = tsharding.render_sharded_spectral(ts, tp, tm, cfg, tc, 4,
-                                              mesh=_mesh((4, 1)))
+                                              mesh=_mesh((4, 1)), sample0=s0)
     assert torch.equal(tiles, one)
     got = tsharding.render_sharded_spectral(ts, tp, tm, cfg, tc, 4,
-                                            mesh=_mesh((2, 2)))
+                                            mesh=_mesh((2, 2)), sample0=s0)
+    want = _slices(lambda origin, patch, a, n: render_fused_spectral(
+        ts, tp, tm, cfg, tc, a, n_samples=n, origin_xy=origin,
+        patch_shape=patch, normalize=False), cfg, (2, 2), 4, s0)
+    assert torch.equal(got, want)
+    _assert_schedule_close(one, got)
+    if frame:
+        first = tsharding.render_sharded_spectral(ts, tp, tm, cfg, tc, 4,
+                                                  mesh=_mesh((2, 2)))
+        assert not torch.equal(first, got)
+        return
     want = np.asarray(jsharding.render_sharded_spectral(
         js, jp, jm, JCfg(**_RENDER), jc,
         jsharding.make_mesh(jsharding.ShardConfig(2, 2)), 4, interpret=True))
-    _assert_schedule_close(one, got)
     _assert_schedule_close(want, got)
     assert frac_off(want, got.numpy()) < MAX_FRAC_OFF
+
+
+@pytest.mark.parametrize("impl", ["oracle", "fused"])
+@pytest.mark.parametrize("layout,height,spp", [((2, 2), 16, 4),
+                                               ((1, 4), 16, 5)],
+                         ids=lambda v: str(v))
+def test_render_sharded_continues_the_sequence(setup, impl, layout, height,
+                                               spp):
+    """The RGB render at sample0 = spp (the progressive sequence's second
+    frame) is its positions' slices at the shifted starts, the spp
+    remainder's extra sample shifted too, byte for byte."""
+    from raymarchrenderer_tpu_torch.kernels.march import render_fused_patch
+    from raymarchrenderer_tpu_torch.render.integrator import render_patch
+    _, _, _, ts, tp, tc = setup
+    cfg = TCfg(**_RENDER).replace(height=height)
+    got = tsharding.render_sharded(ts, tp, cfg, tc, spp, impl=impl,
+                                   mesh=_mesh(layout), sample0=spp)
+
+    def launch(origin, patch, s0, n):
+        if impl == "fused":
+            return render_fused_patch(ts, tp, cfg, tc, origin, patch, s0,
+                                      n_samples=n, normalize=False)
+        acc = torch.zeros((*patch, 3), dtype=torch.float32)
+        for s in range(s0, s0 + n):
+            acc = acc + render_patch(ts, tp, cfg, tc, origin, patch,
+                                     s).stack(-1)
+        return acc
+
+    assert torch.equal(got, _slices(launch, cfg, layout, spp, spp))
+
+
+def test_render_merged_places_then_launches_then_merges(monkeypatch):
+    """The three phases of `_render_merged`, recorded through four
+    distinct (virtual) devices: every device's inputs placed before the
+    first launch, every position launched before the merge; each
+    position's placement and launch in an `rmr.position` span, the merge
+    in one `rmr.merge` span."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    ts, tp, tm = tspec.spectral_demo("cpu")
+    tc = corners_to_torch(JCamera(aspect=1.0).corner_rays_flat())
+    cfg = TCfg(**dict(_RENDER, width=8, height=8, max_steps=32))
+    devices = [torch.device("cpu", i) for i in range(4)]
+    mesh = tsharding.make_mesh(tsharding.ShardConfig(2, 2), devices)
+    events = []
+    tree_to, merge = tsharding._tree_to, tsharding._merge
+    fused = march.render_fused_spectral
+
+    def placed(tree, device):
+        events.append(("place", device.index))
+        return tree_to(tree, device)
+
+    def launched(*args, **kw):
+        events.append(("launch", kw["origin_xy"], args[5]))
+        return fused(*args, **kw)
+
+    def merged(parts, *args):
+        events.append(("merge", tuple(sorted(parts))))
+        return merge(parts, *args)
+
+    monkeypatch.setattr(tsharding, "_tree_to", placed)
+    monkeypatch.setattr(tsharding, "_merge", merged)
+    monkeypatch.setattr(march, "render_fused_spectral", launched)
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        tsharding.render_sharded_spectral(ts, tp, tm, cfg, tc, 4, mesh=mesh,
+                                          sample0=8)
+    kinds = [e[0] for e in events]
+    assert kinds == ["place"] * 8 + ["launch"] * 4 + ["merge"], events
+    assert [e[1] for e in events[:8]] == [0, 0, 1, 1, 2, 2, 3, 3]
+    assert [e[1:] for e in events[8:12]] == [((0, 0), 8), ((0, 0), 10),
+                                             ((0, 4), 8), ((0, 4), 10)]
+    assert events[-1][1] == ((0, 0), (0, 1), (1, 0), (1, 1))
+    names = [e.name for e in prof.events()]
+    assert names.count("rmr.position") == 8
+    assert names.count("rmr.merge") == 1
 
 
 @pytest.fixture(scope="module")
