@@ -262,6 +262,8 @@ readings go to smoke_out/.
                                                 # bound, one source a build
     python3 chip_smoke.py --sweep-const kWaveUnroll=4,16   # a schedule
                                                 # constant of csrc/
+    python3 chip_smoke.py --sweep-queue-paths   # rmr_mega_paths' two grids
+                                                # by paths a lane
 
 Run `--kernel-times` in a checkout of another commit (`git archive`),
 with this script copied in, to time both trees in one call.
@@ -3047,6 +3049,77 @@ def sweep_consts(dev, card, specs):
     return sweep(dev, card, variants)
 
 
+# paths a lane and scenes of `--sweep-queue-paths`: csg_demo with NEE, and
+# sphere_on_floor under its constant sky
+QUEUE_SWEEP_PATHS = (1, 2, 4, 8, 16, 32, 128)
+QUEUE_SWEEP_SCENES = (("csg_demo", True), ("sphere_on_floor", False))
+
+
+def sweep_queue_paths(dev, card, paths=QUEUE_SWEEP_PATHS):
+    """`rmr_mega_paths` at 1024^2 on both of its grids, one lane per pixel
+    and the persistent grid on the pixel queue, at each count of paths a
+    lane in `paths` on each scene of `QUEUE_SWEEP_SCENES`: the launch
+    alone through ctypes (the queue's counter zeroed in the timed span),
+    by CUDA events, in rounds of per pixel, queue, queue, per pixel; the
+    median ms of each grid, and the two grids' outputs equal bit for bit.
+    Prints a `queue sweep:` line a row and one JSON line; returns the
+    rows."""
+    import ctypes
+    from raymarchrenderer_tpu_torch.core.camera import Camera
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.scene import builtin
+    corners = Camera(aspect=1.0).corner_rays_flat(dev)
+    queue = torch.zeros(1, dtype=torch.int32, device=dev)
+    rows = []
+    for scene_name, nee in QUEUE_SWEEP_SCENES:
+        scene = getattr(builtin, scene_name)()
+        params = scene.init_params(dev)
+        cfg = _main_cfg()
+        for n in paths:
+            args, dims, prog, data = march.paths_launch(
+                scene, params, cfg, corners, (0, 0), 1024, 1024, 0, n, nee,
+                **_launch_knobs(), normalize=True)
+            outs = {q: torch.empty((1024, 1024, 3), dtype=torch.float32,
+                                   device=dev) for q in (False, True)}
+
+            def launch(queued):
+                if queued:
+                    queue.zero_()
+                march.MEGA_PATHS.launch(
+                    ctypes.byref(args), ctypes.byref(dims),
+                    corners.data_ptr(), data.data_ptr(), prog.data_ptr(),
+                    outs[queued].data_ptr(), march.sky_kind(scene),
+                    queue.data_ptr() if queued else None,
+                    *march.stream_args(dev))
+
+            launch(False), launch(True)
+            torch.cuda.synchronize()
+            equal = torch.equal(outs[False], outs[True])
+            times = {False: [], True: []}
+            for _ in range(2 if n >= 32 else 5):
+                for q in (False, True, True, False):
+                    times[q] += _cuda_ms_each(lambda q=q: launch(q), 1)
+            pp = float(np.median(times[False]))
+            qq = float(np.median(times[True]))
+            row = {"scene": scene_name, "nee": nee, "paths": n,
+                   "per_pixel_ms": pp, "queue_ms": qq,
+                   "per_pixel_each": times[False], "queue_each": times[True],
+                   "equal": equal}
+            rows.append(row)
+            print(f"queue sweep: {scene_name}{' nee' if nee else ''}, {n} "
+                  f"paths a lane: per pixel {pp:.3f} ms, queue {qq:.3f} ms "
+                  f"({100.0 * (qq / pp - 1.0):+.2f}%), "
+                  f"{'equal' if equal else 'NOT EQUAL'} [{card}]",
+                  flush=True)
+            if not equal:
+                raise AssertionError(f"{scene_name} at {n} paths: the two "
+                                     "grids' outputs differ")
+    print("queue sweep: " + json.dumps({"card": card, "rows": rows}),
+          flush=True)
+    _log_json("queue_sweep", rows)
+    return rows
+
+
 def _entry(name, source, replaces, launches, max_err, ms, plain_ms, bound,
            exact=None, **notes):
     """One kernel of the `kernels` line (every number read in this run,
@@ -3270,7 +3343,8 @@ PTXAS_BEFORE = {
 
 def _instantiation(fn):
     """A readable name of a mangled kernel: its template's policy, and
-    " exact" for an exact-normal instantiation."""
+    " queued" for a render policy's twin on the pixel queue, " exact" for
+    an exact-normal instantiation."""
     name = next(k for k in (
         "record_wavefront_kernel", "wavefront_paths_kernel",
         "wavefront_spectral_kernel", "mega_paths_kernel",
@@ -3281,6 +3355,7 @@ def _instantiation(fn):
         ("DeferSky", "8DeferSky"), ("Banks", "5Banks")) if tag in fn), None)
     exact = "ExactNormal" in fn or "ILb1E" in fn
     return (name + (f"<{policy}>" if policy else "")
+            + (" queued" if "6Queued" in fn else "")
             + (" exact" if exact else ""))
 
 
@@ -4336,6 +4411,12 @@ def main(argv=None) -> int:
                     help="time the kernels built with each launch bound in "
                     "the list, each source's bound on its own (a "
                     "--sweep-const of each; no plain version)")
+    ap.add_argument("--sweep-queue-paths", action="store_true",
+                    help="build mega_paths.cu and time rmr_mega_paths at "
+                    "1024^2 on both grids (one lane per pixel, the pixel "
+                    "queue) at each count of paths a lane of "
+                    "QUEUE_SWEEP_PATHS on csg_demo with NEE and on "
+                    "sphere_on_floor")
     ap.add_argument("--sweep-const", metavar="NAME=V,V,...[:NAME=...]",
                     action="append", default=[],
                     help="time the kernels built with schedule constants "
@@ -4383,12 +4464,18 @@ def main(argv=None) -> int:
     if opts.parallel:
         only = ["mega_paths", "mega_spectral", "mega_paths_defer",
                 "record_paths", "record_spectral"]
+    if opts.sweep_queue_paths:
+        only = ["mega_paths"]
     with ThreadPoolExecutor(1) as pool:
         built = pool.submit(build_kernels, card, only)
         profile = (None if opts.frontends or opts.kernel_times
-                   or opts.parallel or opts.gates
+                   or opts.parallel or opts.gates or opts.sweep_queue_paths
                    else profile_phase(dev, card))
         built.result()
+    if opts.sweep_queue_paths:
+        sweep_queue_paths(dev, card)
+        print(partial("sweep_queue_paths"))
+        return 0
     native_s = native_phase(card)
     if opts.parallel:
         parallel_phase(dev, card)

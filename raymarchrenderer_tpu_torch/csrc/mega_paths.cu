@@ -19,10 +19,13 @@
 // The deferred-sky and recording instantiations run a persistent grid:
 // only as many blocks as stay resident, each lane taking the patch's
 // pixels one after another from a global queue (scene_map.cuh), so a warp
-// no longer lives as long as the longest of 32 fixed chains; the constant
-// and SH skies keep one lane per pixel (`kQueue`).  Either way a pixel's
-// chain runs in one thread, op for op, and each output slot has one
-// writer, so the output is the same bytes.
+// no longer lives as long as the longest of 32 fixed chains.  The constant
+// and SH skies run it when the caller hands `rmr_mega_paths` a queue
+// counter (`Queued<R>`), which the wrapper does when a lane has few paths
+// to run, and keep one lane per pixel otherwise, where each lane's many
+// paths even out its chain (`kQueue`).  Either way a pixel's chain runs
+// in one thread, op for op, and each output slot has one writer, so the
+// output is the same bytes.
 // The scene (objects, materials, lights, sky) is staged once per block in
 // shared memory, and the object interpreter forwards node values in
 // registers (scene_map.cuh).
@@ -118,10 +121,11 @@ constexpr int kWaitMiss = -1;  // a parked miss of the deferred sky
 // the exact normal (ExactNormal<policy>, normal_taps = 0); `kQueue` a
 // persistent grid on the pixel queue (scene_map.cuh) instead of one
 // thread per pixel: where the lanes' chains vary most (the deferred sky's
-// paths end on their first miss; the recorder's launches are short), the
-// queue pays; on the constant and SH skies one thread per pixel is faster
-// (PERF.md).  Each is a template argument, so every instantiation
-// compiles only its own code.
+// paths end on their first miss; the recorder's launches are short; a
+// launch of few paths a lane), the queue pays; on the constant and SH
+// skies at many paths a lane one thread per pixel is faster (PERF.md), so
+// each has a queued twin, `Queued<R>`, that the caller picks.  Each is a
+// template argument, so every instantiation compiles only its own code.
 
 // The render with the constant sky: no banks.
 struct NoBanks {
@@ -138,6 +142,13 @@ struct ShSky {
   static constexpr int kSky = kSkySh;
   static constexpr bool kExact = false;
   static constexpr bool kQueue = false;
+};
+
+// A render policy on the persistent grid of the pixel queue: the constant
+// or the SH sky of `rmr_mega_paths` given a queue counter.
+template <class R>
+struct Queued : R {
+  static constexpr bool kQueue = true;
 };
 
 // The render with an env image (the deferred sky): a missed bounce ray
@@ -508,13 +519,13 @@ __device__ __forceinline__ void start_lane(const Ctx& c, Lane& L) {
 
 // ---- launch ----------------------------------------------------------------
 
-// One kernel for every entry: R = NoBanks or ShSky renders into `out`,
-// DeferSky renders the raw sum without the sky into `out` and banks the
-// misses, Banks records into its banks.  Each lane runs one pixel's whole
-// chain at a time, as a thread of a one-pixel-per-thread launch would:
-// with R::kQueue the grid is persistent and a lane takes the next pixel
-// from the queue when its chain ends, else lane q of the grid has queue
-// slot q.
+// One kernel for every entry: R = NoBanks or ShSky (or its Queued twin)
+// renders into `out`, DeferSky renders the raw sum without the sky into
+// `out` and banks the misses, Banks records into its banks.  Each lane
+// runs one pixel's whole chain at a time, as a thread of a
+// one-pixel-per-thread launch would: with R::kQueue the grid is
+// persistent and a lane takes the next pixel from the queue when its
+// chain ends, else lane q of the grid has queue slot q.
 template <class R>
 __global__ void __launch_bounds__(kBlockThreads, kMinBlocks)
     mega_paths_kernel(PathArgs a, SceneDims dims, const float* __restrict__ corners,
@@ -618,19 +629,29 @@ cudaError_t launch_mega(const PathArgs* args, const SceneDims* dims, const float
 // selects the device itself before launching on `stream`.  Returns the
 // first CUDA error (0 on success), and cudaErrorInvalidValue for a scene
 // whose tables exceed the block's shared memory.  `sky_kind` picks the
-// constant or the SH sky, whose policies run one lane per pixel and no
-// queue; an env image (kSkyDefer) takes rmr_mega_paths_defer and is
-// refused here.
+// constant or the SH sky; an env image (kSkyDefer) takes
+// rmr_mega_paths_defer and is refused here.  A null `queue` runs one lane
+// per pixel; otherwise `queue` is one int32 on the device, zero before the
+// launch, and the lanes run a persistent grid on the pixel queue
+// (`Queued<R>`).  Both grids give the same bytes.
 extern "C" int rmr_mega_paths(const PathArgs* args, const SceneDims* dims, const float* corners,
                               const float* fdata, const int* prog, float* out, int sky_kind,
-                              cudaStream_t stream, int device) {
+                              int* queue, cudaStream_t stream, int device) {
   if (args->n_lights < 0) return (int)cudaErrorInvalidValue;
   if (sky_kind != kSkyConst && sky_kind != kSkySh) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   if (sky_kind == kSkySh) {
+    if (queue) {
+      return (int)launch_mega(args, dims, corners, fdata, prog, out, Queued<ShSky>(), queue,
+                              stream, device);
+    }
     return (int)launch_mega(args, dims, corners, fdata, prog, out, ShSky(), nullptr, stream,
                             device);
+  }
+  if (queue) {
+    return (int)launch_mega(args, dims, corners, fdata, prog, out, Queued<NoBanks>(), queue,
+                            stream, device);
   }
   return (int)launch_mega(args, dims, corners, fdata, prog, out, NoBanks(), nullptr, stream,
                           device);

@@ -33,9 +33,10 @@ The recorders (`RECORD_PATHS`, an entry of `csrc/mega_paths.cu`;
 `RECORD_SPECTRAL`, an entry of `csrc/mega_spectral.cu`;
 `RECORD_WAVEFRONT`, an entry of `csrc/wavefront_paths.cu`) are wrapped by
 `kernels/record.py`.  The megakernels run the lane-state machine, one
-thread per pixel or, for the deferred sky and the recorders, a persistent
-grid on the pixel queue; the wavefront recorder runs the RGB wavefront
-lane machine on a queue of rays.  The device of
+thread per pixel or, for the deferred sky, the recorders and an RGB
+launch of few paths a lane (`mega_paths_queued`), a persistent grid on
+the pixel queue; the wavefront recorder runs the RGB wavefront lane
+machine on a queue of rays.  The device of
 the input tensors (`corners`, or the ray planes) picks the route: a CUDA
 tensor launches the hand-written Hopper kernel, or raises; a CPU tensor
 runs the plain PyTorch version (`render/mega.py`, `render/integrator.py`,
@@ -75,6 +76,7 @@ from raymarchrenderer_tpu_torch.render.mega import (check_gate,
                                                     trace_mega_spectral)
 from raymarchrenderer_tpu_torch.render.raygen import pixel_grid
 from raymarchrenderer_tpu_torch.scene.graph import Scene
+from raymarchrenderer_tpu_torch.utils.profiling import span
 
 # the JAX package's production knobs (kernels/march.py there): 32 march
 # steps per shade pass, a miss-retire pass every 16, lazy miss test
@@ -157,16 +159,18 @@ _D = ctypes.POINTER(SceneDims)
 # and ends with the stream and the device index; the persistent entries
 # (the RGB megakernel's deferred sky and recorder, the spectral recorder,
 # both wavefront kernels and the wavefront recorder, `march_fused`) take
-# their queue's counter (`_queue`) before the stream.
+# their queue's counter (`_queue`) before the stream, and so does the RGB
+# megakernel's constant- and SH-sky entry, whose counter may be null.
 # args, dims, corners, data, program, the output
 MEGA_SPECTRAL = CudaKernel(
     "mega_spectral.cu", "rmr_mega_spectral",
     [ctypes.POINTER(SpecArgs), _D, _P, _P, _P, _P, _P, ctypes.c_int])
 # args, dims, corners, data, program, the output, the sky kind
-# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy)
+# (scene_program.SKY_CONST or SKY_SH: the kernel's sky policy), the queue
+# (null: one lane per pixel; `mega_paths_queued`)
 MEGA_PATHS = CudaKernel(
     "mega_paths.cu", "rmr_mega_paths",
-    [ctypes.POINTER(PathArgs), _D, _P, _P, _P, _P, ctypes.c_int, _P,
+    [ctypes.POINTER(PathArgs), _D, _P, _P, _P, _P, ctypes.c_int, _P, _P,
      ctypes.c_int])
 # the deferred-sky entry of mega_paths.cu: args, dims, corners, data,
 # program, the raw-sum output, then the thr_r, thr_g, thr_b and packed-uv
@@ -404,6 +408,24 @@ def paths_launch(scene, params, cfg, corners, origin_xy, ph, pw, sample0,
         prog, data
 
 
+# The most paths a lane runs (samples, times 3 with dispersion) at which a
+# constant- or SH-sky launch of `rmr_mega_paths` takes the persistent grid
+# on the pixel queue: at few paths a lane the chains' lengths vary most
+# and a lane whose chain ends takes the next pixel; at more, each lane's
+# many paths even out and one lane per pixel is faster.  Measured at 1024^2
+# on csg_demo with NEE and on sphere_on_floor (`chip_smoke.py
+# --sweep-queue-paths`, PERF.md section 6 row 2; NVIDIA H100): the queue
+# 32-33% faster at 1 path, 4-7% at 16, at 32 faster on one scene and no
+# faster on the other, 3-7% slower at 128.
+QUEUE_MAX_PATHS = 16
+
+
+def mega_paths_queued(n_samples: int, dispersion: bool) -> bool:
+    """Whether a constant- or SH-sky launch of `n_samples` samples a pixel
+    runs on the pixel queue: its paths a lane at most `QUEUE_MAX_PATHS`."""
+    return n_samples * (3 if dispersion else 1) <= QUEUE_MAX_PATHS
+
+
 def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
                        sample0, n_samples, direct_light, march_unroll,
                        normalize, lazy_miss, regen_cadence):
@@ -412,10 +434,19 @@ def _launch_mega_paths(scene, params, cfg, corners, origin_xy, ph, pw,
         direct_light, march_unroll, normalize, lazy_miss, regen_cadence)
     device = corners.device
     out = torch.empty((ph, pw, 3), dtype=torch.float32, device=device)
-    MEGA_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
-                      corners.contiguous().data_ptr(), data.data_ptr(),
-                      prog.data_ptr(), out.data_ptr(), sky_kind(scene),
-                      *stream_args(device))
+
+    def launch(queue):
+        MEGA_PATHS.launch(ctypes.byref(args), ctypes.byref(dims),
+                          corners.contiguous().data_ptr(), data.data_ptr(),
+                          prog.data_ptr(), out.data_ptr(), sky_kind(scene),
+                          queue, *stream_args(device))
+
+    if mega_paths_queued(n_samples, cfg.separate_channels):
+        with span("rmr.pixel_queue"):
+            queue = _queue(device)
+            launch(queue.data_ptr())
+    else:
+        launch(None)
     return out
 
 

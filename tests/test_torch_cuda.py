@@ -207,9 +207,43 @@ def test_paths_kernel_rejects_too_many_lights(cuda_device):
 _SCHED = dict(lazy_miss=True, march_unroll=32, regen_cadence=16)
 
 
+def _csg_sh_scene():
+    """csg_demo() under an SH sky: a DC term of 0.3 and seeded band-1..3
+    coefficients."""
+    from unittest import mock
+    from raymarchrenderer_tpu_torch.core.sh import constant_coeffs
+    with mock.patch.object(builtin.SceneBuilder, "build",
+                           builtin.SceneBuilder.to_json):
+        text = builtin.csg_demo()
+    sh = constant_coeffs(0.3)
+    sh[1:] = np.random.RandomState(2).uniform(-0.1, 0.1, (15, 3))
+    return loads_scene(text, env_sh=np.asarray(sh, np.float32))
+
+
+def _mega_paths_grid(scene, params, cfg, corners, origin, shape, sample0,
+                     n_samples, queued):
+    """`rmr_mega_paths` through ctypes on one grid, with NEE: a queue
+    counter runs the persistent grid on the pixel queue, a null one a
+    lane per pixel; (3, h, w)."""
+    import ctypes
+    args, dims, prog, data = march.paths_launch(
+        scene, params, cfg, corners, origin, *shape, sample0, n_samples,
+        True, 32, True, True, 16)
+    out = torch.empty((*shape, 3), dtype=torch.float32,
+                      device=corners.device)
+    queue = march._queue(corners.device) if queued else None
+    march.MEGA_PATHS.launch(
+        ctypes.byref(args), ctypes.byref(dims), corners.data_ptr(),
+        data.data_ptr(), prog.data_ptr(), out.data_ptr(),
+        march.sky_kind(scene), None if queue is None else queue.data_ptr(),
+        *march.stream_args(corners.device))
+    return out.movedim(-1, 0)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("kind", ["rgb", "spectral", "defer", "record",
-                                  "record_spectral", "wavefront_spectral"])
+                                  "record_spectral", "wavefront_spectral",
+                                  "queued_const", "queued_sh"])
 def test_persistent_queue_odd_frame_and_reset(cuda_device, kind):
     """The megakernels on a 37 x 53 patch (1961 pixels, not a multiple of
     32, nor of the RGB kernel's 2 x 16 queue tiles) at (11, 5) of a 96 x
@@ -218,17 +252,37 @@ def test_persistent_queue_odd_frame_and_reset(cuda_device, kind):
     runs it), and two launches back to back are equal bit for bit: the
     deferred sky, both recorders and the spectral wavefront kernel run a
     persistent grid on the pixel queue, whose counter is new for every
-    launch, so every pixel is rendered again."""
-    scene = _env_scene("glass") if kind == "defer" else builtin.sphere_on_floor()
+    launch, so every pixel is rendered again.  The queued kinds run
+    `rmr_mega_paths` with the constant or the SH sky over csg_demo with
+    NEE, dispersion and roulette from sample 5, at 1 and 4 samples: the
+    patch on the pixel queue, the frame one lane per pixel, and the patch
+    on both grids equal bit for bit."""
+    queued_kind = kind.startswith("queued")
+    if kind == "defer":
+        scene = _env_scene("glass")
+    elif kind == "queued_const":
+        scene = builtin.csg_demo()
+    elif kind == "queued_sh":
+        scene = _csg_sh_scene()
+    else:
+        scene = builtin.sphere_on_floor()
     params = scene.init_params(cuda_device)
+    extra = (dict(separate_channels=True, rr_start_bounce=1) if queued_kind
+             else {})
     cfg = RenderConfig(width=96, height=64, max_steps=192, max_bounces=4,
-                       relax_omega=1.9 if kind.startswith("record") else 2.0)
+                       relax_omega=1.9 if kind.startswith("record") else 2.0,
+                       **extra)
     corners = Camera(eye=(0.0, 3.0, -7.0), aspect=1.5).corner_rays_flat(
         cuda_device)
     mats = band_table(scene, cuda_device)
 
-    def launch(origin, shape):
+    def launch(origin, shape, queued=True):
         """The launch's outputs as a list of (..., h, w) tensors."""
+        if queued_kind:
+            # the frame on one lane per pixel, the patch on the queue
+            queued = queued and shape != (64, 96)
+            return [_mega_paths_grid(scene, params, cfg, corners, origin,
+                                     shape, 5, n, queued) for n in (1, 4)]
         if kind == "spectral":
             out = march.render_fused_spectral(
                 scene, params, mats, cfg, corners, 0, n_samples=3,
@@ -267,6 +321,11 @@ def test_persistent_queue_odd_frame_and_reset(cuda_device, kind):
     for a, b, f in zip(first, second, frame):
         assert torch.equal(a, b)
         assert torch.equal(a, f[..., 5:42, 11:64])
+    if queued_kind:
+        per_pixel = launch((11, 5), (37, 53), queued=False)
+        torch.cuda.synchronize()
+        for a, p in zip(first, per_pixel):
+            assert torch.equal(a, p)
 
 
 @pytest.mark.requires_cuda

@@ -72,13 +72,27 @@ def test_argument_structs_mirror_the_c_structs(cls):
     assert [f[0] for f in cls._fields_] == _c_fields(cls.__name__)
 
 
-@pytest.mark.parametrize("name", ["MARCH_FUSED", "WAVEFRONT_PATHS",
+@pytest.mark.parametrize("name", ["MARCH_FUSED", "MEGA_PATHS",
+                                  "WAVEFRONT_PATHS",
                                   "WAVEFRONT_SPECTRAL", "MEGA_PATHS_DEFER",
                                   "RECORD_PATHS", "RECORD_SPECTRAL",
                                   "RECORD_WAVEFRONT"])
 def test_persistent_entries_take_a_queue(name):
     """The entries that run on a queue take its counter before the
-    stream."""
+    stream (`rmr_mega_paths`'s may be null: one lane per pixel)."""
     k = getattr(march, name)
     assert _c_params(k.source.name, k.entry)[-3] == "int* queue"
 
+
+Q = march.QUEUE_MAX_PATHS
+
+
+@pytest.mark.parametrize("n_samples, dispersion, queued", [
+    (1, False, True), (128, False, False), (Q, False, True),
+    (Q + 1, False, False), (1, True, 3 <= Q), (Q // 3, True, True),
+    (Q // 3 + 1, True, False), (Q, True, False)])
+def test_mega_paths_queued_reads_paths_a_lane(n_samples, dispersion, queued):
+    """A constant- or SH-sky launch runs on the pixel queue at one path a
+    lane and up to `QUEUE_MAX_PATHS`, one lane per pixel above it and at
+    128; dispersion runs 3 paths a sample."""
+    assert march.mega_paths_queued(n_samples, dispersion) is queued

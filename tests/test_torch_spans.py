@@ -6,10 +6,11 @@ the progressive driver opens `rmr.pass`, each scene-buffer build
 `rmr.scene_buffers` with `rmr.scene_compile` inside it, and a recorded
 train step `rmr.forward` (with `rmr.record` inside it), then
 `rmr.backward`, then `rmr.update`; a ctypes launch opens a span named
-after its entry point.  With no profiler, `span` hands back one shared
-no-op context manager.
+after its entry point, and an RGB megakernel launch on the pixel queue
+opens `rmr.pixel_queue` around it.  With no profiler, `span` hands back
+one shared no-op context manager.
 
-The nine per-layer readers of these spans (`rmbench/metrics/`, loaded
+The eleven per-layer readers of these spans (`rmbench/metrics/`, loaded
 by path as the harness loads them) are held to values worked out by hand
 on a small synthetic Chrome trace, with a backward launch on a second
 thread and a recorder span nested in a forward span, and read None on a
@@ -100,6 +101,36 @@ def test_endless_passes_open_one_pass_span_each():
         renderer.render_pass(spp=1)
     assert [s[0] for s in _spans(prof, "rmr.pass")] == ["rmr.pass"] * 3
     assert renderer.pass_n == 1.0
+
+
+@pytest.mark.parametrize("n_samples, queued", [(1, True), (128, False)])
+def test_a_queued_launch_opens_the_pixel_queue_span(n_samples, queued,
+                                                    monkeypatch):
+    """`rmr_mega_paths` at one sample a pixel gets a queue counter and runs
+    inside `rmr.pixel_queue`; at 128 it gets a null counter and no such
+    span.  The entry point is a stand-in: no card here."""
+    from raymarchrenderer_tpu_torch.kernels import march
+    from raymarchrenderer_tpu_torch.render.config import RenderConfig
+    seen = []
+    monkeypatch.setattr(march.MEGA_PATHS, "_fn",
+                        lambda *args: seen.append(args) or 0)
+    monkeypatch.setattr(march, "scene_dims",
+                        lambda dims, device, exact: march.SceneDims(*dims))
+    monkeypatch.setattr(march, "stream_args", lambda device: (0, 0))
+    scene = builtin.csg_demo()
+    cfg = RenderConfig(**TINY)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        march._launch_mega_paths(scene, scene.init_params("cpu"), cfg,
+                                 _corners(), (0, 0), 4, 8, 0, n_samples,
+                                 True, 32, True, True, 16)
+    queue = seen[0][7]
+    assert (queue is not None) == queued
+    got = [s for s in _spans(prof) if s[0] in ("rmr.pixel_queue",
+                                               "rmr_mega_paths")]
+    assert [s[0] for s in got] == (["rmr.pixel_queue", "rmr_mega_paths"]
+                                   if queued else ["rmr_mega_paths"])
+    if queued:
+        assert _inside(got[1], got[0])
 
 
 def _paths(scene_fn):
@@ -250,6 +281,7 @@ PROGRAM_SPANS = [
     _x("rmr.pass", "user_annotation", 1000, 1000),
     _x("rmr.scene_buffers", "user_annotation", 1100, 300),
     _x("rmr.scene_compile", "user_annotation", 1300, 50),
+    _x("rmr.pixel_queue", "user_annotation", 1395, 30),
     _x("rmr_mega_paths", "user_annotation", 1400, 20),
     _x("rmr.pass", "user_annotation", 3000, 600),
     _x("rmr.scene_buffers", "user_annotation", 3100, 200),
@@ -268,7 +300,8 @@ PROGRAM_SPANS = [
 #   3120-3140, 3150-3250) 350 + 120: (1600 - 470) / 2 passes;
 #   scene buffers 300 + 200 us, waits inside 150 + 120;
 #   copies started inside the scene buffers 1 + 2, over 2 launches;
-#   launches 1 + 1 inside the 2 passes;
+#   launches 1 + 1 inside the 2 passes, the first of the 2 inside the
+#   pixel queue's span;
 #   forward (outside the recorder) 40 + 5 + 60 + 50 us, backward
 #   80 + 3 + 70 + 90 us, over 2 steps; kernels 102, 104, 202 and 105,
 #   107, 203.
@@ -278,6 +311,8 @@ EXPECTED = {
     "scene_upload_wait_ms.preview": 270 / 2 * 1e-3,
     "h2d_copies_per_launch.preview": 3 / 2,
     "launches_per_pass.preview": 2 / 2,
+    "queued_launch_share.mega_paths": 1 / 2,
+    "queued_launch_share.frames": 1 / 2,
     "forward_device_ms.train": 155 / 2 * 1e-3,
     "backward_device_ms.train": 243 / 2 * 1e-3,
     "forward_launches_per_step.train": 3 / 2,
