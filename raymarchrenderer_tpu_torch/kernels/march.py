@@ -45,6 +45,14 @@ route and no fallback between the two.  `normal_taps=0` (the exact
 normal) takes each source's exact-normal instantiation, which the entry
 point picks on the host (`grad_map` in csrc/scene_map.cuh).
 
+A launch of each kernel family starts in its one prologue: `paths_launch`
+(`mega_paths.cu`, `wavefront_paths.cu`) or `spectral_launch`
+(`mega_spectral.cu`, `wavefront_spectral.cu`) for corners, and
+`_launch_march_fused` and `record._launch_record_wavefront` for ray
+planes: the checks, the argument structure, and the scene's program and
+data from `kernels.scene_program`, which compiles and uploads a scene's
+layout once per device and gathers only its values at a launch.
+
 `shade_gate` (mega mode) is the JAX package's knob that batches the
 shade pass.  Every gate gives gate 0's bytes (`render.mega`), so a CUDA
 tensor launches the one render megakernel, which runs a pass every body,
@@ -156,7 +164,8 @@ def scene_dims(dims, device, exact: bool) -> SceneDims:
 _P = ctypes.c_void_p
 _D = ctypes.POINTER(SceneDims)
 # Every entry takes the launch scalars, then the scene's `SceneDims`, ...,
-# and ends with the stream and the device index; the persistent entries
+# and ends with the stream and the device index; "program" and "data" are
+# the buffers `kernels.scene_program` makes; the persistent entries
 # (the RGB megakernel's deferred sky and recorder, the spectral recorder,
 # both wavefront kernels and the wavefront recorder, `march_fused`) take
 # their queue's counter (`_queue`) before the stream, and so does the RGB
@@ -282,27 +291,35 @@ def _launch(kernel, args, dims, corners, prog, data, ph, pw, *queue):
     return out
 
 
-def _launch_mega_spectral(scene, params, mats, cfg, corners, sample0,
-                          n_samples, origin_xy, ph, pw, normalize,
-                          lazy_miss, regen_cadence, march_unroll,
-                          buffers=None):
+def spectral_launch(scene, params, mats, cfg, corners, origin_xy, ph, pw,
+                    sample0, n_samples, march_unroll, normalize, lazy_miss,
+                    regen_cadence):
+    """The checks and the (SpecArgs, SceneDims, program, data) of a launch
+    of `csrc/mega_spectral.cu` or `csrc/wavefront_spectral.cu`, rendering
+    or recording."""
     _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data, dims = buffers or spectral_buffers(scene, params, mats,
-                                                   corners.device)
+    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
     args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
         cfg, origin_xy, ph, pw, sample0, n_samples, normalize, march_unroll,
         regen_cadence, lazy_miss))
-    dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
+    return args, scene_dims(dims, corners.device, cfg.normal_taps == 0), \
+        prog, data
+
+
+def _launch_mega_spectral(scene, params, mats, cfg, corners, sample0,
+                          n_samples, origin_xy, ph, pw, normalize,
+                          lazy_miss, regen_cadence, march_unroll):
+    args, dims, prog, data = spectral_launch(
+        scene, params, mats, cfg, corners, origin_xy, ph, pw, sample0,
+        n_samples, march_unroll, normalize, lazy_miss, regen_cadence)
     return _launch(MEGA_SPECTRAL, args, dims, corners, prog, data, ph, pw)
 
 
 def _launch_wavefront_spectral(scene, params, mats, cfg, corners, sample0,
                                n_samples, origin_xy, ph, pw, normalize):
-    _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
-    args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
-        cfg, origin_xy, ph, pw, sample0, n_samples, normalize, 1, 0, False))
-    dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
+    args, dims, prog, data = spectral_launch(
+        scene, params, mats, cfg, corners, origin_xy, ph, pw, sample0,
+        n_samples, 1, normalize, False, 0)
     return _launch(WAVEFRONT_SPECTRAL, args, dims, corners, prog, data, ph,
                    pw, _queue(corners.device))
 
@@ -339,8 +356,7 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
                           lazy_miss: bool = DEFAULT_LAZY_MISS,
                           regen_cadence: int = DEFAULT_REGEN_CADENCE,
                           mode: str = "mega",
-                          shade_gate: float = DEFAULT_SHADE_GATE,
-                          buffers=None):
+                          shade_gate: float = DEFAULT_SHADE_GATE):
     """Gen-3 spectral render of a patch: (ph, pw, 3) float32, the mean over
     `n_samples` samples starting at `sample0` (or the sum with
     `normalize=False`).  `origin_xy` = (x, y) of the patch's top-left pixel
@@ -350,9 +366,7 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     `mode="wavefront"` loops `trace_spectral` over the samples (the
     schedule knobs do not apply).  `shade_gate` > 0 batches the plain mega
     schedule's shade pass (`render.mega`; gate 0's bytes, which the
-    kernel renders at any gate).  `buffers`: a mega launch's (program,
-    data, dims) of `scene_program.spectral_buffers` on the card, built
-    ahead (default: built here, before the launch)."""
+    kernel renders at any gate)."""
     check_knobs(march_unroll, regen_cadence)
     check_gate(shade_gate)
     if n_samples < 1:
@@ -375,8 +389,7 @@ def render_fused_spectral(scene: Scene, params, mats, cfg: RenderConfig,
     if cuda:
         return _launch_mega_spectral(
             scene, params, mats, cfg, corners, sample0, n_samples, origin_xy,
-            ph, pw, normalize, lazy_miss, regen_cadence, march_unroll,
-            buffers)
+            ph, pw, normalize, lazy_miss, regen_cadence, march_unroll)
     px, py = pixel_grid(pw, ph, corners.device, origin_xy)
     c = trace_mega_spectral(scene, params, mats, cfg, corners, px, py,
                             sample0, n_samples=n_samples,

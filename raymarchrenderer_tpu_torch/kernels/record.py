@@ -46,11 +46,10 @@ from raymarchrenderer_tpu_torch.core.sampling import uniform_sphere
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3, vselect
 from raymarchrenderer_tpu_torch.kernels.march import (
     DEFAULT_LAZY_MISS, DEFAULT_MARCH_UNROLL, DEFAULT_REGEN_CADENCE,
-    RECORD_PATHS, RECORD_SPECTRAL, RECORD_WAVEFRONT, PathArgs, SpecArgs,
-    _check_launch, _common_fields, _leaves, _queue, paths_launch,
-    scene_dims, stream_args)
-from raymarchrenderer_tpu_torch.kernels.scene_program import (
-    paths_buffers, spectral_buffers)
+    RECORD_PATHS, RECORD_SPECTRAL, RECORD_WAVEFRONT, PathArgs,
+    _common_fields, _leaves, _queue, paths_launch, scene_dims,
+    spectral_launch, stream_args)
+from raymarchrenderer_tpu_torch.kernels.scene_program import paths_buffers
 from raymarchrenderer_tpu_torch.render.config import RenderConfig
 from raymarchrenderer_tpu_torch.render.integrator import get_normal, march
 from raymarchrenderer_tpu_torch.render.mega import (trace_mega_paths,
@@ -216,12 +215,10 @@ def _launch_record_spectral(scene, params, mats, cfg, corners, origin_xy,
                             ph, pw, sample0, S, knobs):
     unroll, cadence, lazy = knobs
     mats = type(mats)(*(m.detach() for m in mats))
-    _check_launch(corners, cfg, params["objects"], list(mats))
-    prog, data, dims = spectral_buffers(scene, params, mats, corners.device)
-    args = SpecArgs(sky_power=cfg.sky_power, **_common_fields(
-        cfg, origin_xy, ph, pw, sample0, S, False, unroll, cadence, lazy))
+    args, dims, prog, data = spectral_launch(
+        scene, params, mats, cfg, corners, origin_xy, ph, pw, sample0, S,
+        unroll, False, lazy, cadence)
     banks = _miss_banks(cfg, (cfg.max_bounces * S, ph, pw), corners.device)
-    dims = scene_dims(dims, corners.device, cfg.normal_taps == 0)
     queue = _queue(corners.device)
     RECORD_SPECTRAL.launch(ctypes.byref(args), ctypes.byref(dims),
                            corners.contiguous().data_ptr(), data.data_ptr(),

@@ -48,13 +48,21 @@ draw counter before the material's first draw: `Scene.shade` evaluates
 every material graph with one stream, so material i draws after the draws
 of materials 0..i-1.
 
-The layout is static per `Scene`; the parameter values are gathered from
-the tensors on the device, so nothing leaves the card.  Each of
-`object_buffers`, `spectral_buffers` and `paths_buffers` runs in the
-profiler span `rmr.scene_buffers` (the build and the upload of a launch's
-buffers), its compile of the programs in `rmr.scene_compile` inside it.
+The layout is static per `Scene`: the int32 program with its header's
+offsets filled in and each kernel's static tail ints, with `stored_slots`,
+`n_regs` and the data order of the parameters.  Each of `object_buffers`,
+`spectral_buffers` and `paths_buffers` compiles it and uploads it to a
+device once, at its first call for that scene and device, and keeps it
+with the scene (`Scene._layouts`); every call gathers the values from the
+tensors on the device (object and material parameters, the band table,
+the sky, the lights), so after a scene's first call no build copies from
+the host to the card.  Every call runs in the profiler span
+`rmr.scene_buffers`, the once-only compile and upload in
+`rmr.scene_compile` inside the first.
 """
 from __future__ import annotations
+
+from typing import NamedTuple
 
 import torch
 
@@ -238,52 +246,86 @@ def _vec3(a: torch.Tensor, device, what: str) -> torch.Tensor:
     return a.expand(3) if a.ndim == 0 else a.reshape(-1)[:3]
 
 
-def _assemble(program, params, device, tail_ints, tail_floats):
-    """The object program `(words, param slots)` and its parameters on
-    `device`, followed by a kernel's tail: `tail_ints` a list of ints or
-    an int32 tensor, `tail_floats` a list of 1-D float32 tensors; then
-    the buffers' sizes `(n_words, n_floats, stored slots, n_regs)`, the
-    kernels' `SceneDims`."""
-    words, slots = program
+class _Layout(NamedTuple):
+    """A scene's compiled layout on one device: the int32 program (header,
+    object table and nodes, then the kernel's static tail ints), the object
+    and material parameters in data order, and the `SceneDims` fields that
+    come from the program."""
+    prog: torch.Tensor
+    slots: tuple
+    mat_slots: tuple
+    stored: int
+    n_regs: int
+
+
+def _kept(scene: Scene, key, device, compile_layout) -> _Layout:
+    """The layout `key` of `scene` on `device` (`cuda` and `cuda:0` are one
+    key): at its first use `compile_layout()` gives the object program
+    `(words, param slots)`, the kernel's static tail ints and the material
+    parameters, and the program, its header's tail offsets filled in, is
+    uploaded in the span `rmr.scene_compile`, then kept with the scene.
+    `torch.tensor(..., device=)` is a blocking copy: the program is on the
+    device when it returns, so launches on any stream may read it."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None:
+        device = torch.device("cuda", torch.cuda.current_device())
+    layout = scene._layouts.get((key, device))
+    if layout is None:
+        with span("rmr.scene_compile"):
+            (words, slots), tail_ints, mat_slots = compile_layout()
+            words = list(words)
+            words[1] = len(words)                   # tail ints' offset
+            words[2] = 3 * len(slots)               # tail floats' offset
+            prog = torch.tensor(words + tail_ints, dtype=torch.int32,
+                                device=device)
+            layout = scene._layouts[(key, device)] = _Layout(
+                prog, tuple(slots), tuple(mat_slots), stored_slots(words),
+                words[3])
+    return layout
+
+
+def _assemble(layout: _Layout, prog, params, device, tail_floats):
+    """The buffers of one launch: `prog` (the kept program, or it with a
+    launch's tail ints), the data (the object parameters gathered on
+    `device`, then `tail_floats`, 1-D float32 tensors, then the material
+    parameters), and the buffers' sizes `(n_words, n_floats, stored
+    slots, n_regs)`, the kernels' `SceneDims`."""
     vecs = [_vec3(params["objects"][oi][pi], device,
-                  f"object {oi} parameter {pi}") for oi, pi in slots]
-    words = list(words)
-    words[1] = len(words)                   # tail ints' offset
-    words[2] = 3 * len(vecs)                # tail floats' offset
-    prog = torch.tensor(words, dtype=torch.int32, device=device)
-    prog = torch.cat([prog, torch.as_tensor(tail_ints, dtype=torch.int32,
-                                            device=device)])
-    data = torch.cat(vecs + list(tail_floats) + [
+                  f"object {oi} parameter {pi}") for oi, pi in layout.slots]
+    mats = [_vec3(params["materials"][mi][pi], device,
+                  f"material {mi} parameter {pi}")
+            for mi, pi in layout.mat_slots]
+    data = torch.cat(vecs + list(tail_floats) + mats + [
         torch.zeros(0, dtype=torch.float32, device=device)])
-    dims = (int(prog.numel()), int(data.numel()), stored_slots(words),
-            words[3])
-    return prog.contiguous(), data.contiguous(), dims
+    dims = (int(prog.numel()), int(data.numel()), layout.stored,
+            layout.n_regs)
+    return prog, data, dims
 
 
 def object_buffers(scene: Scene, params, device):
     """(int32 program, float32 data, dims) of `csrc/march_fused.cu`: the
     object program and the object parameters, no tail."""
     with span("rmr.scene_buffers"):
-        with span("rmr.scene_compile"):
-            program = compile_program(scene)
-        return _assemble(program, params, device, [], [])
+        layout = _kept(scene, "objects", device,
+                       lambda: (compile_program(scene), [], ()))
+        return _assemble(layout, layout.prog, params, device, [])
 
 
 def spectral_buffers(scene: Scene, params, mats, device):
     """(int32 program, float32 data, dims) of `csrc/mega_spectral.cu`, the
-    band table `mats` (`SpectralMaterials`) as the tail."""
+    band table `mats` (`SpectralMaterials`) as the tail: its kinds
+    appended on the device to the kept program, its rows to the data."""
     n_mats = int(mats.min_wave.shape[0])
     if scene.objects and n_mats == 0:
         raise ValueError("the band table has no rows")
     with span("rmr.scene_buffers"):
-        kinds = torch.cat([torch.tensor([n_mats], dtype=torch.int32,
-                                        device=device),
-                           mats.kind.to(device=device, dtype=torch.int32)])
+        layout = _kept(scene, ("spectral", n_mats), device,
+                       lambda: (compile_program(scene), [n_mats], ()))
+        prog = torch.cat([layout.prog,
+                          mats.kind.to(device=device, dtype=torch.int32)])
         band = [b.to(device=device, dtype=torch.float32)
                 for b in (mats.min_wave, mats.max_wave, mats.power)]
-        with span("rmr.scene_compile"):
-            program = compile_program(scene)
-        return _assemble(program, params, device, kinds, band)
+        return _assemble(layout, prog, params, device, band)
 
 
 def _material_code(mat, base_float: int, n_floats: int):
@@ -415,6 +457,23 @@ def sky_kind(scene: Scene) -> int:
     return SKY_SH if scene.has_sh_env else SKY_CONST
 
 
+def _paths_layout(scene: Scene):
+    """The layout of `paths_buffers` (`_kept`): the material table's first
+    instruction words absolute, the material parameters' codes after the
+    object parameters and the head of floats (the sky power, the light
+    table, the SH coefficients)."""
+    program = compile_program(scene)
+    n_head = 1 + 5 * scene.n_lights + (
+        N_SH_FLOATS if sky_kind(scene) == SKY_SH else 0)
+    table, instrs, mat_slots, _ = material_program(
+        scene, 3 * len(program[1]) + n_head)
+    n_mats = len(scene.materials)
+    instr0 = len(program[0]) + 2 + len(table)     # absolute first word
+    for m in range(n_mats):
+        table[_MAT_WORDS * m] += instr0
+    return program, [n_mats, scene.n_lights] + table + instrs, mat_slots
+
+
 def paths_buffers(scene: Scene, params, device):
     """(int32 program, float32 data, dims) of `csrc/mega_paths.cu` and
     `csrc/wavefront_paths.cu`: the material program, the light table, the
@@ -430,24 +489,19 @@ def paths_buffers(scene: Scene, params, device):
             if tuple(pos.shape) != (n_lights, 3):
                 raise ValueError(
                     f"light positions have shape {tuple(pos.shape)}")
-            head += [pos.reshape(-1)] + [
-                lights[k].to(device=device, dtype=torch.float32).reshape(-1)
-                for k in ("power", "radius")]
+            head.append(pos.reshape(-1))
+            for k in ("power", "radius"):
+                v = lights[k].to(device=device, dtype=torch.float32)
+                if v.numel() != n_lights:
+                    raise ValueError(f"light {k} has shape "
+                                     f"{tuple(v.shape)}")
+                head.append(v.reshape(-1))
         if sky_kind(scene) == SKY_SH:
             sh = params["env"]["sh"].to(device=device, dtype=torch.float32)
             if tuple(sh.shape) != (16, 3):
                 raise ValueError(
                     f"SH coefficients have shape {tuple(sh.shape)}")
             head.append(sh.reshape(-1))
-        with span("rmr.scene_compile"):
-            program = compile_program(scene)
-            base = 3 * len(program[1]) + sum(int(h.numel()) for h in head)
-            table, instrs, slots, _ = material_program(scene, base)
-        n_mats = len(scene.materials)
-        instr0 = len(program[0]) + 2 + len(table)     # absolute first word
-        for m in range(n_mats):
-            table[_MAT_WORDS * m] += instr0
-        mparams = [_vec3(params["materials"][mi][pi], device,
-                         f"material {mi} parameter {pi}") for mi, pi in slots]
-        return _assemble(program, params, device,
-                         [n_mats, n_lights] + table + instrs, head + mparams)
+        layout = _kept(scene, "paths", device,
+                       lambda: _paths_layout(scene))
+        return _assemble(layout, layout.prog, params, device, head)

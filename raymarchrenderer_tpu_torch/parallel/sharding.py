@@ -320,27 +320,20 @@ def render_sharded_spectral(scene: Scene, params, mats, cfg: RenderConfig,
                             sample0: int = 0):
     """The (H, W, 3) mean spectral image of samples sample0 .. sample0 +
     spp - 1 over `mesh`: one `render_fused_spectral` launch per position
-    (the spectral megakernel on the card, its plain version on the CPU).
-    A card's scene buffers are built with its other inputs, before the
-    first launch, so a position never uploads behind a launch of its
-    card."""
+    (the spectral megakernel on the card, its plain version on the
+    CPU)."""
     from raymarchrenderer_tpu_torch.kernels.march import (
         render_fused_spectral)
-    from raymarchrenderer_tpu_torch.kernels.scene_program import (
-        spectral_buffers)
     mesh = _one_position(mesh, corners)
 
     def place(dev, c):
-        p, m = _tree_to(params, dev), _mats_to(mats, dev)
-        buffers = (spectral_buffers(scene, p, m, dev) if dev.type == "cuda"
-                   else None)
-        return p, m, c, buffers
+        return _tree_to(params, dev), _mats_to(mats, dev), c
 
     def launch(inputs, origin, patch, s0, n):
-        p, m, c, buffers = inputs
+        p, m, c = inputs
         return render_fused_spectral(scene, p, m, cfg, c, s0, n_samples=n,
                                      origin_xy=origin, patch_shape=patch,
-                                     normalize=False, buffers=buffers)
+                                     normalize=False)
 
     return _render_merged(mesh, cfg, corners, spp, sample0, place, launch)
 

@@ -232,6 +232,11 @@ class Scene:
     # parse-time initial values (not part of the static hash)
     _init: dict = dataclasses.field(default=None, compare=False, hash=False,
                                     repr=False)
+    # the kernels' compiled layouts of this scene on each device, filled at
+    # the first build of each (`kernels.scene_program`); a new scene starts
+    # with none
+    _layouts: dict = dataclasses.field(default_factory=dict, init=False,
+                                       compare=False, hash=False, repr=False)
 
     def init_params(self, device="cuda") -> dict:
         """The parse-time parameter values as tensors on `device` (the

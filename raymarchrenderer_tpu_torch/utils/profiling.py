@@ -8,9 +8,11 @@ so an untraced run pays one flag check a span.  The spans land in the
 profiler's Chrome trace beside the CUPTI device events, on one clock:
 
   * `rmr.pass` — a pass of `render.tiles.ProgressiveRenderer`;
-  * `rmr.scene_buffers` — a launch's scene program and data built and
-    uploaded (`kernels.scene_program`), with `rmr.scene_compile` inside
-    it, the host's compile of the object and material programs;
+  * `rmr.scene_buffers` — a launch's scene program and data
+    (`kernels.scene_program`): the data gathered on the device, and, at
+    the first build on a scene and device, `rmr.scene_compile` inside it,
+    the host's compile of the object and material programs and their
+    upload;
   * `rmr.record` — a recorder launch of a train step;
   * `rmr.forward`, `rmr.backward`, `rmr.update` — the differentiable
     forward and loss, the gradients, and the parameter update of a train

@@ -1139,6 +1139,35 @@ def test_tiles_byte_equal_full_frame(cuda_device, nee):
 
 
 @pytest.mark.requires_cuda
+def test_second_preview_pass_copies_nothing_to_the_card(cuda_device,
+                                                        tmp_path):
+    """Traced as the benchmark traces the preview (`rmbench.trace`), the
+    first endless pass on a scene uploads its kept layout inside
+    `rmr.scene_buffers`, and the second pass issues no `cudaMemcpy*`
+    there: the program stays on the card and the values are gathered on
+    it."""
+    from rmbench import spans
+    from rmbench.trace import Trace, profiled
+    from raymarchrenderer_tpu_torch.render.tiles import ProgressiveRenderer
+    scene = builtin.csg_demo()
+    params = scene.init_params(cuda_device)
+    cfg = RenderConfig(width=256, height=256, max_steps=192, max_bounces=4,
+                       relax_omega=2.0, normal_taps=4)
+    corners = Camera(aspect=1.0).corner_rays_flat(cuda_device)
+    pr = ProgressiveRenderer(scene, params, cfg, corners, direct_light=True)
+    copies = []
+    for p in range(2):
+        path = tmp_path / f"pass{p}.json"
+        with profiled(path):
+            pr.endless_passes(1)
+        tr = Trace(path)
+        assert spans.spans(tr, "rmr.scene_buffers")
+        copies.append(spans.calls_inside(tr, "rmr.scene_buffers",
+                                         "cudaMemcpy"))
+    assert copies[0] >= 1 and copies[1] == 0
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("spectral", [False, True], ids=["rgb", "spectral"])
 def test_resume_byte_equal_on_the_card(cuda_device, tmp_path, spectral):
     """`render --checkpoint` at 8 spp, `--resume --spp 16`: byte-equal to

@@ -12,6 +12,11 @@ functions, so a wrong mark, register or parameter offset reads a missing
 slot or a wrong value.  Its distance and material index must equal the
 plain `Scene.map_dist` and `Scene.map` bit for bit at seeded points of
 every scene file and builtin scene.
+
+A scene's layout (the program and the parameters' data order) is compiled
+and kept at its first build on that scene and device; later builds
+gather only the values, so a changed parameter must reach the data, and
+no scene may read another's program.
 """
 import glob
 import os
@@ -25,6 +30,7 @@ from _torch_parity import (ALL_NODES_SCENE, BIG_OBJECT_SCENE,
 
 from raymarchrenderer_tpu_torch.core.vecmath import Vec3
 from raymarchrenderer_tpu_torch.kernels import scene_program as sp
+from raymarchrenderer_tpu_torch.render.spectral_integrator import band_table
 from raymarchrenderer_tpu_torch.scene import builtin, load_scene, loads_scene
 from raymarchrenderer_tpu_torch.scene.graph import OBJECT_NODES
 
@@ -211,3 +217,65 @@ def test_many_lights_compile():
     assert torch.equal(tail[37:49], lights["power"].reshape(-1))
     assert torch.equal(tail[49:61], lights["radius"].reshape(-1))
     assert sp.shared_bytes(dims, exact=False) == 4 * (dims[0] + dims[1])
+
+
+def _same(a, b) -> bool:
+    """Byte for byte: the same dtype, shape and bits."""
+    return (a.dtype == b.dtype and a.shape == b.shape
+            and a.detach().numpy().tobytes() == b.detach().numpy().tobytes())
+
+
+# buffer kind -> (scene factory, its build on (scene, params, band table))
+_BUILDS = {
+    "paths_csg": (builtin.csg_demo,
+                  lambda s, p, m: sp.paths_buffers(s, p, "cpu")),
+    "paths_sof": (builtin.sphere_on_floor,
+                  lambda s, p, m: sp.paths_buffers(s, p, "cpu")),
+    "spectral": (builtin.sphere_on_floor,
+                 lambda s, p, m: sp.spectral_buffers(s, p, m, "cpu")),
+    "objects": (builtin.sphere_on_floor,
+                lambda s, p, m: sp.object_buffers(s, p, "cpu")),
+}
+
+
+@pytest.mark.parametrize("build", list(_BUILDS))
+def test_kept_layout_takes_changed_values(build):
+    """A parameter leaf changed in place between two builds on one scene
+    reaches the data, while the program and dims stay; each build equals,
+    byte for byte, a build on a freshly parsed scene with the same
+    values."""
+    make, fn = _BUILDS[build]
+    scene = make()
+    params = scene.init_params("cpu")
+    mats = band_table(scene, "cpu")
+    got, want = [], []
+    for step in range(2):
+        if step:
+            with torch.no_grad():
+                params["objects"][0][0].add_(0.5)
+                mats.power.mul_(0.5)
+        got.append(fn(scene, params, mats))
+        want.append(fn(make(), params, mats))
+    assert _same(got[0][0], got[1][0]) and got[0][2] == got[1][2]
+    assert not _same(got[0][1], got[1][1])
+    for g, w in zip(got, want):
+        assert _same(g[0], w[0]) and _same(g[1], w[1]) and g[2] == w[2]
+
+
+def test_scenes_never_share_a_program():
+    """Builds that alternate between two scenes give each its own program,
+    equal to a fresh scene's; an equal scene parsed again keeps a layout
+    of its own."""
+    makes = (builtin.sphere_on_floor, builtin.csg_demo)
+    for build in ("paths_csg", "spectral", "objects"):
+        fn = _BUILDS[build][1]
+        args = [(s, s.init_params("cpu"), band_table(s, "cpu"))
+                for s in (make() for make in makes)]
+        progs = [fn(*a)[0] for a in args + args]
+        assert not _same(progs[0], progs[1])
+        for k, make in enumerate(makes):
+            fresh = make()
+            assert fresh == args[k][0] and not fresh._layouts
+            want = fn(fresh, *args[k][1:])[0]
+            assert _same(progs[k], want) and _same(progs[k + 2], want)
+            assert want.data_ptr() != progs[k].data_ptr()

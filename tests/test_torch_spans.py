@@ -3,7 +3,8 @@ readers of them.
 
 On the CPU, under `torch.profiler.profile(activities=[CPU])`: a pass of
 the progressive driver opens `rmr.pass`, each scene-buffer build
-`rmr.scene_buffers` with `rmr.scene_compile` inside it, and a recorded
+`rmr.scene_buffers`, the first on a scene with `rmr.scene_compile` inside
+it (the layout's compile, once per scene and device), and a recorded
 train step `rmr.forward` (with `rmr.record` inside it), then
 `rmr.backward`, then `rmr.update`; a ctypes launch opens a span named
 after its entry point, and an RGB megakernel launch on the pixel queue
@@ -158,19 +159,29 @@ def _objects():
 @pytest.mark.parametrize("build", ["paths_csg", "paths_sof", "spectral",
                                    "objects"])
 def test_scene_buffers_span_holds_the_compile_span(build):
-    fn = {"paths_csg": lambda: _paths(builtin.csg_demo),
-          "paths_sof": lambda: _paths(builtin.sphere_on_floor),
-          "spectral": _spectral, "objects": _objects}[build]()
-    want = fn()
+    """The first build on a freshly parsed scene compiles its layout in
+    `rmr.scene_compile` inside `rmr.scene_buffers`; the second build on
+    that scene opens `rmr.scene_buffers` alone, with the same words and
+    floats."""
+    make = {"paths_csg": lambda: _paths(builtin.csg_demo),
+            "paths_sof": lambda: _paths(builtin.sphere_on_floor),
+            "spectral": _spectral, "objects": _objects}[build]
+    want = make()()
+    fn = make()
     with profile(activities=[ProfilerActivity.CPU]) as prof:
-        got = fn()
+        first = fn()
     spans = _spans(prof)
     assert [s[0] for s in spans] == ["rmr.scene_buffers",
                                      "rmr.scene_compile"]
     assert _inside(spans[1], spans[0])
-    # the buffers are those built without a profiler, word for word
-    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
-    assert got[2] == want[2]
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        second = fn()
+    assert [s[0] for s in _spans(prof)] == ["rmr.scene_buffers"]
+    # both are the buffers of another scene's build without a profiler,
+    # word for word
+    for got in (first, second):
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert got[2] == want[2]
 
 
 def _order_of_phases(prof):
